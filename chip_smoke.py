@@ -22,7 +22,27 @@ Phases, one JSON line each:
    SimConfig(n_steps=440, seed=3), 720 beams, 5 cm cells) replayed through
    Slam2D.update_many_prepadded from device-staged scans, with every
    kernel's launch count set to 0 just before and read just after:
-   scans/s, ATE (< 12 mm), re-orgs, zero escapes, launches > 0.
+   scans/s, ATE (< 12 mm), re-orgs, zero escapes, launches > 0;
+6. pf_kernel — the particle filter's kernels at the bench_pf.py shapes (30
+   particles, 720 beams padded to 768, 5 cm cells) on a real particle set:
+   the batched Gauss-Newton solve B6, the batched deposit and the batched
+   EDT, each bit-equal to its plain version, with times and bounds as in
+   phase 3;
+7. pf_prefix — the first 24 PFSlam2D updates of that workload on the CPU
+   (plain versions) and on the card (kernels), one seed, through the run's
+   first band scroll: the same resample indices, best particle, scrolls
+   and window origin, resident grids compared. A control run (the card
+   again, the motion draws scaled by 1 + 3e-7) shows what an ulp-sized
+   change does to particles on this trajectory: at most twice its count
+   of particle-updates beyond 1 mm / 1e-3 rad, and every particle within
+   1 mm / 1e-3 rad or twice the control's largest move. Before the
+   scroll's scan, the scroll alone from the card run's state on both,
+   bit-equal;
+8. pf_main_path — the bench_pf.py workload (SimConfig(n_steps=120,
+   seed=5), its PFSlam2DOptions) through PFSlam2D.update_prepadded from
+   device-staged scans, three fresh filters, launch counts set to 0 just
+   before and read just after: updates/s, final error (< 5 cm), re-orgs,
+   escapes, peak memory, match iterations, launches per update.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -42,6 +62,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 (int32 alike)
 ATE_BOUND_M = 0.012            # bench.py:144
 PREFIX_SCANS = 60
+PF_PREFIX = 24                 # PF updates compared CPU vs card
+PF_SCROLL_SCAN = 22            # the bench_pf.py run's first re-org: a scroll
+PF_ERR_BOUND_M = 0.05          # bench_pf.py:109
 
 
 def emit(obj) -> None:
@@ -99,6 +122,361 @@ def bound(nbytes: float, nops: float) -> tuple:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = nops / FP32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def pf_phases(torch, dev) -> list:
+    """Phases 6-8 (PFSlam2D, the bench_pf.py workload): B6 and the batched
+    B1 / B3 against their plain versions at the PF shapes, the first
+    ``PF_PREFIX`` updates on the CPU and on the card, then the workload on
+    the card. Returns the kernels line's entries of this path."""
+    from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D, PFSlam2DOptions
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, scatter_matmul
+    from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.utils import simulator
+    from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=120, seed=5,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    n_steps = len(data.clouds)
+    opts = PFSlam2DOptions(particles=30, resolution=0.05, max_range=10.0,
+                           trans_thresh=0.25, rot_thresh=0.25,
+                           capacity=2048, max_iter=50, seed=11)
+    cfg = opts.mapping_config()
+    geo = cfg.geometry
+    padded = [pad_scan(c, beam_bucket(720)) for c in data.clouds]
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded]
+
+    # 6. kernels at the PF shapes, on a real particle set: the filter
+    # after a few updates, its particles moved by the next odometry packet
+    pf = PFSlam2D(opts, device=dev)
+    pf.set_prior(Pose2D(*data.poses_gt[0]))
+    k = 0
+    while k < 6:
+        pf.update_prepadded(*staged[k], data.odometry[k])
+        k += 1
+    pf._flush_motion()
+    ps = pf.pset
+    odelta = torch.as_tensor((pf.odom_ - data.odometry[k]).se2_array(),
+                             dtype=torch.float32, device=dev)
+    eps = torch.randn((opts.particles, 3),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    poses = pf_mod.draw_from_motion(opts, eps, odelta, ps.pose).contiguous()
+    pts, msk, ori = staged[k]
+    grids, orgs = pf_mod.match_windows(opts, ps.res_org, ps.res_dist, poses)
+    sopts = opts.solver_options()
+    b6_args = (grids, orgs, poses, pts[:, :2].contiguous(), msk)
+    b6_kw = dict(max_dist=cfg.distance.max_dist, res=geo.resolution,
+                 scale=geo.scale, cell_offset=geo.cell_offset,
+                 cauchy_c=sopts.robust.param, eps1=sopts.eps1,
+                 eps2=sopts.eps2, max_iter=sopts.max_iterations,
+                 want_lik=True)
+    got = gn_batch.solve_window_sq(*b6_args, **b6_kw)
+    want = gn_batch.solve_window_sq_plain(*b6_args, **b6_kw)
+    torch.cuda.synchronize()
+    (st, it, chi2, sse), (pst, pit, pchi2, psse) = got, want
+    n_p, b = grids.shape[0], pts.shape[0]
+    b6_err = float((st - pst).abs().max())
+    rel = {name: float(((a - w) / w.abs().clamp(min=1e-6)).abs().max())
+           for name, a, w in (("chi2", chi2, pchi2), ("sum_d2", sse, psse))}
+    mism = int((it != pit).sum())
+    # the plain version sums in the kernel's order and the kernel is built
+    # without FMA contraction: every particle's results bit-equal
+    for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got,
+                          want):
+        assert torch.equal(a, w), \
+            f"B6 {name} differs: state err {b6_err}, {mism} iteration " \
+            f"counts, {rel}"
+    # bytes: every grid once, the scan, the starts and the rows; operations:
+    # ~60 per beam and evaluation, over this run's evaluations (the start,
+    # each iteration's candidate, the likelihood)
+    evals = int(it.sum()) + 2 * n_p
+    b6_bound = bound(grids.numel() + n_p * (8 + 16 + 32) + b * 12,
+                     60 * b * evals)
+    b6 = {"name": "gn_batch_solve", "route": "cuda",
+          "source": "iris_lama_tpu_torch/csrc/gn_batch.cu",
+          "replaces": "iris_lama_tpu/ops/gn_batch.py:108",
+          "shape": [n_p, grids.shape[1], grids.shape[2], b],
+          "max_abs_err": b6_err, "rel_err": rel,
+          "iters_differ": mism, "iters_max": int(it.max()),
+          "iters_mean": float(it.float().mean()),
+          **timings(torch, "", lambda: gn_batch.solve_window_sq(
+              *b6_args, **b6_kw), 50),
+          **timings(torch, "plain_", lambda: gn_batch.solve_window_sq_plain(
+              *b6_args, **b6_kw), 5),
+          "library_ms": None,
+          "library_call": "none: no single PyTorch call computes an IRLS "
+                          "solve",
+          "bound_ms": b6_bound[0], "bound_by": b6_bound[1]}
+
+    # the map phase's streams and masks for every particle (the exact-update
+    # sub-window at each particle's pose)
+    wu, w_res = cfg.resident_update_cells, cfg.resident_window_cells
+    lp = geo.w2m(poses[:, :2]) - ps.res_org
+    start = torch.clamp(lp - wu // 2, 0, w_res - wu)
+    idx = mapping.deposit_indices(cfg, poses, pts, msk, ori,
+                                  ps.res_org + start, wu)
+    n_dep = idx.free_ly.shape[1]
+    perm = torch.argsort(torch.rand((n_p, n_dep), device=dev), dim=1)
+    sent = torch.rand((n_p, n_dep), device=dev) < 0.3
+    cases = {"beam_ordered": (idx.free_ly, idx.free_lx),
+             "shuffled": (torch.gather(idx.free_ly, 1, perm),
+                          torch.gather(idx.free_lx, 1, perm)),
+             "sentinels": (torch.where(sent, wu, idx.free_ly).contiguous(),
+                           idx.free_lx)}
+    b1_err = 0
+    for name, (ly, lx) in cases.items():
+        g1 = scatter_matmul.deposit_counts(ly, lx, wu, wu)
+        w1 = scatter_matmul.deposit_counts_plain(ly, lx, wu, wu)
+        torch.cuda.synchronize()
+        b1_err = max(b1_err, int((g1 - w1).abs().max()))
+        assert torch.equal(g1, w1), f"B1 batched {name}: differs"
+    ly, lx = cases["shuffled"]
+    ok = (ly >= 0) & (ly < wu) & (lx >= 0) & (lx < wu)
+    plane = torch.arange(n_p, device=dev)[:, None] * (wu * wu + 1)
+    flat = (torch.where(ok, ly.long() * wu + lx.long(), wu * wu)
+            + plane).reshape(-1)
+    ones = torch.ones(flat.numel(), dtype=torch.int32, device=dev)
+
+    def b1_library():
+        torch.zeros(n_p * (wu * wu + 1), dtype=torch.int32,
+                    device=dev).index_put_((flat,), ones, accumulate=True)
+
+    b1_bound = bound(n_p * (n_dep * 8 + wu * wu * 4), n_p * n_dep)
+    b1b = {"name": "deposit_counts_batched", "route": "cuda",
+           "source": "iris_lama_tpu_torch/csrc/deposit.cu",
+           "replaces": "iris_lama_tpu/ops/scatter_matmul.py:228",
+           "shape": [n_p, n_dep, wu, wu], "max_abs_err": b1_err,
+           **timings(torch, "", lambda: scatter_matmul.deposit_counts(
+               ly, lx, wu, wu), 100),
+           **timings(torch, "plain_",
+                     lambda: scatter_matmul.deposit_counts_plain(
+                         ly, lx, wu, wu), 20),
+           **timings(torch, "library_", b1_library, 10),
+           "library_call": "zeros + index_put_(accumulate=True)",
+           "bound_ms": b1_bound[0], "bound_by": b1_bound[1]}
+
+    r, cap = cfg.distance.radius_cells, cfg.distance.max_sqdist
+    obst = mapping.dyn_slice(ps.res_dist, start[:, 1], start[:, 0], wu,
+                             wu) == 0
+    b3_err = 0
+    for m in (obst, torch.rand(obst.shape, device=dev) < 0.3):
+        g3 = edt_pallas.edt2d(m, cap, r)
+        w3 = edt_pallas.edt2d_plain(m, cap, r)
+        torch.cuda.synchronize()
+        b3_err = max(b3_err, int((g3 - w3).abs().max()))
+        assert torch.equal(g3, w3), "B3 batched: differs"
+    b3_bound = bound(obst.numel() * (1 + 4), obst.numel() * 4 * (2 * r + 1))
+    b3b = {"name": "edt2d_batched", "route": "cuda",
+           "source": "iris_lama_tpu_torch/csrc/edt.cu",
+           "replaces": "iris_lama_tpu/ops/edt_pallas.py:25",
+           "shape": list(obst.shape), "radius": r,
+           "obstacle_share": float(obst.float().mean()),
+           "max_abs_err": b3_err,
+           **timings(torch, "", lambda: edt_pallas.edt2d(obst, cap, r), 100),
+           **timings(torch, "plain_", lambda: edt_pallas.edt2d_plain(
+               obst, cap, r), 20),
+           "library_ms": None,
+           "library_call": "none: no single PyTorch call computes a capped "
+                           "EDT",
+           "bound_ms": b3_bound[0], "bound_by": b3_bound[1]}
+    pf_kernels = [b6, b1b, b3b]
+    for kern in pf_kernels:
+        emit({"phase": "pf_kernel", **kern})
+    del pf, ps, grids, b6_args, cases, idx, obst
+
+    # 7. prefix: CPU plain versions vs the card, same seed, same draws;
+    # and, as a control, the card again with the motion draws scaled by
+    # 1 + 3e-7 (how far an ulp-sized change moves the particles)
+    def make(device, scale=None):
+        draws = None
+        if scale is not None:
+            gen = torch.Generator().manual_seed(opts.seed)
+
+            def draws(kind, shape):
+                if kind == "normal":
+                    return torch.randn(shape, generator=gen) * scale
+                return torch.rand(shape, generator=gen)
+        f = PFSlam2D(opts, device=device, draws=draws)
+        f.set_prior(Pose2D(*data.poses_gt[0]))
+        return f
+
+    def advance(f, lo, hi, infos):
+        """Scans [lo, hi) through ``f``; one record per accepted update."""
+        for i in range(lo, hi):
+            scan = (torch.as_tensor(a, device=f.device) for a in padded[i])
+            if f.update_prepadded(*scan, data.odometry[i]) and i:
+                infos.append((f.pset.pose.cpu().numpy(),
+                              f.pset.lineage.cpu().numpy(),
+                              bool(f._last_info["resampled"]),
+                              f.best_particle_idx()))
+
+    def forced_scroll(f):
+        """The band scroll that the next update starts with, from the card
+        run's state, on the CPU and on the card: a scroll moves data only,
+        so the two state dicts must be bit-equal."""
+        assert f.n_reorgs == 0, "PF prefix: re-org before the scroll scan"
+        snap = f.state_dict()
+        out = []
+        for device in ("cpu", dev):
+            g = PFSlam2D(opts, device=device)
+            g.load_state_dict(snap)
+            g.pset = pf_mod.scroll(g.options, g.pset, g.options.scroll_kp)
+            out.append(g.state_dict())
+            del g
+        return {"shift_cells": (out[1]["res_org"]
+                                - snap["res_org"]).tolist(),
+                "kp": f.options.scroll_kp,
+                "differing_arrays": sorted(
+                    k for k in out[0]
+                    if not np.array_equal(out[0][k], out[1][k]))}
+
+    def pose_diff(a, g):
+        """Per-particle |dxy| (m) and |dtheta| (rad) of two [N, 4] sets."""
+        dth = np.angle(np.exp(1j * (np.arctan2(a[:, 3], a[:, 2])
+                                    - np.arctan2(g[:, 3], g[:, 2]))))
+        return np.abs(a[:, :2] - g[:, :2]).max(1), np.abs(dth)
+
+    def same_decisions(x, y):
+        return all(np.array_equal(a[1], g[1]) and a[2] == g[2]
+                   for a, g in zip(x, y))
+
+    cpu_pf, gpu_pf, ctl_pf = make("cpu"), make(dev), make(dev, 1.0 + 3e-7)
+    cpu_inf, gpu_inf, ctl_inf = [], [], []
+    t_cpu, scroll_check = 0.0, None
+    for lo, hi in ((0, PF_SCROLL_SCAN), (PF_SCROLL_SCAN, PF_PREFIX + 1)):
+        if lo:
+            scroll_check = forced_scroll(gpu_pf)
+        t0 = time.perf_counter()
+        advance(cpu_pf, lo, hi, cpu_inf)
+        t_cpu += time.perf_counter() - t0
+        advance(gpu_pf, lo, hi, gpu_inf)
+        advance(ctl_pf, lo, hi, ctl_inf)
+    assert len(cpu_inf) == len(gpu_inf) == PF_PREFIX, "PF prefix: accepted"
+    ctl = [pose_diff(a[0], g[0]) for a, g in zip(ctl_inf, gpu_inf)]
+    ctl_dxy = max(float(d[0].max()) for d in ctl)
+    ctl_dth = max(float(d[1].max()) for d in ctl)
+    diffs = [pose_diff(a[0], g[0]) for a, g in zip(cpu_inf, gpu_inf)]
+    dxy = max(float(d[0].max()) for d in diffs)
+    dth = max(float(d[1].max()) for d in diffs)
+    def n_beyond(ds):
+        """Particle-updates beyond 1 mm / 1e-3 rad."""
+        return sum(int(((d[0] > 1e-3) | (d[1] > 1e-3)).sum()) for d in ds)
+
+    beyond, ctl_beyond = n_beyond(diffs), n_beyond(ctl)
+    best = [(a[3], g[3], d[0][a[3]], d[1][a[3]])
+            for a, g, d in zip(cpu_inf, gpu_inf, diffs)]
+    grids_diff = {}
+    for name in ("res_occ", "res_vis", "res_dist"):
+        a = getattr(cpu_pf.pset, name).numpy()
+        b_ = getattr(gpu_pf.pset, name).cpu().numpy()
+        grids_diff[name] = int(np.sum(a != b_))
+    n_cells = gpu_pf.pset.res_occ.numel()
+    # at most twice as many particle-updates beyond 1 mm / 1e-3 rad as the
+    # control has, and every particle within 1 mm / 1e-3 rad or within
+    # twice what the control moved a particle in this run
+    lim_xy, lim_th = max(1e-3, 2 * ctl_dxy), max(1e-3, 2 * ctl_dth)
+    emit({"phase": "pf_prefix", "updates": PF_PREFIX, "cpu_s": t_cpu,
+          "max_dxy_m": dxy, "max_dtheta_rad": dth,
+          "limit_dxy_m": lim_xy, "limit_dtheta_rad": lim_th,
+          "particle_updates_beyond_1mm": beyond,
+          "particle_updates": PF_PREFIX * opts.particles,
+          "best_particle_equal": all(b_[0] == b_[1] for b_ in best),
+          "best_max_dxy_m": max(float(b_[2]) for b_ in best),
+          "best_max_dtheta_rad": max(float(b_[3]) for b_ in best),
+          "resample_indices_equal": same_decisions(cpu_inf, gpu_inf),
+          "control_max_dxy_m": ctl_dxy, "control_max_dtheta_rad": ctl_dth,
+          "control_particle_updates_beyond_1mm": ctl_beyond,
+          "control_resample_indices_equal": same_decisions(ctl_inf, gpu_inf),
+          "reorgs": [cpu_pf.n_reorgs, gpu_pf.n_reorgs],
+          "scrolls": [cpu_pf.n_scrolls, gpu_pf.n_scrolls],
+          "forced_scroll": scroll_check,
+          "org_equal": bool(torch.equal(cpu_pf.pset.res_org,
+                                        gpu_pf.pset.res_org.cpu())),
+          "differing_cells": grids_diff, "cells": n_cells})
+    # The CPU and the card round sin/cos/atan2 differently, so particles
+    # differ by ulps and a few hits move across a cell boundary (as in the
+    # Slam2D prefix); a particle in a poorly constrained spot turns such an
+    # ulp into a millimetre. The control run measures that on the card
+    # alone (the plain B6 is bit-equal to the kernel), and is a measure of
+    # it only while it takes the card run's decisions. The filter must take
+    # the same decisions — resample indices, best particle, band scrolls —
+    # and its tail must be no wider than the control's, in count and size.
+    assert same_decisions(ctl_inf, gpu_inf), "PF prefix: control decisions"
+    assert same_decisions(cpu_inf, gpu_inf), \
+        "PF prefix: resample indices differ"
+    assert all(b_[0] == b_[1] for b_ in best), "PF prefix: best particle"
+    assert cpu_pf.n_scrolls == gpu_pf.n_scrolls == cpu_pf.n_reorgs \
+        == gpu_pf.n_reorgs >= 1, "PF prefix: band scrolls differ"
+    assert not scroll_check["differing_arrays"] and any(
+        scroll_check["shift_cells"]), f"PF prefix: scroll {scroll_check}"
+    assert beyond <= 2 * ctl_beyond, \
+        f"PF prefix: {beyond} particle-updates beyond 1 mm (control " \
+        f"{ctl_beyond})"
+    assert dxy <= lim_xy and dth <= lim_th, "PF prefix: particles diverge"
+    assert bool(torch.equal(cpu_pf.pset.res_org,
+                            gpu_pf.pset.res_org.cpu())), "PF prefix: org"
+    assert sum(grids_diff.values()) <= 1e-3 * n_cells, \
+        f"PF prefix: resident grids differ {grids_diff}"
+    del cpu_pf, gpu_pf, ctl_pf
+
+    # 8. the bench_pf.py workload on the card -------------------------------
+    fns = {"deposit_counts_batched": scatter_matmul.deposit_counts,
+           "edt2d_batched": edt_pallas.edt2d,
+           "gn_batch_solve": gn_batch.solve_window_sq}
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    passes = []
+    for rep in range(3):
+        f = PFSlam2D(opts, device=dev)
+        f.set_prior(Pose2D(data.poses_gt[0][0] + rep * 1e-4,
+                           data.poses_gt[0][1], data.poses_gt[0][2]))
+        f.update_prepadded(*staged[0], data.odometry[0])
+        torch.cuda.synchronize()
+        iters = []
+        n_up, gt_last = 0, data.poses_gt[0]
+        t0 = time.perf_counter()
+        for i in range(1, n_steps):
+            if f.update_prepadded(*staged[i], data.odometry[i]):
+                n_up += 1
+                gt_last = data.poses_gt[i]
+                iters.append((f._last_info_dev["match_iters_max"],
+                              f._last_info_dev["match_iters_mean"]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        err = float(np.linalg.norm(f.pose().xy() - np.asarray(gt_last)[:2]))
+        it_max = torch.stack([a for a, _ in iters]).float()
+        it_mean = torch.stack([m for _, m in iters])
+        passes.append({"updates_per_s": n_up / dt, "updates": n_up,
+                       "seconds": dt, "final_err_m": err,
+                       "reorgs": f.n_reorgs, "scrolls": f.n_scrolls,
+                       "escaped": f.escaped_count(),
+                       "match_iters_max": float(it_max.max()),
+                       "match_iters_mean": float(it_mean.mean())})
+        del f
+    launches = {n: fn.launches for n, fn in fns.items()}
+    updates = sum(p["updates"] for p in passes)
+    rates = sorted(p["updates_per_s"] for p in passes)
+    emit({"phase": "pf_main_path", "passes": passes,
+          "median_updates_per_s": rates[1], "launches": launches,
+          "launches_per_update": {n: v / updates
+                                  for n, v in launches.items()},
+          "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+          "before_mem_mb": base_mem / 2 ** 20})
+    for p in passes:
+        assert p["final_err_m"] < PF_ERR_BOUND_M, \
+            f"PF final error {p['final_err_m']:.4f} m"
+        assert p["reorgs"] >= 1, "PF: no re-org"
+    assert all(v > 0 for v in launches.values()), f"launches {launches}"
+    for kern in pf_kernels:
+        kern["launches"] = launches[kern["name"]]
+    return pf_kernels
 
 
 def main() -> int:
@@ -338,9 +716,12 @@ def main() -> int:
         assert p["escaped"] == 0, "updates escaped the resident safe zone"
     assert all(v > 0 for v in launches.values()), f"launches {launches}"
 
-    # 6. the kernels line, 7. the result ------------------------------------
     for k in kernels:
         k["launches"] = launches[k["name"]]
+
+    # 6-8. the particle filter: its kernels, the CPU/card prefix, the bench
+    # workload
+    kernels += pf_phases(torch, dev)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

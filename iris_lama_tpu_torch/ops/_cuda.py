@@ -27,16 +27,23 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# flags of one source on top of NVCC_FLAGS: the solve keeps every float
+# operation separately rounded, as its plain PyTorch version does
+SOURCE_FLAGS = {"gn_batch": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # C signature of every exported launcher: (argtypes); all return int
 # (a cudaError_t, 0 = success)
 SIGNATURES = {
-    "deposit": {"deposit_counts": (_P, _P, _L, _I, _I, _P, _P)},
+    "deposit": {"deposit_counts": (_P, _P, _L, _I, _I, _I, _P, _P)},
     "select4": {"select4_sq": (_P, _I, _I, _P, _P, _I, _P, _P)},
-    "edt": {"edt2d": (_P, _I, _I, _I, _I, _P, _P, _P)},
+    "edt": {"edt2d": (_P, _I, _I, _I, _I, _I, _P, _P, _P)},
+    "gn_batch": {"gn_batch_solve": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                                    _F, _F, _F, _F, _I, _F, _F, _I, _I, _I,
+                                    _P, _P)},
 }
 
 _libs: dict = {}
@@ -53,9 +60,13 @@ def _nvcc() -> str:
                        "GPU machine (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _lib_path(name: str, extra: tuple) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS + extra).encode())
+    h.update(" ".join(_flags(name) + extra).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -78,7 +89,7 @@ def build_all(names=None, verbose: bool = False) -> dict:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp),
+        cmd = [nvcc, *_flags(name), *extra, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

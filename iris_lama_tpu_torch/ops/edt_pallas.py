@@ -4,7 +4,9 @@
 the squared distance to the nearest obstacle within the cap radius,
 clipped to ``max_sqdist``; cells outside the grid are not obstacles. A
 vertical pass takes each cell's capped ``|dy|`` (at most ``radius + 1``),
-a horizontal pass ``min over |dx| <= radius of dx^2 + g^2``.
+a horizontal pass ``min over |dx| <= radius of dx^2 + g^2``. A mask
+``[P, H, W]`` gives one transform per particle (the JAX package vmaps
+``distance.edt2d``).
 
 The TPU twin (iris_lama_tpu/ops/edt_pallas.py) ran both passes as strip
 kernels in VMEM. On the GPU they are two CUDA kernels
@@ -23,49 +25,56 @@ from . import _cuda
 def edt2d_plain(obstacle, max_sqdist: int, radius: int):
     """Plain PyTorch version: log-doubling min-plus erosion for the
     vertical pass, ``radius`` shift-and-min rounds for the horizontal
-    (needs ``radius`` < H, W)."""
-    h, w = obstacle.shape
+    (needs ``radius`` < H, W). Leading dimensions are batch."""
+    *lead, h, w = obstacle.shape
     dev = obstacle.device
     big_g = radius + 1
     g = torch.where(obstacle, 0, big_g).to(torch.int32)
     shift = 1
     while shift <= radius:
-        pad = torch.full((shift, w), big_g, dtype=torch.int32, device=dev)
-        up = torch.cat([g[shift:], pad], dim=0)
-        down = torch.cat([pad, g[:-shift]], dim=0)
+        pad = torch.full((*lead, shift, w), big_g, dtype=torch.int32,
+                         device=dev)
+        up = torch.cat([g[..., shift:, :], pad], dim=-2)
+        down = torch.cat([pad, g[..., :-shift, :]], dim=-2)
         g = torch.minimum(g, torch.minimum(up, down) + shift)
         g = torch.clamp(g, max=big_g)
         shift <<= 1
     g2 = g * g
     d2 = g2
     for dx in range(1, radius + 1):
-        padc = torch.full((h, dx), max_sqdist, dtype=torch.int32, device=dev)
-        left = torch.cat([g2[:, dx:], padc], dim=1)
-        right = torch.cat([padc, g2[:, :-dx]], dim=1)
+        padc = torch.full((*lead, h, dx), max_sqdist, dtype=torch.int32,
+                          device=dev)
+        left = torch.cat([g2[..., dx:], padc], dim=-1)
+        right = torch.cat([padc, g2[..., :-dx]], dim=-1)
         d2 = torch.minimum(d2, torch.minimum(left, right) + dx * dx)
     return torch.clamp(d2, max=max_sqdist)
 
 
 def edt2d(obstacle, max_sqdist: int, radius: int):
-    """int32[H, W] capped squared EDT of the bool mask ``obstacle``.
+    """int32 capped squared EDT of the bool mask ``obstacle``, ``[H, W]``
+    or ``[P, H, W]``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels
-    (contiguous 2-D bool mask) or raise.
+    (contiguous bool mask) or raise.
     """
     if obstacle.device.type == "cpu":
         return edt2d_plain(obstacle, max_sqdist, radius)
     dev = obstacle.device
-    _cuda.require(obstacle, "obstacle", torch.bool, 2, dev)
-    h, w = obstacle.shape
-    g = torch.empty((h, w), dtype=torch.int32, device=dev)
-    out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    ndim = obstacle.dim()
+    if ndim not in (2, 3):
+        raise ValueError(f"obstacle: expected 2 or 3 dims, got {ndim}")
+    _cuda.require(obstacle, "obstacle", torch.bool, ndim, dev)
+    *lead, h, w = obstacle.shape
+    p = lead[0] if lead else 1
+    g = torch.empty((p, h, w), dtype=torch.int32, device=dev)
+    out = torch.empty((p, h, w), dtype=torch.int32, device=dev)
     lib = _cuda.library("edt")
-    _cuda.check(lib.edt2d(obstacle.data_ptr(), h, w, radius, max_sqdist,
+    _cuda.check(lib.edt2d(obstacle.data_ptr(), p, h, w, radius, max_sqdist,
                           g.data_ptr(), out.data_ptr(),
                           _cuda.stream_handle(dev)),
                 "edt2d")
     edt2d.launches += 1
-    return out
+    return out if lead else out[0]
 
 
 edt2d.launches = 0

@@ -19,12 +19,18 @@ from . import _cuda
 
 def select4_sq_plain(grid, ly, lx):
     """Plain PyTorch version: four clipped advanced-index reads (any
-    integer grid)."""
-    h, w = grid.shape
+    integer grid). A grid ``[P, H, W]`` with indices ``[P, B]`` gives
+    ``[4, P, B]``, particle ``p`` reading its own grid."""
+    h, w = grid.shape[-2:]
     ly0 = ly.clamp(0, h - 1).long()
     ly1 = (ly + 1).clamp(0, h - 1).long()
     lx0 = lx.clamp(0, w - 1).long()
     lx1 = (lx + 1).clamp(0, w - 1).long()
+    if grid.dim() == 3:
+        p = torch.arange(grid.shape[0], device=grid.device)[:, None]
+        return torch.stack([grid[p, ly0, lx0], grid[p, ly0, lx1],
+                            grid[p, ly1, lx0],
+                            grid[p, ly1, lx1]]).to(torch.int32)
     return torch.stack([grid[ly0, lx0], grid[ly0, lx1],
                         grid[ly1, lx0], grid[ly1, lx1]]).to(torch.int32)
 

@@ -181,12 +181,15 @@ def beam_geometry(cfg: MappingConfig, pose, points, mask,
                   origin) -> ScanGeometry:
     """Transform + truncate beams (slam2d.cpp:267-300).
 
-    pose: SE(2) [4]; points f32[B, 3] in the base frame; origin f32[3]
-    sensor origin in the base frame. Norms are 3D like the reference's.
+    pose: SE(2) [..., 4] (leading dims: particles); points f32[B, 3] in
+    the base frame; origin f32[3] sensor origin in the base frame. Norms
+    are 3D like the reference's. Outputs carry the pose's leading dims
+    before the beam axis.
     """
-    hit_xy = lie.se2_apply(pose, points[:, :2])
+    pose_b = pose[..., None, :]
+    hit_xy = lie.se2_apply(pose_b, points[:, :2])
     hit_z = points[:, 2]
-    start_xy = lie.se2_apply(pose, origin[:2]).expand_as(hit_xy)
+    start_xy = lie.se2_apply(pose_b, origin[:2]).expand_as(hit_xy)
     start_z = origin[2].expand_as(hit_z)
     ab_xy = hit_xy - start_xy
     ab_z = hit_z - start_z
@@ -196,13 +199,13 @@ def beam_geometry(cfg: MappingConfig, pose, points, mask,
     if cfg.truncated_range > 0.0:
         over = ray_len > cfg.truncated_range
         scalef = torch.where(over, cfg.truncated_range / safe_len, 1.0)
-        hit_xy = start_xy + ab_xy * scalef[:, None]
+        hit_xy = start_xy + ab_xy * scalef[..., None]
         mark_hit = mark_hit & ~over
     if cfg.truncated_ray > 0.0:
         over = mark_hit & (ray_len > cfg.truncated_ray)
         scalef = torch.where(over, cfg.truncated_ray / safe_len, 0.0)
-        start_xy = torch.where(over[:, None], hit_xy - ab_xy * scalef[:, None],
-                               start_xy)
+        start_xy = torch.where(over[..., None],
+                               hit_xy - ab_xy * scalef[..., None], start_xy)
     return ScanGeometry(start_xy, hit_xy, mark_hit, mask)
 
 
@@ -218,16 +221,20 @@ class DepositIndices(NamedTuple):
 def deposit_indices(cfg: MappingConfig, pose, points, mask, origin,
                     org_cell, w: int) -> DepositIndices:
     """Beams -> window-local hit and free-space cell streams for the
-    [w, w] window at ``org_cell`` (raycast + in-window masks)."""
+    [w, w] window at ``org_cell`` (raycast + in-window masks). A batch of
+    poses [P, 4] with origins [P, 2] gives streams [P, N]."""
     geo = cfg.geometry
     g = beam_geometry(cfg, pose, points, mask, origin)
-    mhit = geo.w2m(g.hit_xy)                          # [B, 2]
+    mhit = geo.w2m(g.hit_xy)                          # [..., B, 2]
     mstart = geo.w2m(g.start_xy)
-    free_cells, free_mask = ray_cells(mstart, mhit, cfg.ray_steps)
-    free_mask = free_mask & g.valid[:, None]
+    lead = mhit.shape[:-1]                            # [..., B]
+    free_cells, free_mask = ray_cells(mstart.reshape(-1, 2),
+                                      mhit.reshape(-1, 2), cfg.ray_steps)
+    free_cells = free_cells.reshape(*lead, cfg.ray_steps, 2)
+    free_mask = free_mask.reshape(*lead, cfg.ray_steps) & g.valid[:, None]
     org = org_cell.to(torch.int32)
-    hit_loc = mhit - org                              # [x, y] -> row y, col x
-    free_loc = free_cells - org
+    hit_loc = mhit - org[..., None, :]                # [x, y] -> row y, col x
+    free_loc = free_cells - org[..., None, None, :]
 
     def in_win(loc):
         return ((loc[..., 0] >= 0) & (loc[..., 0] < w) &
@@ -237,8 +244,8 @@ def deposit_indices(cfg: MappingConfig, pose, points, mask, origin,
     free_ok = free_mask & in_win(free_loc)
 
     def stream(loc, ok):
-        return (torch.where(ok, loc[..., 1], w).reshape(-1),
-                torch.where(ok, loc[..., 0], w).reshape(-1))
+        return (torch.where(ok, loc[..., 1], w).reshape(*lead[:-1], -1),
+                torch.where(ok, loc[..., 0], w).reshape(*lead[:-1], -1))
 
     return DepositIndices(*stream(hit_loc, hit_ok), *stream(free_loc, free_ok))
 
@@ -261,7 +268,8 @@ def scan_window_compute(cfg: MappingConfig, pose, points, mask, origin,
     """Window math of one scan: raycast -> counts -> occupancy end state ->
     exact windowed EDT -> interior merge, on dense [W, W] grids holding the
     map at ``org_cell``. ``dist_old`` is a squared-distance grid
-    (cfg.sq_dtype); ``dist_merged`` keeps its dtype."""
+    (cfg.sq_dtype); ``dist_merged`` keeps its dtype. Poses [P, 4], origins
+    [P, 2] and grids [P, W, W] apply the scan once per particle."""
     _require_frequency(cfg)
     if dist_old.dtype.is_floating_point:
         raise NotImplementedError("only squared-distance windows are ported")
@@ -281,7 +289,7 @@ def scan_window_compute(cfg: MappingConfig, pose, points, mask, origin,
     inner = (ar >= radius) & (ar < w - radius)
     interior = inner[:, None] & inner[None, :]
     dist_merged = torch.where(interior, d2.to(dist_old.dtype), dist_old)
-    n_cells = ((idx.free_ly < w).sum() + (idx.hit_ly < w).sum())
+    n_cells = ((idx.free_ly < w).sum(-1) + (idx.hit_ly < w).sum(-1))
     return WindowScan(occ_new, vis_new, dist_merged, occ_add, vis_add, d2,
                       interior, n_cells)
 
@@ -305,20 +313,27 @@ def resident_org(cfg: MappingConfig, anchor_cell):
                               cfg.resident_window_patches)
 
 
+def _block_index(grid, y0, x0, h: int, w: int):
+    """Index of the [h, w] blocks at offsets (``y0``, ``x0``): 0-dim
+    offsets for a grid [H, W], offsets [P] for grids [P, H, W]."""
+    rows = y0[..., None] + torch.arange(h, device=grid.device)
+    cols = x0[..., None] + torch.arange(w, device=grid.device)
+    if grid.dim() == 2:
+        return rows[:, None], cols[None, :]
+    p = torch.arange(grid.shape[0], device=grid.device)[:, None, None]
+    return p, rows[:, :, None], cols[:, None, :]
+
+
 def dyn_slice(grid, y0, x0, h: int, w: int):
-    """grid[y0:y0+h, x0:x0+w] for 0-dim tensor offsets (a gather: no host
-    read of the offsets)."""
-    rows = y0 + torch.arange(h, device=grid.device)
-    cols = x0 + torch.arange(w, device=grid.device)
-    return grid[rows[:, None], cols[None, :]]
+    """grid[..., y0:y0+h, x0:x0+w] for tensor offsets (a gather: no host
+    read of the offsets); one offset per particle for grids [P, H, W]."""
+    return grid[_block_index(grid, y0, x0, h, w)]
 
 
 def dyn_update(grid, block, y0, x0):
-    """grid[y0:y0+h, x0:x0+w] = block IN PLACE, for 0-dim tensor offsets."""
-    h, w = block.shape
-    rows = y0 + torch.arange(h, device=grid.device)
-    cols = x0 + torch.arange(w, device=grid.device)
-    grid[rows[:, None], cols[None, :]] = block
+    """grid[..., y0:y0+h, x0:x0+w] = block IN PLACE, for tensor offsets."""
+    h, w = block.shape[-2:]
+    grid[_block_index(grid, y0, x0, h, w)] = block
     return grid
 
 
@@ -375,6 +390,10 @@ def _flush_grids(state: SlamMapState, cfg: MappingConfig, keys,
     return SlamMapState(table, state.occupied, state.visited, state.dist)
 
 
+def _host_list(v) -> list:
+    return v.tolist() if isinstance(v, torch.Tensor) else list(v)
+
+
 def resident_scroll(state: SlamMapState, cfg: MappingConfig, org,
                     occ, vis, dist, new_org, kp: int):
     """Band ("scroll") re-org: move the resident window from ``org`` to
@@ -384,7 +403,9 @@ def resident_scroll(state: SlamMapState, cfg: MappingConfig, org,
     (1) flush the trailing band on each axis, (2) roll the grids so
     surviving cells keep their values, (3) gather the leading bands at the
     new origin and merge only the truly entering cells. Bit-identical to a
-    flush + regather of the window. Reads the shift to the host once.
+    flush + regather of the window. ``org`` and ``new_org`` are [x, y]
+    tensors, read to the host once here, or host sequences (a caller that
+    scrolls many windows by one shift reads it once).
 
     Returns (state, occ, vis, dist).
     """
@@ -392,8 +413,8 @@ def resident_scroll(state: SlamMapState, cfg: MappingConfig, org,
     log2dim = cfg.geometry.log2dim
     wp = cfg.resident_window_patches
     w = wp * length
-    org_p = [int(v) >> log2dim for v in org.tolist()]
-    new_org_p = [int(v) >> log2dim for v in new_org.tolist()]
+    org_p = [int(v) >> log2dim for v in _host_list(org)]
+    new_org_p = [int(v) >> log2dim for v in _host_list(new_org)]
     sx = (new_org_p[0] - org_p[0]) * length
     sy = (new_org_p[1] - org_p[1]) * length
     dev = occ.device
@@ -450,6 +471,8 @@ def resident_update(cfg: MappingConfig, org, occ, vis, dist, pose,
     :func:`resident_safe`. The scan math runs on the exact-update
     sub-window (``cfg.resident_update_cells``) centred at the pose cell;
     cells outside it cannot change, so this equals full-window compute.
+    Poses [P, 4] with grids [P, W, W] (one shared ``org``) update every
+    particle's grids at once (``_pf_map_phase`` of the JAX package).
     """
     w = dist.shape[-1]
     ws = cfg.resident_update_cells
@@ -460,9 +483,9 @@ def resident_update(cfg: MappingConfig, org, occ, vis, dist, pose,
         vis.copy_(sc.vis_new)
         dist.copy_(sc.dist_merged)
         return occ, vis, dist, sc.n_cells
-    lp = cfg.geometry.w2m(pose[:2]) - org             # window-local [x, y]
-    start = torch.clamp(lp - ws // 2, 0, w - ws)      # [x, y]
-    sy, sx = start[1], start[0]
+    lp = cfg.geometry.w2m(pose[..., :2]) - org        # window-local [x, y]
+    start = torch.clamp(lp - ws // 2, 0, w - ws)      # [..., 2] = [x, y]
+    sy, sx = start[..., 1], start[..., 0]
     sc = scan_window_compute(cfg, pose, points, mask, origin, org + start,
                              dyn_slice(occ, sy, sx, ws, ws),
                              dyn_slice(vis, sy, sx, ws, ws),

@@ -12,10 +12,24 @@ A state dict holds plain numpy arrays, in the JAX package's dtypes:
 * optional driver bookkeeping: ``odom`` and ``odom_reorg`` (float64 x, y,
   theta), ``n_updates`` and ``escaped``.
 
+A particle filter's state dict (:func:`pf_to_numpy`) holds the same pool and
+resident arrays with a leading particle axis ``[N, ...]`` (``res_org`` is
+shared), plus ``pose`` [N, 4], ``weight``, ``weight_sum``, ``normalized``
+(float32 [N]) and ``lineage`` (int32 [N]); its bookkeeping is ``odom``,
+``odom_reorg``, ``acc_trans``, ``acc_rot`` and ``odelta_queue`` (float32
+[J, 4], the motion packets not applied yet), and the port's own driver
+state (:data:`PF_DRIVER`, optional on load): ``draw_state`` (uint8, the
+draw generator's state, so that a reloaded filter continues the random
+stream it was saved in), the re-org trigger ``trigger_m`` and ``scroll_m``
+(float64), ``host_reorg`` (bool), the escape ladder's counters and the
+escape and re-org counts (int64).
+
 The port holds counts in int32 (sdm/mapping.py); they convert here.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -43,9 +57,15 @@ def map_to_numpy(state: mapping.SlamMapState) -> dict:
     return d
 
 
+def _tensor(a, dtype, device):
+    """A tensor copy of array ``a`` (never a view: the port updates its
+    state in place)."""
+    return torch.tensor(np.asarray(a), device=device).to(dtype)
+
+
 def map_from_numpy(d: dict, device) -> mapping.SlamMapState:
     def t(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+        return _tensor(a, dtype, device)
 
     table = PatchTable(*(t(d[f"table_{f}"], torch.int32)
                          for f in TABLE_FIELDS))
@@ -79,17 +99,12 @@ def slam_from_numpy(slam, d: dict) -> None:
     dev = slam.device
     slam._map = map_from_numpy(d, dev)
     cfg = slam.cfg
-    slam._res_org = torch.as_tensor(np.asarray(d["res_org"]),
-                                    device=dev).to(torch.int32)
-    slam._res_occ = torch.as_tensor(np.asarray(d["res_occ"]),
-                                    device=dev).to(mapping.COUNT_DTYPE)
-    slam._res_vis = torch.as_tensor(np.asarray(d["res_vis"]),
-                                    device=dev).to(mapping.COUNT_DTYPE)
-    slam._res_dist = torch.as_tensor(np.asarray(d["res_dist"]),
-                                     device=dev).to(cfg.sq_dtype)
+    slam._res_org = _tensor(d["res_org"], torch.int32, dev)
+    slam._res_occ = _tensor(d["res_occ"], mapping.COUNT_DTYPE, dev)
+    slam._res_vis = _tensor(d["res_vis"], mapping.COUNT_DTYPE, dev)
+    slam._res_dist = _tensor(d["res_dist"], cfg.sq_dtype, dev)
     slam._res_dirty = True
-    slam._pose_dev = torch.as_tensor(np.asarray(d["pose"]),
-                                     device=dev).to(torch.float32)
+    slam._pose_dev = _tensor(d["pose"], torch.float32, dev)
     slam._pose_host = None
     if not slam._built:
         slam._build_programs()
@@ -103,3 +118,73 @@ def slam_from_numpy(slam, d: dict) -> None:
     slam._traj[min(n, slam.TRAJ_CAP) - 1] = slam._pose_dev
     slam._esc_dev.fill_(int(d.get("escaped", 0)))
     slam._esc_seen = int(d.get("escaped", 0))
+
+
+PF_FLOATS = ("pose", "weight", "weight_sum", "normalized")
+# the driver's integer counters: state dict key -> PFSlam2D attribute
+PF_COUNTERS = {"esc_seen": "_esc_seen", "esc_clean": "_esc_clean",
+               "esc_strikes": "_esc_strikes", "n_reorgs": "n_reorgs",
+               "n_scrolls": "n_scrolls"}
+PF_DRIVER = ("draw_state", "trigger_m", "scroll_m", "host_reorg",
+             "escaped_max", "escaped", *PF_COUNTERS)
+
+
+def pf_to_numpy(pf) -> dict:
+    """Snapshot of a port ``PFSlam2D`` after its first scan (the pools as
+    they stand, lineage not settled)."""
+    ps = pf.pset
+    d = map_to_numpy(ps.maps)
+    d.update({k: _np(getattr(ps, k)) for k in PF_FLOATS})
+    d.update(res_org=_np(ps.res_org), res_occ=_counts_np(ps.res_occ),
+             res_vis=_counts_np(ps.res_vis), res_dist=_np(ps.res_dist),
+             lineage=_np(ps.lineage), odom=pf.odom_.xyr(),
+             odom_reorg=pf._odom_reorg.xyr(),
+             acc_trans=np.float64(pf.acc_trans),
+             acc_rot=np.float64(pf.acc_rot),
+             odelta_queue=np.asarray(pf._odelta_queue,
+                                     np.float32).reshape(-1, 4),
+             draw_state=pf._gen.get_state().numpy(),
+             trigger_m=np.float64(pf._pf_trigger_m),
+             scroll_m=np.float64(pf._pf_scroll_m),
+             host_reorg=np.bool_(pf.options.host_reorg),
+             escaped_max=np.int64(int(pf._esc_max)),
+             escaped=np.int64(int(pf._esc_total)))
+    d.update({k: np.int64(getattr(pf, a)) for k, a in PF_COUNTERS.items()})
+    return d
+
+
+def pf_from_numpy(pf, d: dict) -> None:
+    """Load a state dict into a port ``PFSlam2D`` so that it continues
+    from that particle set (a scan already went into the maps)."""
+    from ..algos.pf_slam2d import ParticleSet
+    dev = pf.device
+    cfg = pf.options.mapping_config()
+
+    def t(k, dtype):
+        return _tensor(d[k], dtype, dev)
+
+    pf.pset = ParticleSet(
+        *(t(k, torch.float32) for k in PF_FLOATS),
+        maps=map_from_numpy(d, dev), res_org=t("res_org", torch.int32),
+        res_occ=t("res_occ", mapping.COUNT_DTYPE),
+        res_vis=t("res_vis", mapping.COUNT_DTYPE),
+        res_dist=t("res_dist", cfg.sq_dtype), lineage=t("lineage", torch.int32))
+    pf.has_first_scan = True
+    pf.odom_ = Pose2D.from_xyr(d["odom"])
+    pf._odom_reorg = Pose2D.from_xyr(d.get("odom_reorg", d["odom"]))
+    pf.acc_trans = float(d.get("acc_trans", 0.0))
+    pf.acc_rot = float(d.get("acc_rot", 0.0))
+    pf._odelta_queue = list(np.asarray(d.get("odelta_queue",
+                                             np.zeros((0, 4))), np.float32))
+    pf._reset_escapes()
+    pf._esc_max.fill_(int(d.get("escaped_max", 0)))
+    pf._esc_total.fill_(int(d.get("escaped", 0)))
+    if "draw_state" in d:
+        pf._gen.set_state(torch.from_numpy(
+            np.array(d["draw_state"], dtype=np.uint8)))
+    pf._pf_trigger_m = float(d.get("trigger_m", pf._pf_trigger_m))
+    pf._pf_scroll_m = float(d.get("scroll_m", pf._pf_scroll_m))
+    if not d.get("host_reorg", True):
+        pf.options = dataclasses.replace(pf.options, host_reorg=False)
+    for k, a in PF_COUNTERS.items():
+        setattr(pf, a, int(d.get(k, 0)))

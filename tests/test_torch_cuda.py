@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D, PFSlam2DOptions
 from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
 from iris_lama_tpu_torch.core.pose import Pose2D
-from iris_lama_tpu_torch.ops import edt_pallas, scatter_matmul, select4
+from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, scatter_matmul
+from iris_lama_tpu_torch.ops import select4
 from iris_lama_tpu_torch.utils import simulator
 from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
 
@@ -103,3 +105,117 @@ def test_slam2d_on_card_matches_cpu(cuda):
     after = (scatter_matmul.deposit_counts.launches,
              select4.select4_sq.launches, edt_pallas.edt2d.launches)
     assert all(a > b for a, b in zip(after, before))
+
+
+# ---------------------------------------------------------------------------
+# the particle filter's kernels: B6 and the batched B1 / B3
+# ---------------------------------------------------------------------------
+
+def _pf_solve_case(dev, p=30, hw=432, b=768, seed=3):
+    """PF shapes: p particles' s8 squared-distance windows of one wall
+    layout shifted per particle, a scan of b beams on the walls (10% masked
+    out) and start states up to ~0.2 m / 0.1 rad off."""
+    g = torch.Generator().manual_seed(seed)
+    obst = torch.zeros((hw, hw), dtype=torch.bool)
+    obst[60, 40:400] = True
+    obst[60:380, 380] = True
+    obst[300, 100:380] = True
+    obst[torch.randint(40, 400, (40,), generator=g),
+         torch.randint(40, 400, (40,), generator=g)] = True
+    sq = edt_pallas.edt2d_plain(obst, 100, 10).to(torch.int8)
+    grids = torch.stack([torch.roll(sq, (q % 3, q % 5), (0, 1))
+                         for q in range(p)])
+    ys, xs = torch.nonzero(obst, as_tuple=True)
+    k = torch.randint(0, len(ys), (b,), generator=g)
+    pts = torch.stack([(xs[k] + 0.5) * 0.05, (ys[k] + 0.5) * 0.05], -1)
+    mask = torch.rand(b, generator=g) < 0.9
+    off = (torch.rand((p, 3), generator=g) - 0.5) * torch.tensor(
+        [0.4, 0.4, 0.2])
+    st0 = torch.stack([off[:, 0], off[:, 1], torch.cos(off[:, 2]),
+                       torch.sin(off[:, 2])], -1)
+    org = torch.full((p, 2), 262144, dtype=torch.int32)
+    kw = dict(max_dist=0.5, res=0.05, scale=20.0, cell_offset=262144,
+              cauchy_c=0.15, eps1=1e-4, eps2=1e-4, max_iter=50,
+              want_lik=True)
+    return [t.to(dev) for t in (grids, org, st0, pts, mask)], kw
+
+
+def test_gn_batch_kernel_matches_plain(cuda):
+    """B6 against its plain version on the card at the PF shapes: the plain
+    version sums in the kernel's order and the kernel is built without FMA
+    contraction, so every particle's state, iteration count, chi2 and SSE
+    are bit-equal."""
+    args, kw = _pf_solve_case(cuda)
+    before = gn_batch.solve_window_sq.launches
+    got = gn_batch.solve_window_sq(*args, **kw)
+    assert gn_batch.solve_window_sq.launches == before + 1
+    want = gn_batch.solve_window_sq_plain(*args, **kw)
+    assert int(got[1].sum()) > 30           # the starts drive the loop
+    for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got,
+                          want):
+        assert torch.equal(a, w), (name, a, w)
+
+
+@pytest.mark.parametrize("order", ["beam_major", "shuffled", "sentinels"])
+def test_batched_deposit_kernel_bit_exact(cuda, order):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    p, h, w, n = 30, 448, 448, 768 * 202
+    ly = torch.randint(-4, h + 4, (p, n), generator=g, device=cuda,
+                       dtype=torch.int32)
+    lx = torch.randint(-4, w + 4, (p, n), generator=g, device=cuda,
+                       dtype=torch.int32)
+    if order == "beam_major":
+        ly, _ = torch.sort(ly, dim=1)
+    elif order == "sentinels":
+        ly = torch.where(torch.rand((p, n), generator=g, device=cuda) < 0.3,
+                         h, ly)
+    got = scatter_matmul.deposit_counts(ly, lx, h, w)
+    assert got.shape == (p, h, w)
+    assert torch.equal(got, scatter_matmul.deposit_counts_plain(ly, lx, h, w))
+
+
+def test_batched_edt_kernel_bit_exact(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dens = torch.tensor([0.0, 0.01, 0.3, 1.0], device=cuda)
+    m = torch.rand((4, 448, 448), generator=g, device=cuda) < dens[:, None,
+                                                                  None]
+    got = edt_pallas.edt2d(m, 100, 10)
+    assert got.shape == (4, 448, 448)
+    assert torch.equal(got, edt_pallas.edt2d_plain(m, 100, 10))
+
+
+def test_pf_on_card_matches_cpu(cuda):
+    """A short PF run (8 particles, the CPU tests' config) on the card and
+    on the CPU with the same seed: the same draws, poses within 1 mm /
+    1e-3 rad, equal lineage, and B1, B3 and B6 launched on the card."""
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=60, seed=2,
+        laser=simulator.LaserSpec(n_beams=120, max_range=8.0),
+        odom_trans_noise=0.02, odom_rot_noise=0.004))
+    opts = PFSlam2DOptions(particles=8, resolution=0.1, patch_size=16,
+                           max_range=8.0, capacity=1024, trans_thresh=0.3,
+                           rot_thresh=0.3, max_iter=30, seed=3,
+                           meas_sigma_gain=1.0, resident_extra_patches=2,
+                           host_reorg_slack=0.5)
+    padded = [pad_scan(c, beam_bucket(120)) for c in data.clouds[:11]]
+    fns = (scatter_matmul.deposit_counts, edt_pallas.edt2d,
+           gn_batch.solve_window_sq)
+    before = [f.launches for f in fns]
+    runs = []
+    for dev in ("cpu", cuda):
+        pf = PFSlam2D(opts, device=dev)
+        pf.set_prior(Pose2D(*data.poses_gt[0]))
+        staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+                  for p in padded]
+        acc = pf.update_many_prepadded(staged, data.odometry[:11])
+        runs.append((acc, pf.pset.pose.cpu().numpy(),
+                     pf.pset.lineage.cpu().numpy(), pf.n_reorgs,
+                     pf.escaped_count()))
+    (acc_c, pc, lc, rc, ec), (acc_g, pg, lg, rg, eg) = runs
+    assert acc_c == acc_g and rc == rg >= 1 and ec == eg == 0
+    assert np.abs(pc[:, :2] - pg[:, :2]).max() <= 1e-3
+    dth = np.angle(np.exp(1j * (np.arctan2(pc[:, 3], pc[:, 2])
+                                - np.arctan2(pg[:, 3], pg[:, 2]))))
+    assert np.abs(dth).max() <= 1e-3
+    assert np.array_equal(lc, lg)
+    assert all(f.launches > b for f, b in zip(fns, before))

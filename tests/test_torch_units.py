@@ -38,6 +38,7 @@ from iris_lama_tpu_torch.match import match_surface_2d as tmatch
 from iris_lama_tpu_torch.nlls import robust as trobust
 from iris_lama_tpu_torch.nlls import solver as tsolver
 from iris_lama_tpu_torch.ops import edt_pallas as tedt
+from iris_lama_tpu_torch.ops import gn_batch as tgb
 from iris_lama_tpu_torch.ops import scatter_matmul as tsm
 from iris_lama_tpu_torch.ops import select4 as ts4
 from iris_lama_tpu_torch.sdm import distance as tdist
@@ -118,7 +119,9 @@ def test_pool_path_option_raises():
                      device="cpu")
 
 
-@pytest.mark.parametrize("call", ["deposit", "select4", "edt"])
+@pytest.mark.parametrize("call", ["deposit", "select4", "edt",
+                                  "deposit_batched", "edt_batched",
+                                  "gn_batch"])
 def test_kernel_wrappers_never_fall_back(call):
     """A tensor that is not on the CPU goes to the kernel or raises — here
     a meta tensor, which the launchers refuse."""
@@ -131,8 +134,23 @@ def test_kernel_wrappers_never_fall_back(call):
             ts4.select4_sq(torch.empty((4, 4), dtype=torch.int8, **m),
                            torch.empty(8, dtype=torch.int32, **m),
                            torch.empty(8, dtype=torch.int32, **m))
-        else:
+        elif call == "edt":
             tedt.edt2d(torch.empty((4, 4), dtype=torch.bool, **m), 25, 5)
+        elif call == "deposit_batched":
+            tsm.deposit_counts(torch.empty((3, 8), dtype=torch.int32, **m),
+                               torch.empty((3, 8), dtype=torch.int32, **m),
+                               4, 4)
+        elif call == "edt_batched":
+            tedt.edt2d(torch.empty((3, 4, 4), dtype=torch.bool, **m), 25, 5)
+        else:
+            tgb.solve_window_sq(
+                torch.empty((3, 4, 4), dtype=torch.int8, **m),
+                torch.empty((3, 2), dtype=torch.int32, **m),
+                torch.empty((3, 4), dtype=torch.float32, **m),
+                torch.empty((8, 2), dtype=torch.float32, **m),
+                torch.empty(8, dtype=torch.bool, **m), max_dist=0.5,
+                res=0.1, scale=10.0, cell_offset=0, cauchy_c=0.15,
+                eps1=1e-4, eps2=1e-4, max_iter=5)
 
 
 # ---------------------------------------------------------------------------
