@@ -42,7 +42,29 @@ Phases, one JSON line each:
    seed=5), its PFSlam2DOptions) through PFSlam2D.update_prepadded from
    device-staged scans, three fresh filters, launch counts set to 0 just
    before and read just after: updates/s, final error (< 5 cm), re-orgs,
-   escapes, peak memory, match iterations, launches per update.
+   escapes, peak memory, match iterations, launches per update;
+9. loc_kernel — Loc2D's kernels at the bench_loc.py shapes (720 beams
+   padded to 768, 5 cm cells, 576 x 576 match windows of the bench map):
+   the whole solve B4 at one particle and at eight with a scan each, the
+   fused evaluation B5 and the corner selection B2 on the scan's cells at
+   a real pose, and the value scatters B7 / B8 on a Slam2D deposit stream
+   into [448, 512], each bit-equal to its plain version, with times and
+   bounds as in phase 3;
+10. loc_prefix — the first 60 Loc2D updates of that workload on the CPU
+   (plain versions) and on the card (kernels) in the "solve" and "fused"
+   match modes, on one map built on the card and carried to the CPU as
+   numpy: the same accepted scans, poses within 1 mm / 1e-3 rad; and one
+   3000-hypothesis global-localisation round on both from the same draws,
+   picking the same hypothesis;
+11. loc_main_path — the bench_loc.py workload (SimConfig(n_steps=200,
+   seed=7, laps=1), its Loc2DOptions, the map built by Slam2D over the log)
+   in each match mode (generic, sq, solve, fused) through
+   Loc2D.update_many_prepadded from device-staged scans: 3 reps of 3 fresh
+   passes after a warm-up pass, launch counts set to 0 just before and read
+   just after: updates/s (median rep), mean error (< 1 cm), launches and
+   host reads per update, peak memory; then one pass of the live
+   Loc2D.update API, the time of one global-localisation round and of the
+   covariance (loc_extra).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -65,6 +87,8 @@ PREFIX_SCANS = 60
 PF_PREFIX = 24                 # PF updates compared CPU vs card
 PF_SCROLL_SCAN = 22            # the bench_pf.py run's first re-org: a scroll
 PF_ERR_BOUND_M = 0.05          # bench_pf.py:109
+LOC_PREFIX = 60                # Loc2D updates compared CPU vs card
+LOC_ERR_BOUND_M = 0.01         # bench_loc.py:127
 
 
 def emit(obj) -> None:
@@ -124,29 +148,109 @@ def bound(nbytes: float, nops: float) -> tuple:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def pf_phases(torch, dev) -> list:
-    """Phases 6-8 (PFSlam2D, the bench_pf.py workload): B6 and the batched
-    B1 / B3 against their plain versions at the PF shapes, the first
-    ``PF_PREFIX`` updates on the CPU and on the card, then the workload on
-    the card. Returns the kernels line's entries of this path."""
-    from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
-    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D, PFSlam2DOptions
+def slam_workload():
+    """bench.py's Slam2D workload: (data, options, scans padded to 768)."""
+    from iris_lama_tpu_torch.algos.slam2d import Slam2DOptions
+    from iris_lama_tpu_torch.utils import simulator
+    from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=440, seed=3,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    opts = Slam2DOptions(resolution=0.05, max_range=10.0,
+                         trans_thresh=0.05, rot_thresh=0.05,
+                         capacity=8192, max_iter=50)
+    return data, opts, [pad_scan(c, beam_bucket(720)) for c in data.clouds]
+
+
+def slam_pass(torch, dev, data, opts, staged, p: int) -> dict:
+    """One timed Slam2D pass (phase 5): a fresh driver, prior x offset
+    ``p``·1e-4 m, two scans untimed, then update_many_prepadded over the
+    rest of the device-staged scans."""
+    from iris_lama_tpu_torch.algos.slam2d import Slam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, scatter_matmul
-    from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.utils.evaluation import ate_rmse
+
+    slam = Slam2D(opts, device=dev)
+    slam.set_prior(Pose2D(data.poses_gt[0][0] + p * 1e-4,
+                          data.poses_gt[0][1], data.poses_gt[0][2]))
+    slam.update_prepadded(*staged[0], data.odometry[0])
+    slam.update_prepadded(*staged[1], data.odometry[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = slam.update_many_prepadded(staged[2:], data.odometry[2:])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    gt = np.asarray([data.poses_gt[2 + k] for k in acc])
+    ate = ate_rmse(slam.trajectory()[-len(gt):], gt)
+    return {"scans_per_s": len(acc) / dt, "updates": len(acc),
+            "seconds": dt, "ate_m": ate, "reorgs": slam.n_reorgs,
+            "scrolls": slam.n_scrolls, "escaped": slam.escaped_count()}
+
+
+def pf_workload():
+    """bench_pf.py's PFSlam2D workload: (data, options, scans padded to
+    768)."""
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2DOptions
     from iris_lama_tpu_torch.utils import simulator
     from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
 
     data = simulator.simulate(simulator.SimConfig(
         n_steps=120, seed=5,
         laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
-    n_steps = len(data.clouds)
     opts = PFSlam2DOptions(particles=30, resolution=0.05, max_range=10.0,
                            trans_thresh=0.25, rot_thresh=0.25,
                            capacity=2048, max_iter=50, seed=11)
+    return data, opts, [pad_scan(c, beam_bucket(720)) for c in data.clouds]
+
+
+def pf_pass(torch, dev, data, opts, staged, rep: int) -> dict:
+    """One timed PFSlam2D pass (phase 8): a fresh filter, prior x offset
+    ``rep``·1e-4 m, the first scan untimed, then update_prepadded over the
+    rest of the device-staged scans."""
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+
+    f = PFSlam2D(opts, device=dev)
+    f.set_prior(Pose2D(data.poses_gt[0][0] + rep * 1e-4,
+                       data.poses_gt[0][1], data.poses_gt[0][2]))
+    f.update_prepadded(*staged[0], data.odometry[0])
+    torch.cuda.synchronize()
+    iters = []
+    n_up, gt_last = 0, data.poses_gt[0]
+    t0 = time.perf_counter()
+    for i in range(1, len(staged)):
+        if f.update_prepadded(*staged[i], data.odometry[i]):
+            n_up += 1
+            gt_last = data.poses_gt[i]
+            iters.append((f._last_info_dev["match_iters_max"],
+                          f._last_info_dev["match_iters_mean"]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    err = float(np.linalg.norm(f.pose().xy() - np.asarray(gt_last)[:2]))
+    it_max = torch.stack([a for a, _ in iters]).float()
+    it_mean = torch.stack([m for _, m in iters])
+    return {"updates_per_s": n_up / dt, "updates": n_up, "seconds": dt,
+            "final_err_m": err, "reorgs": f.n_reorgs, "scrolls": f.n_scrolls,
+            "escaped": f.escaped_count(),
+            "match_iters_max": float(it_max.max()),
+            "match_iters_mean": float(it_mean.mean())}
+
+
+def pf_phases(torch, dev) -> list:
+    """Phases 6-8 (PFSlam2D, the bench_pf.py workload): B6 and the batched
+    B1 / B3 against their plain versions at the PF shapes, the first
+    ``PF_PREFIX`` updates on the CPU and on the card, then the workload on
+    the card. Returns the kernels line's entries of this path."""
+    from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, scatter_matmul
+    from iris_lama_tpu_torch.sdm import mapping
+
+    data, opts, padded = pf_workload()
     cfg = opts.mapping_config()
     geo = cfg.geometry
-    padded = [pad_scan(c, beam_bucket(720)) for c in data.clouds]
     staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
               for p in padded]
 
@@ -197,7 +301,7 @@ def pf_phases(torch, dev) -> list:
     b6_bound = bound(grids.numel() + n_p * (8 + 16 + 32) + b * 12,
                      60 * b * evals)
     b6 = {"name": "gn_batch_solve", "route": "cuda",
-          "source": "iris_lama_tpu_torch/csrc/gn_batch.cu",
+          "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
           "replaces": "iris_lama_tpu/ops/gn_batch.py:108",
           "shape": [n_p, grids.shape[1], grids.shape[2], b],
           "max_abs_err": b6_err, "rel_err": rel,
@@ -434,32 +538,7 @@ def pf_phases(torch, dev) -> list:
     torch.cuda.reset_peak_memory_stats(dev)
     passes = []
     for rep in range(3):
-        f = PFSlam2D(opts, device=dev)
-        f.set_prior(Pose2D(data.poses_gt[0][0] + rep * 1e-4,
-                           data.poses_gt[0][1], data.poses_gt[0][2]))
-        f.update_prepadded(*staged[0], data.odometry[0])
-        torch.cuda.synchronize()
-        iters = []
-        n_up, gt_last = 0, data.poses_gt[0]
-        t0 = time.perf_counter()
-        for i in range(1, n_steps):
-            if f.update_prepadded(*staged[i], data.odometry[i]):
-                n_up += 1
-                gt_last = data.poses_gt[i]
-                iters.append((f._last_info_dev["match_iters_max"],
-                              f._last_info_dev["match_iters_mean"]))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        err = float(np.linalg.norm(f.pose().xy() - np.asarray(gt_last)[:2]))
-        it_max = torch.stack([a for a, _ in iters]).float()
-        it_mean = torch.stack([m for _, m in iters])
-        passes.append({"updates_per_s": n_up / dt, "updates": n_up,
-                       "seconds": dt, "final_err_m": err,
-                       "reorgs": f.n_reorgs, "scrolls": f.n_scrolls,
-                       "escaped": f.escaped_count(),
-                       "match_iters_max": float(it_max.max()),
-                       "match_iters_mean": float(it_mean.mean())})
-        del f
+        passes.append(pf_pass(torch, dev, data, opts, staged, rep))
     launches = {n: fn.launches for n, fn in fns.items()}
     updates = sum(p["updates"] for p in passes)
     rates = sorted(p["updates_per_s"] for p in passes)
@@ -479,6 +558,412 @@ def pf_phases(torch, dev) -> list:
     return pf_kernels
 
 
+def loc_phases(torch, dev) -> list:
+    """Phases 9-11 (Loc2D, the bench_loc.py workload): B4, B5, B2, B7 and
+    B8 against their plain versions, the first ``LOC_PREFIX`` updates on the
+    CPU and on the card, then the workload in every match mode on the
+    card. Returns the kernels line's entries of this path."""
+    from iris_lama_tpu_torch.algos import loc2d
+    from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
+    from iris_lama_tpu_torch.core import lie
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.match import match_surface_2d as match_mod
+    from iris_lama_tpu_torch.nlls import solver as nlls_solver
+    from iris_lama_tpu_torch.ops import gn_solve, match_eval, scatter_pallas
+    from iris_lama_tpu_torch.ops import scatter_sorted, select4
+    from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.utils import simulator, state
+    from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+
+    t_start = time.perf_counter()
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=200, seed=7, laps=1,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    n_steps = len(data.clouds)
+    odoms = list(data.odometry)
+    nb = beam_bucket(720)
+    padded = [pad_scan(c, nb) for c in data.clouds]
+    # the fixed map: bench_loc.py's Slam2D over the log, on the card
+    sopts_map = Slam2DOptions(resolution=0.05, max_range=10.0,
+                              trans_thresh=0.2, rot_thresh=0.2,
+                              capacity=8192)
+    slam = Slam2D(sopts_map, device=dev)
+    slam.set_prior(Pose2D(*data.poses_gt[0]))
+    slam.update_many_prepadded(
+        [tuple(torch.as_tensor(a, device=dev) for a in p) for p in padded],
+        odoms)
+    maps = loc2d.maps_from_slam(slam.map, slam.cfg)
+    maps_np = state.locmaps_to_numpy(maps)
+    map_cfg = slam.cfg
+    del slam
+    opts = loc2d.Loc2DOptions(resolution=0.05, l2_max=0.5, max_range=10.0,
+                              trans_thresh=0.1, rot_thresh=0.1)
+    staged = [(torch.as_tensor(np.ascontiguousarray(p[:, :2]), device=dev),
+               torch.as_tensor(m, device=dev)) for p, m, _ in padded]
+    map_mb = sum(a.nbytes for a in maps_np.values()) / 2 ** 20
+
+    # 9. the kernels at Loc2D's shapes, on the bench map --------------------
+    loc = loc2d.Loc2D(opts, maps=maps, device=dev, match="solve")
+    loc.set_prior(Pose2D(*data.poses_gt[0]))
+    loc.update_many_prepadded(staged[:11], odoms[:11])
+    k = 11
+    od = torch.as_tensor((loc.odom_ - odoms[k]).se2_array(), device=dev)
+    pose0 = lie.se2_compose(loc._pose_dev, od)
+    sub, sub_org = loc.match_window(pose0)
+    pts, msk = staged[k]
+    geo, sop = loc.geo, loc.sopts
+    b = pts.shape[0]
+    b4_kw = dict(max_dist=loc.max_dist, res=geo.resolution, scale=geo.scale,
+                 cell_offset=geo.cell_offset, cauchy_c=sop.robust.param,
+                 eps1=sop.eps1, eps2=sop.eps2,
+                 max_iter=sop.max_iterations)
+    b4_args = (sub[None], sub_org[None], pose0[None].contiguous(), pts, msk)
+    # eight particles, each at the (noisy) true pose of a scan of its own
+    g = torch.Generator().manual_seed(3)
+    noise = (torch.rand((8, 3), generator=g) - 0.5) * torch.tensor(
+        [0.2, 0.2, 0.1])
+    wins, orgs, starts = [], [], []
+    for j in range(8):
+        x, y, th = (data.poses_gt[k + j] + noise[j].numpy())
+        pj = lie.se2(x, y, th, device=dev)
+        w_j, o_j = loc.match_window(pj)
+        wins.append(w_j)
+        orgs.append(o_j)
+        starts.append(pj)
+    b4p_args = (torch.stack(wins), torch.stack(orgs), torch.stack(starts),
+                torch.stack([staged[k + j][0] for j in range(8)]),
+                torch.stack([staged[k + j][1] for j in range(8)]))
+    b4_rows = {}
+    for label, args in (("p1", b4_args), ("p8", b4p_args)):
+        got = gn_solve.solve_window_sq(*args, **b4_kw, want_lik=True)
+        want = gn_solve.solve_window_sq_plain(*args, **b4_kw, want_lik=True)
+        torch.cuda.synchronize()
+        err = float((got[0] - want[0]).abs().max())
+        for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"),
+                              got, want):
+            assert torch.equal(a, w), f"B4 {label} {name} differs ({err})"
+        it = got[1]
+        # bytes: the windows once, the scans, the starts and the rows;
+        # operations: ~60 per beam and evaluation over the timed calls'
+        # evaluations (the start and each iteration's candidate; no SSE,
+        # as on the main path)
+        n_p = args[0].shape[0]
+        evals = int(it.sum()) + n_p
+        scan_bytes = args[3].numel() * 4 + args[4].numel()
+        bd = bound(args[0].numel() + scan_bytes + n_p * (8 + 16 + 32),
+                   60 * b * evals)
+        b4_rows[label] = {
+            "shape": list(args[0].shape) + [b], "max_abs_err": err,
+            "iters": it.tolist(),
+            **timings(torch, "", lambda: gn_solve.solve_window_sq(
+                *args, **b4_kw), 100),
+            **timings(torch, "plain_", lambda: gn_solve.solve_window_sq_plain(
+                *args, **b4_kw), 5),
+            "bound_ms": bd[0], "bound_by": bd[1]}
+    b4 = {"name": "gn_solve_batched", "route": "cuda",
+          "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
+          "replaces": "iris_lama_tpu/ops/gn_solve.py:104",
+          **b4_rows["p1"], "p8_per_particle_scans": b4_rows["p8"],
+          "library_ms": None,
+          "library_call": "none: no single PyTorch call computes an IRLS "
+                          "solve"}
+
+    # B5: one evaluation at the predicted pose, as the fused loop makes it
+    hits = lie.se2_apply(pose0, pts)
+    mi, mu = geo.w2m_frac(hits)
+    loc_c = mi - sub_org
+    b5_args = (sub, loc_c[:, 1].contiguous(), loc_c[:, 0].contiguous(),
+               mu[:, 0].contiguous(), mu[:, 1].contiguous(),
+               hits[:, 0].contiguous(), hits[:, 1].contiguous(),
+               msk.to(torch.float32))
+    b5_kw = dict(max_dist=loc.max_dist, res=geo.resolution, scale=geo.scale,
+                 cauchy_c=sop.robust.param)
+    got = match_eval.gn_eval_sq(*b5_args, **b5_kw)
+    want = match_eval.gn_eval_sq_plain(*b5_args, **b5_kw)
+    torch.cuda.synchronize()
+    b5_err = float((got - want).abs().max())
+    assert torch.equal(got, want), f"B5 differs ({b5_err})"
+    bd = bound(b * (7 * 4 + 4) + 40, 60 * b)
+    b5 = {"name": "gn_eval_sq", "route": "cuda",
+          "source": "iris_lama_tpu_torch/csrc/match_eval.cu",
+          "replaces": "iris_lama_tpu/ops/match_eval.py:122",
+          "shape": list(sub.shape) + [b], "max_abs_err": b5_err,
+          **timings(torch, "", lambda: match_eval.gn_eval_sq(
+              *b5_args, **b5_kw), 300),
+          **timings(torch, "plain_", lambda: match_eval.gn_eval_sq_plain(
+              *b5_args, **b5_kw), 100),
+          "library_ms": None,
+          "library_call": "none: no single PyTorch call computes the ten "
+                          "weighted normal-equation sums",
+          "bound_ms": bd[0], "bound_by": bd[1]}
+
+    # B2 at Loc2D's shapes: the scan's cells at the predicted pose in the
+    # 576 x 576 match window, as the covariance/RMSE evaluation (and each
+    # evaluation of `sq`) gives them
+    s_ly, s_lx = b5_args[1], b5_args[2]
+    got = select4.select4_sq(sub, s_ly, s_lx)
+    want = select4.select4_sq_plain(sub, s_ly, s_lx)
+    torch.cuda.synchronize()
+    b2_err = int((got - want).abs().max())
+    assert torch.equal(got, want), f"B2 at Loc2D's shapes: err {b2_err}"
+    hs, ws = sub.shape
+    y0, y1 = s_ly.clamp(0, hs - 1).long(), (s_ly + 1).clamp(0, hs - 1).long()
+    x0, x1 = s_lx.clamp(0, ws - 1).long(), (s_lx + 1).clamp(0, ws - 1).long()
+
+    def b2_library():
+        return (sub[y0, x0], sub[y0, x1], sub[y1, x0], sub[y1, x1])
+
+    bd = bound(b * (8 + 4 + 16), b * 8)
+    b2 = {"name": "select4_sq_loc2d", "route": "cuda",
+          "source": "iris_lama_tpu_torch/csrc/select4.cu",
+          "replaces": "iris_lama_tpu/ops/select4.py:36",
+          "n": b, "hw": [hs, ws], "max_abs_err": b2_err,
+          "in_window": float(((s_ly >= 0) & (s_ly < hs) & (s_lx >= 0)
+                              & (s_lx < ws)).float().mean()),
+          **timings(torch, "", lambda: select4.select4_sq(
+              sub, s_ly, s_lx), 1000),
+          **timings(torch, "plain_", lambda: select4.select4_sq_plain(
+              sub, s_ly, s_lx), 1000),
+          **timings(torch, "library_", b2_library, 1000),
+          "library_call": "four advanced-index reads",
+          "bound_ms": bd[0], "bound_by": bd[1]}
+
+    # B7 / B8: the Slam2D deposit's free-space stream of one scan (its
+    # in-window elements) into [448, 512]
+    wu = map_cfg.resident_update_cells
+    pose_s = lie.se2(*data.poses_gt[k], device=dev)
+    p3 = torch.as_tensor(padded[k][0], device=dev)
+    ori = torch.as_tensor(padded[k][2], device=dev)
+    idx = mapping.deposit_indices(map_cfg, pose_s,
+                                  p3, msk, ori,
+                                  geo.w2m(pose_s[:2]) - wu // 2, wu)
+    ok = idx.free_ly < wu
+    sly = idx.free_ly[ok].contiguous()
+    slx = idx.free_lx[ok].contiguous()
+    n_s = int(sly.numel())
+    shape = (wu, (wu + 127) // 128 * 128)
+    ones = torch.ones(n_s, dtype=torch.int32, device=dev)
+    vals = torch.randint(-3, 4, (n_s,), dtype=torch.int32, device=dev)
+    for v in (ones, vals):
+        got = scatter_pallas.scatter_add_2d(sly, slx, v, shape)
+        want = scatter_pallas.scatter_add_2d_plain(sly, slx, v, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), "B7 differs"
+    packed = scatter_sorted.pack_updates(sly, slx, ones)
+    packed_sorted = torch.sort(packed).values
+    for words in (packed, packed_sorted):
+        got = scatter_sorted.scatter_add_sorted(words, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(
+            got, scatter_sorted.scatter_add_sorted_plain(words, shape)), \
+            "B8 differs"
+        assert torch.equal(got, scatter_pallas.scatter_add_2d_plain(
+            sly, slx, ones, shape)), "B8 differs from the value scatter"
+    flat = sly.long() * shape[1] + slx.long()
+
+    def index_put_library():
+        torch.zeros(shape[0] * shape[1], dtype=torch.int32,
+                    device=dev).index_put_((flat,), ones, accumulate=True)
+
+    grid_bytes = shape[0] * shape[1] * 4
+    b7_bd = bound(n_s * 12 + grid_bytes, n_s)
+    b7 = {"name": "scatter_add_2d", "route": "cuda",
+          "source": "iris_lama_tpu_torch/csrc/deposit.cu",
+          "replaces": "iris_lama_tpu/ops/scatter_pallas.py:28",
+          "n": n_s, "hw": list(shape), "max_abs_err": 0,
+          **timings(torch, "", lambda: scatter_pallas.scatter_add_2d(
+              sly, slx, ones, shape), 300),
+          **timings(torch, "plain_", lambda: scatter_pallas.scatter_add_2d_plain(
+              sly, slx, ones, shape), 300),
+          **timings(torch, "library_", index_put_library, 100),
+          "library_call": "zeros + index_put_(accumulate=True)",
+          "bound_ms": b7_bd[0], "bound_by": b7_bd[1]}
+    b8_bd = bound(n_s * 4 + grid_bytes, n_s * 10)
+    b8 = {"name": "scatter_add_sorted", "route": "cuda",
+          "source": "iris_lama_tpu_torch/csrc/deposit.cu",
+          "replaces": "iris_lama_tpu/ops/scatter_sorted.py:47",
+          "n": n_s, "hw": list(shape), "max_abs_err": 0,
+          **timings(torch, "", lambda: scatter_sorted.scatter_add_sorted(
+              packed_sorted, shape), 300),
+          **timings(torch, "plain_",
+                    lambda: scatter_sorted.scatter_add_sorted_plain(
+                        packed_sorted, shape), 300),
+          **timings(torch, "library_", index_put_library, 100),
+          "library_call": "zeros + index_put_(accumulate=True)",
+          "bound_ms": b8_bd[0], "bound_by": b8_bd[1]}
+    loc_kernels = [b4, b5, b2, b7, b8]
+    for kern in loc_kernels:
+        emit({"phase": "loc_kernel", **kern})
+    del loc, wins, b4p_args, idx
+
+    # 10. prefix: CPU plain versions vs the card, one map ------------------
+    maps_cpu = state.locmaps_from_numpy(maps_np, "cpu")
+    prefix = {}
+    for mode in ("solve", "fused"):
+        runs = []
+        for device, mp in (("cpu", maps_cpu), (dev, maps)):
+            lc = loc2d.Loc2D(opts, maps=mp, device=device, match=mode)
+            lc.set_prior(Pose2D(*data.poses_gt[0]))
+            st = [tuple(t.to(device) for t in s)
+                  for s in staged[:LOC_PREFIX + 1]]
+            t0 = time.perf_counter()
+            acc = lc.update_many_prepadded(st, odoms[:LOC_PREFIX + 1])
+            runs.append((acc, lc.trajectory(), lc.covariance(), lc.rmse(),
+                         time.perf_counter() - t0))
+        (acc_c, tc, cc, rc, t_c), (acc_g, tg, cg, rg, _) = runs
+        dxy = float(np.abs(tc[:, :2] - tg[:, :2]).max())
+        dth = float(np.abs(np.angle(np.exp(1j * (tc[:, 2]
+                                                 - tg[:, 2])))).max())
+        prefix[mode] = {"accepted": len(acc_c), "cpu_s": t_c,
+                        "max_dxy_m": dxy, "max_dtheta_rad": dth,
+                        "cov_max_rel_diff": float(
+                            np.abs(cc - cg).max() / np.abs(cc).max()),
+                        "rmse_rel_diff": abs(rc - rg) / max(rc, 1e-12)}
+        assert acc_c == acc_g, f"Loc2D prefix {mode}: accepted differ"
+        assert dxy <= 1e-3 and dth <= 1e-3, \
+            f"Loc2D prefix {mode}: poses differ {dxy} m {dth} rad"
+    # one gloc round on both from the same draws
+    gk = LOC_PREFIX
+    gloc = []
+    for device, mp in (("cpu", maps_cpu), (dev, maps)):
+        gen = torch.Generator().manual_seed(5)
+
+        def draw(kind, shape, device=device, gen=gen):
+            return torch.rand(shape, generator=gen).to(device)
+
+        lc = loc2d.Loc2D(opts, maps=mp, device=device)
+        p_g, s_g = loc2d.global_localization_kernel(
+            mp, lc.geo, lc.max_dist, staged[gk][0].to(device),
+            staged[gk][1].to(device), opts.gloc_particles, draw)
+        gloc.append((p_g.cpu().numpy(), float(s_g)))
+    (pc, sc), (pg, sg) = gloc
+    gloc_dxy = float(np.abs(pc[:2] - pg[:2]).max())
+    emit({"phase": "loc_prefix", "updates": LOC_PREFIX, "modes": prefix,
+          "gloc_same_hypothesis_dxy_m": gloc_dxy,
+          "gloc_sse": [sc, sg],
+          "gloc_true_pose": [float(v) for v in data.poses_gt[gk]],
+          "gloc_pose_xy": [float(pg[0]), float(pg[1])]})
+    assert gloc_dxy <= 1e-4, f"Loc2D gloc: hypotheses differ by {gloc_dxy}"
+    del maps_cpu
+
+    # 11. the bench_loc.py workload on the card, every match mode ----------
+    fns = {"gn_solve_batched": gn_solve.solve_window_sq,
+           "gn_eval_sq": match_eval.gn_eval_sq,
+           "select4_sq": select4.select4_sq,
+           "scatter_add_2d": scatter_pallas.scatter_add_2d,
+           "scatter_add_sorted": scatter_sorted.scatter_add_sorted}
+
+    def one_pass(mode, rep, p):
+        lc = loc2d.Loc2D(opts, maps=maps, device=dev, match=mode)
+        lc.set_prior(Pose2D(data.poses_gt[0][0] + (rep * 7 + p) * 1e-4,
+                            data.poses_gt[0][1], data.poses_gt[0][2]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = lc.update_many_prepadded(staged, odoms)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        est = lc.trajectory()[-len(acc):]
+        gt = np.asarray([data.poses_gt[i] for i in acc])
+        err = float(np.sum(np.linalg.norm(est[:, :2] - gt[:, :2], axis=1)))
+        return dt, err, len(acc), lc.n_gathers
+
+    modes = {}
+    for mode in loc2d.MATCH_MODES:
+        one_pass(mode, 9, 0)                       # warm-up, discarded
+        for fn in fns.values():
+            fn.launches = 0
+        reads0 = nlls_solver.host_read.count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reps = []
+        for rep in range(3):
+            t_tot = err_sum = 0.0
+            n_tot = gathers = 0
+            for p in range(3):
+                dt, es, n, ng = one_pass(mode, rep, p)
+                t_tot += dt
+                err_sum += es
+                n_tot += n
+                gathers += ng
+            reps.append({"updates_per_s": n_tot / t_tot,
+                         "mean_err_m": err_sum / n_tot, "updates": n_tot,
+                         "seconds": t_tot, "gathers": gathers})
+        launches = {n: fn.launches for n, fn in fns.items()}
+        updates = sum(r["updates"] for r in reps)
+        rates = sorted(r["updates_per_s"] for r in reps)
+        modes[mode] = {
+            "reps": reps, "median_updates_per_s": rates[1],
+            "launches": launches,
+            "launches_per_update": {n: v / updates
+                                    for n, v in launches.items()},
+            "host_reads_per_update": (nlls_solver.host_read.count
+                                      - reads0) / updates,
+            "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
+        emit({"phase": "loc_main_path", "mode": mode, **modes[mode]})
+        for r in reps:
+            assert r["mean_err_m"] < LOC_ERR_BOUND_M, \
+                f"Loc2D {mode}: mean error {r['mean_err_m']:.4f} m"
+    lpu = {m: v["launches_per_update"] for m, v in modes.items()}
+    assert lpu["solve"]["gn_solve_batched"] == 1.0, lpu["solve"]
+    assert lpu["fused"]["gn_eval_sq"] >= 1.0, lpu["fused"]
+    assert all(lpu[m]["select4_sq"] > 0 for m in ("sq", "solve", "fused"))
+    assert lpu["generic"]["select4_sq"] == 0, lpu["generic"]
+
+    # the live per-scan API (bench_loc.py IRIS_LOC_BENCH_SEQ=1), solve mode
+    lc = loc2d.Loc2D(opts, maps=maps, device=dev, match="solve")
+    lc.set_prior(Pose2D(*data.poses_gt[0]))
+    lc.has_first_scan = True
+    lc.odom_ = odoms[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = [i for i in range(1, n_steps)
+           if lc.update(data.clouds[i], odoms[i], data.timestamps[i])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    est = lc.trajectory()[-len(acc):]
+    gt = np.asarray([data.poses_gt[i] for i in acc])
+    live_err = float(np.mean(np.linalg.norm(est[:, :2] - gt[:, :2], axis=1)))
+    assert live_err < LOC_ERR_BOUND_M, f"Loc2D live: {live_err:.4f} m"
+
+    # one 3000-hypothesis global-localisation round, and the covariance
+    lc = loc2d.Loc2D(opts, maps=maps, device=dev)
+    gpts, gmsk = staged[gk]
+    gen = torch.Generator().manual_seed(6)
+
+    def gloc_round():
+        return loc2d.global_localization_kernel(
+            maps, lc.geo, lc.max_dist, gpts, gmsk, opts.gloc_particles,
+            lambda kind, shape: torch.rand(shape, generator=gen).to(dev))
+
+    gloc_round()
+    torch.cuda.synchronize()
+    gloc_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gloc_round()
+        torch.cuda.synchronize()
+        gloc_ms.append((time.perf_counter() - t0) * 1e3)
+    r_eval, j_eval = match_mod.make_window_eval(
+        sub, sub_org, geo, lc.max_dist, pts, msk)(pose0)
+    cov_ms = timings(torch, "", lambda: nlls_solver.covariance_from_eval(
+        r_eval, j_eval, sop.robust), 50)
+    rate = modes["solve"]["median_updates_per_s"]
+    emit({"phase": "loc_extra",
+          "live_update_api": {"mode": "solve", "updates": len(acc),
+                              "updates_per_s": len(acc) / dt,
+                              "mean_err_m": live_err},
+          "gloc_round_ms": gloc_ms, "gloc_particles": opts.gloc_particles,
+          "covariance": {**cov_ms,
+                         "share_of_solve_update": cov_ms["kernel_ms"]
+                         * rate / 1e3},
+          "map_mb": map_mb, "seconds": time.perf_counter() - t_start})
+    for kern in loc_kernels:      # summed over phase 11's match modes
+        counter = kern["name"].removesuffix("_loc2d")
+        kern["launches"] = sum(m["launches"][counter]
+                               for m in modes.values())
+    return loc_kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -486,15 +971,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
+    from iris_lama_tpu_torch.algos.slam2d import Slam2D
     from iris_lama_tpu_torch.core import lie
     from iris_lama_tpu_torch.core.pose import Pose2D
     from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
     from iris_lama_tpu_torch.ops import select4
     from iris_lama_tpu_torch.sdm import mapping
-    from iris_lama_tpu_torch.utils import simulator
-    from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
-    from iris_lama_tpu_torch.utils.evaluation import ate_rmse
+    from iris_lama_tpu_torch.utils.cloud import beam_bucket
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -520,16 +1003,9 @@ def main() -> int:
           "ptxas": ptxas})
 
     # the main path's data: the bench workload's scans and options
-    sim = simulator.SimConfig(n_steps=440, seed=3,
-                              laser=simulator.LaserSpec(n_beams=720,
-                                                        max_range=10.0))
-    data = simulator.simulate(sim)
-    opts = Slam2DOptions(resolution=0.05, max_range=10.0,
-                         trans_thresh=0.05, rot_thresh=0.05,
-                         capacity=8192, max_iter=50)
+    data, opts, padded = slam_workload()
     cfg = opts.mapping_config()
     nb = beam_bucket(720)
-    padded = [pad_scan(c, nb) for c in data.clouds]
 
     # 3. kernels against their plain versions --------------------------------
     rng = np.random.default_rng(0)
@@ -686,22 +1162,7 @@ def main() -> int:
         fn.launches = 0
     passes = []
     for p in range(3):
-        slam = Slam2D(opts, device=dev)
-        slam.set_prior(Pose2D(data.poses_gt[0][0] + p * 1e-4,
-                              data.poses_gt[0][1], data.poses_gt[0][2]))
-        slam.update_prepadded(*staged[0], data.odometry[0])
-        slam.update_prepadded(*staged[1], data.odometry[1])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        acc = slam.update_many_prepadded(staged[2:], data.odometry[2:])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        gt = np.asarray([data.poses_gt[2 + k] for k in acc])
-        ate = ate_rmse(slam.trajectory()[-len(gt):], gt)
-        passes.append({"scans_per_s": len(acc) / dt, "updates": len(acc),
-                       "seconds": dt, "ate_m": ate,
-                       "reorgs": slam.n_reorgs, "scrolls": slam.n_scrolls,
-                       "escaped": slam.escaped_count()})
+        passes.append(slam_pass(torch, dev, data, opts, staged, p))
     launches = {"deposit_counts": scatter_matmul.deposit_counts.launches,
                 "select4_sq": select4.select4_sq.launches,
                 "edt2d": edt_pallas.edt2d.launches}
@@ -722,6 +1183,8 @@ def main() -> int:
     # 6-8. the particle filter: its kernels, the CPU/card prefix, the bench
     # workload
     kernels += pf_phases(torch, dev)
+    # 9-11. Loc2D: its kernels, the CPU/card prefix, the bench workload
+    kernels += loc_phases(torch, dev)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -1,1 +1,1 @@
-"""SLAM drivers."""
+"""SLAM and localisation drivers."""

@@ -10,7 +10,8 @@ reference:
 
 One loop: each IRLS step is masked — a step taken after the loop stopped
 leaves every carried value unchanged — so the host reads the stop flag
-only once per ``STOP_CHECK_EVERY`` steps and the loop body has no host read
+(:func:`host_read`, which counts such reads) only once per
+``STOP_CHECK_EVERY`` steps and the loop body has no host read
 (a CUDA graph can capture it later). The results equal a plain while loop
 (the JAX package's while/scan/unroll modes agree bit for bit). The 3x3
 normal equations are explicit float32 sums, never a TF32 product.
@@ -143,6 +144,44 @@ def solve(eval_fn: Callable, update_fn: Callable, state0,
             v = torch.where(take, new_v, v)
             stop = torch.where(active, stop_now | stop_after, stop)
             it = it + take.to(torch.int32)
-        if not bool(~stop & (it < opts.max_iterations)):
+        if not host_read(~stop & (it < opts.max_iterations)):
             break
     return SolveResult(state=state, iterations=it, chi2=chi2, r=r, J=J)
+
+
+def host_read(t):
+    """``t.tolist()`` (a Python bool for a 0-dim flag) — a host read, which
+    waits for the device; counted in ``host_read.count``."""
+    host_read.count += 1
+    return t.tolist()
+
+
+host_read.count = 0
+
+
+def covariance(eval_fn, robust: RobustCost, state):
+    """Parameter covariance at ``state`` (solver.cpp:122-151)."""
+    r, J = eval_fn(state)
+    return covariance_from_eval(r, J, robust)
+
+
+def covariance_from_eval(r, J, robust: RobustCost):
+    """Covariance from an unweighted evaluation (solver.cpp:122-151): the
+    inverse of J'J when J has full rank (the smallest singular value above
+    1e-6 of the largest), else the SVD pseudo-inverse with every singular
+    value within 1e-3 of 0 mapped to 3.0 (solver.cpp:143-149).
+
+    ``inv_ex`` does not check for a singular J'J (whose inverse is then
+    discarded), so that check costs no host read; ``svd`` on a CUDA tensor
+    still waits for the device (cuSOLVER).
+    """
+    w = torch.sqrt(robust.weight(r))
+    J = J * w[:, None]
+    A = (J[:, :, None] * J[:, None, :]).sum(0)
+    inv, _ = torch.linalg.inv_ex(A)
+    _, s, vt = torch.linalg.svd(J, full_matrices=False)
+    full_rank = s[-1] > 1e-6 * torch.clamp(s[0], min=1e-30)
+    s_inv2 = torch.where(torch.abs(s) > 1e-3, 1.0 / (s * s),
+                         torch.full_like(s, 3.0))
+    pinv = (vt.T * s_inv2[None, :]) @ vt
+    return torch.where(full_rank, inv, pinv)

@@ -3,8 +3,9 @@
 Each source in ``iris_lama_tpu_torch/csrc/`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` (H100) into its own shared library
 under ``build/torch_kernels/`` at the repository root, then loaded with
-``ctypes``. The library name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded. All
+``ctypes``. The library name carries a hash of the source, the headers it
+includes (``#include "..."``) and the flags, so an edited source or header
+is rebuilt and a stale library is never loaded. All
 missing libraries are compiled together, one ``nvcc`` process per source.
 
 Nothing is built when this module is imported: the first launch of a
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,9 +29,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# flags of one source on top of NVCC_FLAGS: the solve keeps every float
-# operation separately rounded, as its plain PyTorch version does
-SOURCE_FLAGS = {"gn_batch": ("-fmad=false",)}
+# flags of one source on top of NVCC_FLAGS: the Gauss-Newton kernels keep
+# every float operation separately rounded, as their plain PyTorch versions
+# do
+_NO_FMA = ("-fmad=false",)
+SOURCE_FLAGS = {"gn_solve": _NO_FMA, "match_eval": _NO_FMA}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,12 +42,16 @@ _F = ctypes.c_float
 # C signature of every exported launcher: (argtypes); all return int
 # (a cudaError_t, 0 = success)
 SIGNATURES = {
-    "deposit": {"deposit_counts": (_P, _P, _L, _I, _I, _I, _P, _P)},
+    "deposit": {"deposit_counts": (_P, _P, _L, _I, _I, _I, _P, _P),
+                "scatter_add_2d": (_P, _P, _P, _L, _I, _I, _P, _P),
+                "scatter_add_sorted": (_P, _L, _I, _I, _P, _P)},
     "select4": {"select4_sq": (_P, _I, _I, _P, _P, _I, _P, _P)},
     "edt": {"edt2d": (_P, _I, _I, _I, _I, _I, _P, _P, _P)},
-    "gn_batch": {"gn_batch_solve": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                                    _F, _F, _F, _F, _I, _F, _F, _I, _I, _I,
-                                    _P, _P)},
+    "gn_solve": {"gn_solve_batched": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                                      _L, _F, _F, _F, _F, _I, _F, _F, _I, _I,
+                                      _I, _P, _P)},
+    "match_eval": {"gn_eval_sq": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _F, _F, _F, _F, _I, _P, _P)},
 }
 
 _libs: dict = {}
@@ -64,8 +72,23 @@ def _flags(name: str) -> tuple:
     return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list) -> list:
+    """``path`` and the csrc headers it includes with quotes, recursively,
+    each once."""
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            _sources(CSRC / inc.decode(), seen)
+    return seen
+
+
 def _lib_path(name: str, extra: tuple) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu", []):
+        h.update(path.read_bytes())
     h.update(" ".join(_flags(name) + extra).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,19 +1,43 @@
-"""Scalar helpers of the whole-solve Gauss-Newton step (kernel B4's).
+"""B4: the whole Gauss-Newton IRLS scan match in one launch.
 
-The JAX package's ``ops/gn_solve.py`` runs the whole IRLS solve of one
-particle in one Pallas launch (B4, off by default there); its scalar step
-— the 3x3 adjugate solve and the SE(2) exp-compose update — is shared with
-the batched solve B6 (``ops/gn_batch.py``). These are those helpers on
-tensors of any (equal) shape, elementwise, in float32 and in the JAX
-package's order of operations; ``csrc/gn_batch.cu`` repeats them
-statement for statement. The B4 kernel itself is not ported yet.
+Each particle solves its scan match against its own s8 squared-distance
+window: grids ``[P, H, W]`` with window origins ``[P, 2]`` and start states
+``[P, 4]``, and either one scan per particle (``points_xy [P, B, 2]``,
+``mask [P, B]``) or one scan shared by all (``[B, 2]``, ``[B]``). Each
+runs the IRLS loop of the reference (solver.cpp:53-118 /
+gauss_newton.cpp:53-91): evaluate the ten normal-equation sums
+(``match_eval._eval_math`` on B2's corners), stop when ``|g|_inf < eps1``
+or ``|h|_inf < eps2`` before a step (not counted as an iteration), else
+take the step ``exp(h) * state`` (counted) and keep it iff chi2 drops — an
+invalid step reverts and stops. With ``want_lik`` one more evaluation at
+the final state with unit weights gives ``sum_d2``, the masked residual
+SSE.
+
+The TPU kernel (iris_lama_tpu/ops/gn_solve.py:_kernel) ran one Pallas
+program per particle with its window resident in VMEM. On the GPU it is
+one CUDA kernel (``csrc/gn_solve.cu``): one thread block per particle that
+loops over its own iterations, with the device code it shares with B5 and
+B6 (``csrc/gn_common.cuh``). Loc2D's ``match="solve"`` launches it at
+P = 1. :func:`solve_window_sq` launches it for CUDA tensors;
+:func:`solve_window_sq_plain` is the plain PyTorch version (a masked loop
+over all particles, the control flow of the JAX package's
+``match_surface_2d._solve_window_fused``), used for CPU tensors.
+
+The scalar helpers :func:`_exp_compose` and :func:`_solve3_scalar` work
+elementwise on tensors of any (equal) shape, in float32 and in the JAX
+package's order of operations; the kernels repeat them statement for
+statement.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..nlls.solver import STOP_CHECK_EVERY, host_read
 from ..sdm.geometry import f32
+from . import _cuda, match_eval, select4
+
+N_ROWS = 8   # tx ty cos sin chi2 iters sum_d2 pad
 
 
 def _exp_compose(h0, h1, h2, tx, ty, c, s):
@@ -51,3 +75,140 @@ def _solve3_scalar(a00, a01, a02, a11, a12, a22, g0, g1, g2):
     h1 = -(co01 * g0 + co11 * g1 + co12 * g2) * inv_det
     h2 = -(co02 * g0 + co12 * g1 + co22 * g2) * inv_det
     return h0, h1, h2
+
+
+def _unpack(rows):
+    """[N_ROWS, P] rows -> (state [P, 4], iterations int32 [P], chi2 [P],
+    sum_d2 [P])."""
+    return (rows[0:4].t().contiguous(), rows[5].to(torch.int32), rows[4],
+            rows[6])
+
+
+def solve_window_sq_plain(grid, org_cell, state0, points_xy, mask, *,
+                          max_dist, res, scale, cell_offset, cauchy_c,
+                          eps1, eps2, max_iter, want_lik=False):
+    """Plain PyTorch version of :func:`solve_window_sq`: every particle
+    steps in one masked loop (a stopped particle's values stay as they
+    are), with a host read of the stop flags every ``STOP_CHECK_EVERY``
+    steps. The sums are taken in the kernels' order
+    (``match_eval._block_sum``), so on the card the two agree bit for
+    bit."""
+    p, h, w = grid.shape
+    fm = mask.to(torch.float32)
+    px, py = points_xy[..., 0], points_xy[..., 1]     # [B] or [P, B]
+    org = org_cell.to(torch.int32)
+    scl = f32(scale)
+
+    def sums_at(st, cc):
+        tx, ty, c, s = (st[:, k:k + 1] for k in range(4))
+        # lie.se2_apply + geometry.w2m_frac (floor + integer offset)
+        hx = tx + c * px - s * py
+        hy = ty + s * px + c * py
+        mfx, mfy = hx * scl, hy * scl
+        flx, fly = torch.floor(mfx), torch.floor(mfy)
+        lx = flx.to(torch.int32) + cell_offset - org[:, 0:1]
+        ly = fly.to(torch.int32) + cell_offset - org[:, 1:2]
+        v = select4.select4_sq_plain(grid, ly, lx)
+        terms = match_eval._eval_math(
+            ly, lx, v[0], v[1], v[2], v[3], mfx - flx, mfy - fly, hx, hy,
+            fm, h, w, max_dist, res, scale, cc, total=lambda x: x)
+        return match_eval._block_sum(torch.stack(terms))    # [10, P]
+
+    st = state0.to(torch.float32)
+    sm = sums_at(st, cauchy_c)
+    stop = torch.zeros(p, dtype=torch.bool, device=grid.device)
+    it = torch.zeros(p, dtype=torch.int32, device=grid.device)
+    while host_read((~stop & (it < max_iter)).any()):
+        for _ in range(STOP_CHECK_EVERY):
+            active = ~stop & (it < max_iter)
+            g_max = torch.maximum(torch.maximum(sm[6].abs(), sm[7].abs()),
+                                  sm[8].abs())
+            stop_g = g_max < f32(eps1)
+            hs = _solve3_scalar(*sm[:9])
+            hs = [torch.where(stop_g, torch.zeros_like(v), v) for v in hs]
+            h_max = torch.maximum(torch.maximum(hs[0].abs(), hs[1].abs()),
+                                  hs[2].abs())
+            stop_now = stop_g | (h_max < f32(eps2))
+            cand = torch.stack(_exp_compose(*hs, *st.unbind(-1)), dim=-1)
+            nsm = sums_at(cand, cauchy_c)
+            ok = (sm[9] - nsm[9]) > 0.0
+            take = active & ~stop_now        # the step is taken: it += 1
+            acc = take & ok                  # ... and kept
+            st = torch.where(acc[:, None], cand, st)
+            sm = torch.where(acc[None, :], nsm, sm)
+            stop = stop | (active & (stop_now | ~ok))
+            it = it + take.to(torch.int32)
+    if want_lik:
+        sum_d2 = sums_at(st, 0.0)[9]
+    else:
+        sum_d2 = torch.zeros_like(sm[9])
+    return st, it, sm[9], sum_d2
+
+
+def solve_window_sq(grid, org_cell, state0, points_xy, mask, *,
+                    max_dist, res, scale, cell_offset, cauchy_c,
+                    eps1, eps2, max_iter, want_lik=False):
+    """Whole GN IRLS scan match of every particle, one launch.
+
+    grid int8 [P, H, W] squared-distance windows; org_cell int32 [P, 2]
+    (window cell (0, 0), [x, y]); state0 f32 [P, 4]; points_xy f32 [P, B, 2]
+    and mask bool [P, B] (one scan per particle) or [B, 2] and [B] (one
+    scan shared by all). Returns (state f32 [P, 4], iterations int32 [P],
+    chi2 f32 [P], sum_d2 f32 [P]; 0 unless ``want_lik``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (contiguous operands of these dtypes and shapes) or raise.
+    """
+    kw = dict(max_dist=max_dist, res=res, scale=scale,
+              cell_offset=cell_offset, cauchy_c=cauchy_c, eps1=eps1,
+              eps2=eps2, max_iter=max_iter, want_lik=want_lik)
+    if grid.device.type == "cpu":
+        return solve_window_sq_plain(grid, org_cell, state0, points_xy, mask,
+                                     **kw)
+    return _launch(solve_window_sq, grid, org_cell, state0, points_xy, mask,
+                   **kw)
+
+
+solve_window_sq.launches = 0
+
+
+def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
+            res, scale, cell_offset, cauchy_c, eps1, eps2, max_iter,
+            want_lik):
+    """Check the operands and launch the whole-solve kernel (per-particle
+    scans at stride B, a shared scan at stride 0), counting the launch on
+    ``wrapper`` (B4's or B6's)."""
+    dev = grid.device
+    per_particle = points_xy.dim() == 3
+    _cuda.require(grid, "grid", torch.int8, 3, dev)
+    _cuda.require(org_cell, "org_cell", torch.int32, 2, dev)
+    _cuda.require(state0, "state0", torch.float32, 2, dev)
+    _cuda.require(points_xy, "points_xy", torch.float32,
+                  3 if per_particle else 2, dev)
+    _cuda.require(mask, "mask", torch.bool, 2 if per_particle else 1, dev)
+    p, h, w = grid.shape
+    b = points_xy.shape[-2]
+    scan = (p, b) if per_particle else (b,)
+    if (org_cell.shape != (p, 2) or state0.shape != (p, 4)
+            or points_xy.shape != (*scan, 2) or mask.shape != scan):
+        raise ValueError(
+            f"gn_solve: grid {tuple(grid.shape)}, org_cell "
+            f"{tuple(org_cell.shape)}, state0 {tuple(state0.shape)}, "
+            f"points_xy {tuple(points_xy.shape)}, mask {tuple(mask.shape)}")
+    px = points_xy[..., 0].contiguous()
+    py = points_xy[..., 1].contiguous()
+    fm = mask.to(torch.float32)
+    robust = float(cauchy_c) > 0.0
+    cinv = f32(1.0 / (cauchy_c * cauchy_c)) if robust else 0.0
+    consts = (f32(max_dist), f32(res), f32(scale), cinv, int(robust),
+              f32(eps1), f32(eps2), int(cell_offset), int(max_iter),
+              int(bool(want_lik)))
+    out = torch.empty((N_ROWS, p), dtype=torch.float32, device=dev)
+    err = _cuda.library("gn_solve").gn_solve_batched(
+        grid.data_ptr(), p, h, w, org_cell.data_ptr(), state0.data_ptr(),
+        px.data_ptr(), py.data_ptr(), fm.data_ptr(), b,
+        b if per_particle else 0, *consts, out.data_ptr(),
+        _cuda.stream_handle(dev))
+    _cuda.check(err, "gn_solve_batched")
+    wrapper.launches += 1
+    return _unpack(out)

@@ -1,0 +1,56 @@
+"""B7: int32 value scatter-add into a dense grid.
+
+``scatter_add_2d(ly, lx, val, shape)``: ``out[ly[t], lx[t]] += val[t]``
+over int32 streams ``[N]`` into an int32 grid ``shape = (H, W)``; the
+indices must lie in the grid, as the JAX function requires.
+
+The TPU kernel (iris_lama_tpu/ops/scatter_pallas.py:_scatter_kernel) kept
+the grid in VMEM and did one aligned (8, 128) tile read-modify-write per
+element. On the GPU it is a memset and one int32 ``atomicAdd`` per element
+(``csrc/deposit.cu``, beside B1's deposit), exact in any order.
+:func:`scatter_add_2d` launches it for CUDA tensors and uses
+:func:`scatter_add_2d_plain` for CPU tensors. Nothing in the JAX package
+calls it outside its own module and tests.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+
+def scatter_add_2d_plain(ly, lx, val, shape):
+    """Plain PyTorch version: ``zeros`` + ``index_put_(accumulate=True)``."""
+    out = torch.zeros(tuple(shape), dtype=torch.int32, device=ly.device)
+    return out.index_put_((ly.long(), lx.long()), val.to(torch.int32),
+                          accumulate=True)
+
+
+def scatter_add_2d(ly, lx, val, shape):
+    """int32 grid ``shape`` with ``val[t]`` added at (``ly[t]``,
+    ``lx[t]``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (contiguous int32 streams of one length) or raise.
+    """
+    if ly.device.type == "cpu":
+        return scatter_add_2d_plain(ly, lx, val, shape)
+    dev = ly.device
+    for name, t in (("ly", ly), ("lx", lx), ("val", val)):
+        _cuda.require(t, name, torch.int32, 1, dev)
+    if not ly.shape == lx.shape == val.shape:
+        raise ValueError(f"ly {tuple(ly.shape)}, lx {tuple(lx.shape)} and "
+                         f"val {tuple(val.shape)} differ in length")
+    h, w = shape
+    out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    lib = _cuda.library("deposit")
+    _cuda.check(lib.scatter_add_2d(ly.data_ptr(), lx.data_ptr(),
+                                   val.data_ptr(), ly.numel(), h, w,
+                                   out.data_ptr(), _cuda.stream_handle(dev)),
+                "scatter_add_2d")
+    scatter_add_2d.launches += 1
+    return out
+
+
+scatter_add_2d.launches = 0

@@ -1,2 +1,2 @@
 """Sparse-dense maps: geometry, raycast, distance field, patch pool,
-windows and the fused SLAM map update."""
+windows, the simple occupancy map and the fused SLAM map update."""

@@ -17,10 +17,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..ops import edt_pallas, select4
+from . import pool as pool_mod
 from .geometry import MapGeometry, f32
 
 
@@ -119,9 +121,66 @@ def _interp_window_sq(grid, org_cell, geo: MapGeometry, world_xy, max_dist):
 
 
 def interp_window(grid, org_cell, geo: MapGeometry, world_xy, max_dist):
-    """Interpolated distance + gradient from a dense window. Only integer
-    squared-distance windows (the resident path) are ported."""
-    if grid.dtype.is_floating_point:
-        raise NotImplementedError("float32 distance windows are not ported; "
-                                  "use a squared-distance grid")
-    return _interp_window_sq(grid, org_cell, geo, world_xy, max_dist)
+    """Interpolated distance + gradient from a dense window ``grid`` [H, W]
+    ([y, x]) whose cell (0, 0) is ``org_cell``; cells outside it read
+    ``max_dist``.
+
+    Integer grids hold capped squared cell distances (B2 selects their
+    corners); float grids hold meters and their four corners are one plain
+    gather (the JAX package selected them with one-hot matrix products,
+    which give the same values).
+    """
+    if not grid.dtype.is_floating_point:
+        return _interp_window_sq(grid, org_cell, geo, world_xy, max_dist)
+    mi, mu = geo.w2m_frac(world_xy)                  # int cell (x, y), frac
+    loc = mi - org_cell.to(torch.int32)              # [..., 2] (lx, ly)
+    h, w = grid.shape
+    lx, ly = loc[..., 0], loc[..., 1]
+    y0 = ly.clamp(0, h - 1).long() * w
+    y1 = (ly + 1).clamp(0, h - 1).long() * w
+    x0 = lx.clamp(0, w - 1).long()
+    x1 = (lx + 1).clamp(0, w - 1).long()
+    v = grid.reshape(-1)[torch.stack([y0 + x0, y0 + x1, y1 + x0, y1 + x1])]
+    md = f32(max_dist)
+    inx0 = (lx >= 0) & (lx < w)
+    inx1 = (lx + 1 >= 0) & (lx + 1 < w)
+    iny0 = (ly >= 0) & (ly < h)
+    iny1 = (ly + 1 >= 0) & (ly + 1 < h)
+    v00 = torch.where(inx0 & iny0, v[0], md)
+    v10 = torch.where(inx1 & iny0, v[1], md)
+    v01 = torch.where(inx0 & iny1, v[2], md)
+    v11 = torch.where(inx1 & iny1, v[3], md)
+    return _bilinear(v00, v10, v01, v11, mu, f32(geo.scale))
+
+
+def cell_distance(table, dist, geo: MapGeometry, cells, max_dist):
+    """Nearest-cell distance straight from the patch pool (.cpp:140):
+    cells int32 [..., 2] -> f32 [...]; missing patches read ``max_dist``."""
+    slots, idx = pool_mod.locate(table, geo, cells, dist.shape[0] - 1)
+    return torch.where(slots >= 0, dist[idx], f32(max_dist))
+
+
+def interp_pool(table, dist, geo: MapGeometry, world_xy, max_dist):
+    """Interpolated distance + gradient straight from the patch pool, where
+    no dense window exists (global localisation hypotheses spread over the
+    whole map, loc2d.cpp:249-286). The four corners take one table probe."""
+    mi, mu = geo.w2m_frac(world_xy)
+    corners = torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]],
+                           dtype=torch.int32, device=mi.device)
+    v = cell_distance(table, dist, geo, mi[..., None, :] + corners, max_dist)
+    return _bilinear(v[..., 0], v[..., 1], v[..., 2], v[..., 3], mu,
+                     f32(geo.scale))
+
+
+class DistanceMapState(NamedTuple):
+    """A standalone pool-backed distance map: the fixed map Loc2D reads
+    (loc2d.h:103-104).
+
+    ``obstacle`` is derived, as in the JAX package's ``SlamMapState``: a
+    cell is an obstacle iff its stored distance is exactly 0 (the port's
+    ``SlamMapState`` keeps no obstacle array of its own).
+    """
+
+    table: pool_mod.PatchTable
+    obstacle: torch.Tensor   # bool [P+1, L, L]
+    dist: torch.Tensor       # f32 [P+1, L, L] meters

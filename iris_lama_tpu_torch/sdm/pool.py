@@ -106,6 +106,17 @@ def table_lookup(table: PatchTable, keys):
     return torch.where(found, table.slots[pos], EMPTY).reshape(shape)
 
 
+def locate(table: PatchTable, geo, cells, trash: int):
+    """Where map cells int32 [..., 2] ([x, y]) live in the pool arrays:
+    (slots int32 [...], -1 = missing; index tuple (slot, local y, local x)
+    into a ``[P+1, L, L]`` array), a missing patch's cells indexing the
+    ``trash`` slot."""
+    slots = table_lookup(table, geo.m2p(cells))
+    local = geo.m2local(cells).long()
+    safe = torch.where(slots >= 0, slots, trash).long()
+    return slots, (safe, local[..., 1], local[..., 0])
+
+
 def table_insert_unique(table: PatchTable, keys):
     """Batch insert of keys that are UNIQUE among their non-negative
     entries (negative entries are skipped).
@@ -159,3 +170,28 @@ def table_insert_unique(table: PatchTable, keys):
     return PatchTable(tkeys[:hsize], tslots[:hsize], table.free_slots,
                       table.n_free - n_placed,
                       table.overflow + n_fail), out
+
+
+def active_slot_mask(table: PatchTable):
+    """bool[P]: which pool slots are currently allocated (every slot but
+    ``free_slots[:n_free]``)."""
+    p = table.capacity
+    is_free_entry = torch.arange(p, device=table.n_free.device) < table.n_free
+    safe = torch.where(is_free_entry, table.free_slots, 0).long()
+    in_free = torch.zeros(p, dtype=torch.int32, device=safe.device)
+    in_free.scatter_reduce_(0, safe, is_free_entry.to(torch.int32), "amax")
+    return in_free == 0
+
+
+def active_keys(table: PatchTable):
+    """(keys int32[P], mask bool[P]): the patch key of every allocated
+    slot (EMPTY elsewhere)."""
+    p = table.capacity
+    valid_entry = table.slots >= 0
+    safe_slot = torch.where(valid_entry, table.slots, 0).long()
+    contrib = torch.where(valid_entry, table.keys, EMPTY)
+    slot_keys = torch.full((p,), EMPTY, dtype=torch.int32,
+                           device=contrib.device)
+    slot_keys.scatter_reduce_(0, safe_slot, contrib, "amax")
+    mask = active_slot_mask(table)
+    return torch.where(mask, slot_keys, EMPTY), mask

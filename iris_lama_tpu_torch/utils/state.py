@@ -24,6 +24,10 @@ stream it was saved in), the re-org trigger ``trigger_m`` and ``scroll_m``
 (float64), ``host_reorg`` (bool), the escape ladder's counters and the
 escape and re-org counts (int64).
 
+Loc2D's fixed maps carry across as their own dict
+(:func:`locmaps_to_numpy`), so that the port and the JAX package localise
+on one identical map.
+
 The port holds counts in int32 (sdm/mapping.py); they convert here.
 """
 
@@ -73,6 +77,44 @@ def map_from_numpy(d: dict, device) -> mapping.SlamMapState:
                                 t(d["occupied"], mapping.COUNT_DTYPE),
                                 t(d["visited"], mapping.COUNT_DTYPE),
                                 t(d["dist"], torch.float32))
+
+
+LOCMAPS_TABLES = ("occupancy", "distance")
+
+
+def locmaps_to_numpy(maps) -> dict:
+    """Loc2D's fixed maps (``algos.loc2d.LocMaps``, or the JAX package's,
+    whose arrays numpy reads as they are) as a state dict:
+    ``occupancy_table_*`` and ``distance_table_*`` (int32), ``cells``
+    (int8), ``obstacle`` (bool) and ``dist`` (float32 meters)."""
+    def arr(t):
+        return _np(t) if isinstance(t, torch.Tensor) else np.asarray(t)
+
+    d = {}
+    for name, part in zip(LOCMAPS_TABLES, maps):
+        d.update({f"{name}_table_{f}": arr(getattr(part.table, f))
+                  for f in TABLE_FIELDS})
+    d["cells"] = arr(maps.occupancy.cells).astype(np.int8)
+    d["obstacle"] = arr(maps.distance.obstacle).astype(bool)
+    d["dist"] = arr(maps.distance.dist).astype(np.float32)
+    return d
+
+
+def locmaps_from_numpy(d: dict, device):
+    """The port's ``LocMaps`` on ``device`` from a state dict of
+    :func:`locmaps_to_numpy`."""
+    from ..algos.loc2d import LocMaps
+    from ..sdm.distance import DistanceMapState
+    from ..sdm.occupancy import SimpleOccupancyState
+
+    tables = [PatchTable(*(_tensor(d[f"{name}_table_{f}"], torch.int32,
+                                   device) for f in TABLE_FIELDS))
+              for name in LOCMAPS_TABLES]
+    return LocMaps(
+        SimpleOccupancyState(tables[0], _tensor(d["cells"], torch.int8,
+                                                device)),
+        DistanceMapState(tables[1], _tensor(d["obstacle"], torch.bool, device),
+                         _tensor(d["dist"], torch.float32, device)))
 
 
 def slam_to_numpy(slam) -> dict:

@@ -10,12 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from iris_lama_tpu_torch.algos import loc2d
 from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D, PFSlam2DOptions
 from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
 from iris_lama_tpu_torch.core.pose import Pose2D
-from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, scatter_matmul
-from iris_lama_tpu_torch.ops import select4
-from iris_lama_tpu_torch.utils import simulator
+from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, gn_solve
+from iris_lama_tpu_torch.ops import match_eval, scatter_matmul
+from iris_lama_tpu_torch.ops import scatter_pallas, scatter_sorted, select4
+from iris_lama_tpu_torch.utils import simulator, state
 from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
 
 pytestmark = pytest.mark.gpu
@@ -46,9 +48,10 @@ def test_deposit_kernel_bit_exact(cuda, order):
     assert torch.equal(got, want)
 
 
-def test_select4_kernel_bit_exact(cuda):
+@pytest.mark.parametrize("hw", [488, 576])       # Slam2D's, Loc2D's window
+def test_select4_kernel_bit_exact(cuda, hw):
     g = torch.Generator(device=cuda).manual_seed(1)
-    h = w = 488
+    h = w = hw
     grid = torch.randint(0, 101, (h, w), generator=g, device=cuda,
                          dtype=torch.int8)
     ly = torch.randint(-3, h + 3, (768,), generator=g, device=cuda,
@@ -146,9 +149,12 @@ def test_gn_batch_kernel_matches_plain(cuda):
     contraction, so every particle's state, iteration count, chi2 and SSE
     are bit-equal."""
     args, kw = _pf_solve_case(cuda)
-    before = gn_batch.solve_window_sq.launches
+    before = (gn_batch.solve_window_sq.launches,
+              gn_solve.solve_window_sq.launches)
     got = gn_batch.solve_window_sq(*args, **kw)
-    assert gn_batch.solve_window_sq.launches == before + 1
+    # B6 runs B4's kernel with the scan shared, counted as B6 only
+    assert (gn_batch.solve_window_sq.launches,
+            gn_solve.solve_window_sq.launches) == (before[0] + 1, before[1])
     want = gn_batch.solve_window_sq_plain(*args, **kw)
     assert int(got[1].sum()) > 30           # the starts drive the loop
     for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got,
@@ -182,6 +188,105 @@ def test_batched_edt_kernel_bit_exact(cuda):
     got = edt_pallas.edt2d(m, 100, 10)
     assert got.shape == (4, 448, 448)
     assert torch.equal(got, edt_pallas.edt2d_plain(m, 100, 10))
+
+
+@pytest.mark.parametrize("p,per_particle", [(1, False), (8, True)])
+def test_gn_solve_kernel_matches_plain(cuda, p, per_particle):
+    """B4 at Loc2D's shapes (one 576 x 576 window, 768 beams) and with one
+    scan per particle: state, iterations, chi2 and SSE bit-equal."""
+    (grids, org, st0, pts, mask), kw = _pf_solve_case("cpu", p=p, hw=576,
+                                                      seed=7)
+    if per_particle:
+        g = torch.Generator().manual_seed(8)
+        pts = torch.stack([torch.roll(pts, q * 37, 0) for q in range(p)])
+        mask = torch.rand((p, pts.shape[1]), generator=g) < 0.9
+    args = [t.to(cuda).contiguous() for t in (grids, org, st0, pts, mask)]
+    before = gn_solve.solve_window_sq.launches
+    got = gn_solve.solve_window_sq(*args, **kw)
+    assert gn_solve.solve_window_sq.launches == before + 1
+    want = gn_solve.solve_window_sq_plain(*args, **kw)
+    assert int(got[1].sum()) >= p
+    for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got,
+                          want):
+        assert torch.equal(a, w), (name, a, w)
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_gn_eval_kernel_matches_plain(cuda, p):
+    """B5 on one window or three, 768 beams partly off the window."""
+    g = torch.Generator().manual_seed(9)
+    h = w = 576
+    grid = torch.randint(0, 101, (p, h, w), generator=g, dtype=torch.int8)
+    ly = torch.randint(-3, h + 3, (p, 768), generator=g, dtype=torch.int32)
+    lx = torch.randint(-3, w + 3, (p, 768), generator=g, dtype=torch.int32)
+    fl = [torch.rand((p, 768), generator=g) for _ in range(4)]
+    fm = (torch.rand((p, 768), generator=g) < 0.9).float()
+    args = [t.to(cuda) for t in (grid, ly, lx, *fl, fm)]
+    for cauchy_c in (0.15, 0.0):
+        kw = dict(max_dist=0.5, res=0.05, scale=20.0, cauchy_c=cauchy_c)
+        before = match_eval.gn_eval_sq.launches
+        got = match_eval.gn_eval_sq(*args, **kw)
+        assert match_eval.gn_eval_sq.launches == before + 1
+        assert torch.equal(got, match_eval.gn_eval_sq_plain(*args, **kw))
+
+
+def test_value_scatters_match_plain(cuda):
+    """B7 and B8 on ~21 k elements into [448, 512], with duplicates."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    h, w, n = 448, 512, 21000
+    ly = torch.randint(0, h, (n,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    lx = torch.randint(0, w, (n,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    ly[: n // 4], lx[: n // 4] = 7, 9
+    val = torch.randint(-5, 6, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    assert torch.equal(scatter_pallas.scatter_add_2d(ly, lx, val, (h, w)),
+                       scatter_pallas.scatter_add_2d_plain(ly, lx, val,
+                                                           (h, w)))
+    bits = val.remainder(2)
+    packed = scatter_sorted.pack_updates(ly, lx, bits)
+    got = scatter_sorted.scatter_add_sorted(packed, (h, w))
+    assert torch.equal(got, scatter_sorted.scatter_add_sorted_plain(packed,
+                                                                    (h, w)))
+    assert torch.equal(got, scatter_pallas.scatter_add_2d_plain(ly, lx, bits,
+                                                                (h, w)))
+
+
+@pytest.mark.parametrize("mode", ["solve", "fused"])
+def test_loc2d_on_card_matches_cpu(cuda, mode):
+    """Loc2D on a small Slam2D map (built on the CPU, carried to both
+    devices as numpy): the same accepted scans, poses within 1 mm / 1e-3
+    rad, and the mode's kernel launched on the card."""
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=40, seed=4,
+        laser=simulator.LaserSpec(n_beams=120, max_range=8.0)))
+    sopts = Slam2DOptions(resolution=0.1, patch_size=16, max_range=8.0,
+                          trans_thresh=0.2, rot_thresh=0.2, capacity=1024)
+    slam = Slam2D(sopts, device="cpu")
+    slam.set_prior(Pose2D(*data.poses_gt[0]))
+    for k in range(40):
+        slam.update(data.clouds[k], data.odometry[k])
+    maps_np = state.locmaps_to_numpy(loc2d.maps_from_slam(slam.map, None))
+    fn = (gn_solve.solve_window_sq if mode == "solve"
+          else match_eval.gn_eval_sq)
+    before = (fn.launches, select4.select4_sq.launches)
+    runs = []
+    for dev in ("cpu", cuda):
+        loc = loc2d.Loc2D(loc2d.Loc2DOptions(resolution=0.1, l2_max=0.5,
+                                             max_range=8.0, trans_thresh=0.2,
+                                             rot_thresh=0.2),
+                          maps=state.locmaps_from_numpy(maps_np, dev),
+                          device=dev, match=mode)
+        loc.set_prior(Pose2D(*data.poses_gt[0]))
+        acc = [k for k in range(40)
+               if loc.update(data.clouds[k], data.odometry[k])]
+        runs.append((acc, loc.trajectory()))
+    (acc_c, tc), (acc_g, tg) = runs
+    assert acc_c == acc_g and len(acc_c) > 10
+    assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
+    assert np.abs(np.angle(np.exp(1j * (tc[:, 2] - tg[:, 2])))).max() <= 1e-3
+    assert fn.launches > before[0] and select4.select4_sq.launches > before[1]
 
 
 def test_pf_on_card_matches_cpu(cuda):

@@ -121,7 +121,7 @@ def test_pool_path_option_raises():
 
 @pytest.mark.parametrize("call", ["deposit", "select4", "edt",
                                   "deposit_batched", "edt_batched",
-                                  "gn_batch"])
+                                  "gn_batch", "gn_batch_per_particle"])
 def test_kernel_wrappers_never_fall_back(call):
     """A tensor that is not on the CPU goes to the kernel or raises — here
     a meta tensor, which the launchers refuse."""
@@ -143,12 +143,14 @@ def test_kernel_wrappers_never_fall_back(call):
         elif call == "edt_batched":
             tedt.edt2d(torch.empty((3, 4, 4), dtype=torch.bool, **m), 25, 5)
         else:
+            # B6 takes one shared scan; per-particle scans are B4's
+            scan = (3, 8) if call == "gn_batch_per_particle" else (8,)
             tgb.solve_window_sq(
                 torch.empty((3, 4, 4), dtype=torch.int8, **m),
                 torch.empty((3, 2), dtype=torch.int32, **m),
                 torch.empty((3, 4), dtype=torch.float32, **m),
-                torch.empty((8, 2), dtype=torch.float32, **m),
-                torch.empty(8, dtype=torch.bool, **m), max_dist=0.5,
+                torch.empty((*scan, 2), dtype=torch.float32, **m),
+                torch.empty(scan, dtype=torch.bool, **m), max_dist=0.5,
                 res=0.1, scale=10.0, cell_offset=0, cauchy_c=0.15,
                 eps1=1e-4, eps2=1e-4, max_iter=5)
 
