@@ -8,9 +8,11 @@ Phases, one JSON line each:
 1. device — the card's name, and its name and power limit as nvidia-smi
    reports them;
 2. build — compiles the hand-written CUDA kernels of
-   iris_lama_tpu_torch/csrc (one nvcc per source, all at once);
+   iris_lama_tpu_torch/csrc (one nvcc per source, all at once) and prints
+   each kernel's registers, shared memory and spills (ptxas -v);
 3. kernels — each kernel against its plain PyTorch version at the main
-   path's shapes (bit-equal required), with its device time per call
+   path's shapes (bit-equal required; B3 also at shapes that are no
+   multiple of its tile, radii 1, 5, 10), with its device time per call
    (torch.profiler) beside the plain version's, a one-call PyTorch
    yardstick's and the bytes/ops bound; beside them the CUDA-event time
    per call of back-to-back calls (host enqueue included): ``kernel_ms``,
@@ -27,7 +29,10 @@ Phases, one JSON line each:
    particles, 720 beams padded to 768, 5 cm cells) on a real particle set:
    the batched Gauss-Newton solve B6, the batched deposit and the batched
    EDT, each bit-equal to its plain version, with times and bounds as in
-   phase 3;
+   phase 3; B6 also at 1, 255, 257 and 1100 beams, on the largest window
+   it stages in shared memory and on windows at odd byte offsets, max_iter
+   0, 1 and 50, with and without the likelihood; the batched EDT also at
+   P = 3, on border-only masks and at ragged shapes;
 7. pf_prefix — the first 24 PFSlam2D updates of that workload on the CPU
    (plain versions) and on the card (kernels), one seed, through the run's
    first band scroll: the same resample indices, best particle, scrolls
@@ -45,7 +50,9 @@ Phases, one JSON line each:
    escapes, peak memory, match iterations, launches per update;
 9. loc_kernel — Loc2D's kernels at the bench_loc.py shapes (720 beams
    padded to 768, 5 cm cells, 576 x 576 match windows of the bench map):
-   the whole solve B4 at one particle and at eight with a scan each, the
+   the whole solve B4 at one particle and at eight with a scan each (and
+   at 255, 257 and 2048 beams, on windows read from global memory and staged in
+   shared memory, max_iter 0, 1 and 50, with and without the likelihood), the
    fused evaluation B5 and the corner selection B2 on the scan's cells at
    a real pose, and the value scatters B7 / B8 on a Slam2D deposit stream
    into [448, 512], each bit-equal to its plain version, with times and
@@ -148,6 +155,104 @@ def bound(nbytes: float, nops: float) -> tuple:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def border_mask(torch, dev, shape, seed: int):
+    """A bool mask with obstacles only on its border rows and columns (30%
+    of their cells)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for sl in ((..., 0, slice(None)), (..., -1, slice(None)),
+               (..., slice(None), 0), (..., slice(None), -1)):
+        m[sl] = torch.rand(m[sl].shape, generator=g, device=dev) < 0.3
+    return m
+
+
+def b3_mask(torch, dev, shape, density: float):
+    """Phase 3's B3 input: a random bool mask of the given obstacle
+    density."""
+    g = torch.Generator(device=dev).manual_seed(int(density * 100))
+    return torch.rand(shape, generator=g, device=dev) < density
+
+
+def edt_edges(torch, dev, leads) -> int:
+    """B3 against its plain version at shapes that are no multiple of its
+    32 x 64 tile, radii 1, 5 and 10, each leading shape of ``leads``, on
+    random and border-only masks (bit-equal required). Returns the count
+    of cases."""
+    from iris_lama_tpu_torch.ops import edt_pallas
+    g = torch.Generator(device=dev).manual_seed(13)
+    n = 0
+    for hw in ((61, 203), (33, 65)):
+        for r in (1, 5, 10):
+            for lead in leads:
+                shape = (*lead, *hw)
+                for m in (torch.rand(shape, generator=g, device=dev) < 0.03,
+                          border_mask(torch, dev, shape, n)):
+                    got = edt_pallas.edt2d(m, (r + 1) ** 2 - 1, r)
+                    want = edt_pallas.edt2d_plain(m, (r + 1) ** 2 - 1, r)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), f"B3 at {shape}, R={r}"
+                    n += 1
+    return n
+
+
+def solve_case(torch, dev, p: int, hw: tuple, b: int, per_particle: bool):
+    """Whole-solve inputs: p s8 squared-distance windows [h, w] (each side
+    at least 401) of one wall layout shifted per particle, b beams on the
+    walls (10% masked out), one scan per particle or one shared, start
+    states up to ~0.2 m / 0.1 rad off; and the solve's keywords at 5 cm
+    cells."""
+    from iris_lama_tpu_torch.ops import edt_pallas
+    g = torch.Generator().manual_seed(b + p)
+    obst = torch.zeros(hw, dtype=torch.bool)
+    obst[60, 40:400] = True
+    obst[60:380, 380] = True
+    obst[300, 100:380] = True
+    obst[torch.randint(40, 400, (40,), generator=g),
+         torch.randint(40, 400, (40,), generator=g)] = True
+    sq = edt_pallas.edt2d_plain(obst, 100, 10).to(torch.int8)
+    grids = torch.stack([torch.roll(sq, (q % 3, q % 5), (0, 1))
+                         for q in range(p)])
+    ys, xs = torch.nonzero(obst, as_tuple=True)
+    lead = (p,) if per_particle else ()
+    k = torch.randint(0, len(ys), (*lead, b), generator=g)
+    pts = torch.stack([(xs[k] + 0.5) * 0.05, (ys[k] + 0.5) * 0.05], -1)
+    mask = torch.rand((*lead, b), generator=g) < 0.9
+    off = (torch.rand((p, 3), generator=g) - 0.5) * torch.tensor(
+        [0.4, 0.4, 0.2])
+    st0 = torch.stack([off[:, 0], off[:, 1], torch.cos(off[:, 2]),
+                       torch.sin(off[:, 2])], -1)
+    org = torch.full((p, 2), 262144, dtype=torch.int32)
+    kw = dict(max_dist=0.5, res=0.05, scale=20.0, cell_offset=262144,
+              cauchy_c=0.15, eps1=1e-4, eps2=1e-4)
+    return [t.to(dev) for t in (grids, org, st0, pts, mask)], kw
+
+
+def solve_edges(torch, dev, mod, cases) -> int:
+    """The whole solve (``mod``: ops.gn_batch, one shared scan, or
+    ops.gn_solve, a scan per particle) against its plain version on each
+    (p, (h, w), b) of ``cases`` at max_iter 0, 1 and 50, with and without
+    the likelihood (bit-equal required). Returns the count of cases."""
+    n = 0
+    for p, hw, b in cases:
+        args, kw = solve_case(torch, dev, p, hw, b,
+                              mod.__name__.endswith("gn_solve"))
+        for max_iter in (0, 1, 50):
+            for want_lik in (False, True):
+                got = mod.solve_window_sq(*args, **kw, max_iter=max_iter,
+                                          want_lik=want_lik)
+                want = mod.solve_window_sq_plain(*args, **kw,
+                                                 max_iter=max_iter,
+                                                 want_lik=want_lik)
+                torch.cuda.synchronize()
+                for name, a, w in zip(("state", "iterations", "chi2",
+                                       "sum_d2"), got, want):
+                    assert torch.equal(a, w), \
+                        f"{mod.__name__} {name} at {p, hw, b}, " \
+                        f"max_iter {max_iter}, want_lik {want_lik}"
+                n += 1
+    return n
+
+
 def slam_workload():
     """bench.py's Slam2D workload: (data, options, scans padded to 768)."""
     from iris_lama_tpu_torch.algos.slam2d import Slam2DOptions
@@ -237,25 +342,18 @@ def pf_pass(torch, dev, data, opts, staged, rep: int) -> dict:
             "match_iters_mean": float(it_mean.mean())}
 
 
-def pf_phases(torch, dev) -> list:
-    """Phases 6-8 (PFSlam2D, the bench_pf.py workload): B6 and the batched
-    B1 / B3 against their plain versions at the PF shapes, the first
-    ``PF_PREFIX`` updates on the CPU and on the card, then the workload on
-    the card. Returns the kernels line's entries of this path."""
+def pf_kernel_inputs(torch, dev, data, opts, staged) -> dict:
+    """Phase 6's inputs: the filter after six updates of the bench_pf.py
+    workload, its particles moved by the next odometry packet; their match
+    windows and B6's arguments, and the batched B3's mask (the exact-update
+    sub-window of the resident distance grid at each particle's pose)."""
     from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
     from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, scatter_matmul
     from iris_lama_tpu_torch.sdm import mapping
 
-    data, opts, padded = pf_workload()
     cfg = opts.mapping_config()
     geo = cfg.geometry
-    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
-              for p in padded]
-
-    # 6. kernels at the PF shapes, on a real particle set: the filter
-    # after a few updates, its particles moved by the next odometry packet
     pf = PFSlam2D(opts, device=dev)
     pf.set_prior(Pose2D(*data.poses_gt[0]))
     k = 0
@@ -272,12 +370,45 @@ def pf_phases(torch, dev) -> list:
     pts, msk, ori = staged[k]
     grids, orgs = pf_mod.match_windows(opts, ps.res_org, ps.res_dist, poses)
     sopts = opts.solver_options()
-    b6_args = (grids, orgs, poses, pts[:, :2].contiguous(), msk)
     b6_kw = dict(max_dist=cfg.distance.max_dist, res=geo.resolution,
                  scale=geo.scale, cell_offset=geo.cell_offset,
                  cauchy_c=sopts.robust.param, eps1=sopts.eps1,
                  eps2=sopts.eps2, max_iter=sopts.max_iterations,
                  want_lik=True)
+    wu, w_res = cfg.resident_update_cells, cfg.resident_window_cells
+    lp = geo.w2m(poses[:, :2]) - ps.res_org
+    start = torch.clamp(lp - wu // 2, 0, w_res - wu)
+    obst = mapping.dyn_slice(ps.res_dist, start[:, 1], start[:, 0], wu,
+                             wu) == 0
+    return {"pf": pf, "pset": ps, "poses": poses, "pts": pts, "msk": msk,
+            "ori": ori, "grids": grids, "start": start,
+            "b6_args": (grids, orgs, poses, pts[:, :2].contiguous(), msk),
+            "b6_kw": b6_kw, "obst": obst, "radius": cfg.distance.radius_cells,
+            "cap": cfg.distance.max_sqdist}
+
+
+def pf_phases(torch, dev) -> list:
+    """Phases 6-8 (PFSlam2D, the bench_pf.py workload): B6 and the batched
+    B1 / B3 against their plain versions at the PF shapes, the first
+    ``PF_PREFIX`` updates on the CPU and on the card, then the workload on
+    the card. Returns the kernels line's entries of this path."""
+    from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, gn_solve
+    from iris_lama_tpu_torch.ops import scatter_matmul
+    from iris_lama_tpu_torch.sdm import mapping
+
+    data, opts, padded = pf_workload()
+    cfg = opts.mapping_config()
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded]
+
+    # 6. kernels at the PF shapes, on a real particle set
+    kin = pf_kernel_inputs(torch, dev, data, opts, staged)
+    pf, ps, poses, pts, msk, ori = (kin[n] for n in (
+        "pf", "pset", "poses", "pts", "msk", "ori"))
+    grids, b6_args, b6_kw = kin["grids"], kin["b6_args"], kin["b6_kw"]
     got = gn_batch.solve_window_sq(*b6_args, **b6_kw)
     want = gn_batch.solve_window_sq_plain(*b6_args, **b6_kw)
     torch.cuda.synchronize()
@@ -294,16 +425,25 @@ def pf_phases(torch, dev) -> list:
         assert torch.equal(a, w), \
             f"B6 {name} differs: state err {b6_err}, {mism} iteration " \
             f"counts, {rel}"
+    # the edges of the design: 1, 255, 257 and 1100 beams (one, two, five
+    # a summation lane), the largest window staged beside 768 beams'
+    # exchange buffer, windows at odd byte offsets
+    b6_edges = solve_edges(torch, dev, gn_batch, (
+        (3, (432, 432), 1), (3, (432, 432), 255), (4, (432, 432), 257),
+        (2, (458, 459), 768), (5, (431, 433), 768), (2, (432, 432), 1100)))
     # bytes: every grid once, the scan, the starts and the rows; operations:
     # ~60 per beam and evaluation, over this run's evaluations (the start,
     # each iteration's candidate, the likelihood)
     evals = int(it.sum()) + 2 * n_p
-    b6_bound = bound(grids.numel() + n_p * (8 + 16 + 32) + b * 12,
+    b6_bound = bound(grids.numel() + n_p * (8 + 16 + 32) + b * 9,
                      60 * b * evals)
     b6 = {"name": "gn_batch_solve", "route": "cuda",
           "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
           "replaces": "iris_lama_tpu/ops/gn_batch.py:108",
           "shape": [n_p, grids.shape[1], grids.shape[2], b],
+          "variant": "shared" if gn_solve.staged(*grids.shape[1:], b)
+                     else "global",
+          "edge_cases": b6_edges,
           "max_abs_err": b6_err, "rel_err": rel,
           "iters_differ": mism, "iters_max": int(it.max()),
           "iters_mean": float(it.float().mean()),
@@ -318,9 +458,7 @@ def pf_phases(torch, dev) -> list:
 
     # the map phase's streams and masks for every particle (the exact-update
     # sub-window at each particle's pose)
-    wu, w_res = cfg.resident_update_cells, cfg.resident_window_cells
-    lp = geo.w2m(poses[:, :2]) - ps.res_org
-    start = torch.clamp(lp - wu // 2, 0, w_res - wu)
+    wu, start = cfg.resident_update_cells, kin["start"]
     idx = mapping.deposit_indices(cfg, poses, pts, msk, ori,
                                   ps.res_org + start, wu)
     n_dep = idx.free_ly.shape[1]
@@ -363,11 +501,10 @@ def pf_phases(torch, dev) -> list:
            "library_call": "zeros + index_put_(accumulate=True)",
            "bound_ms": b1_bound[0], "bound_by": b1_bound[1]}
 
-    r, cap = cfg.distance.radius_cells, cfg.distance.max_sqdist
-    obst = mapping.dyn_slice(ps.res_dist, start[:, 1], start[:, 0], wu,
-                             wu) == 0
+    r, cap, obst = kin["radius"], kin["cap"], kin["obst"]
     b3_err = 0
-    for m in (obst, torch.rand(obst.shape, device=dev) < 0.3):
+    for m in (obst, torch.rand(obst.shape, device=dev) < 0.3,
+              obst[:3].contiguous(), border_mask(torch, dev, obst.shape, 5)):
         g3 = edt_pallas.edt2d(m, cap, r)
         w3 = edt_pallas.edt2d_plain(m, cap, r)
         torch.cuda.synchronize()
@@ -379,6 +516,7 @@ def pf_phases(torch, dev) -> list:
            "replaces": "iris_lama_tpu/ops/edt_pallas.py:25",
            "shape": list(obst.shape), "radius": r,
            "obstacle_share": float(obst.float().mean()),
+           "edge_cases": edt_edges(torch, dev, ((3,),)),
            "max_abs_err": b3_err,
            **timings(torch, "", lambda: edt_pallas.edt2d(obst, cap, r), 100),
            **timings(torch, "plain_", lambda: edt_pallas.edt2d_plain(
@@ -390,7 +528,7 @@ def pf_phases(torch, dev) -> list:
     pf_kernels = [b6, b1b, b3b]
     for kern in pf_kernels:
         emit({"phase": "pf_kernel", **kern})
-    del pf, ps, grids, b6_args, cases, idx, obst
+    del pf, ps, grids, b6_args, cases, idx, obst, kin
 
     # 7. prefix: CPU plain versions vs the card, same seed, same draws;
     # and, as a control, the card again with the motion draws scaled by
@@ -558,32 +696,22 @@ def pf_phases(torch, dev) -> list:
     return pf_kernels
 
 
-def loc_phases(torch, dev) -> list:
-    """Phases 9-11 (Loc2D, the bench_loc.py workload): B4, B5, B2, B7 and
-    B8 against their plain versions, the first ``LOC_PREFIX`` updates on the
-    CPU and on the card, then the workload in every match mode on the
-    card. Returns the kernels line's entries of this path."""
+def loc_setup(torch, dev) -> dict:
+    """bench_loc.py's workload: the log (SimConfig(n_steps=200, seed=7,
+    laps=1), 720 beams padded to 768), the fixed map that its Slam2D builds
+    over the log on the card, its Loc2DOptions and the device-staged
+    scans."""
     from iris_lama_tpu_torch.algos import loc2d
     from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
-    from iris_lama_tpu_torch.core import lie
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.match import match_surface_2d as match_mod
-    from iris_lama_tpu_torch.nlls import solver as nlls_solver
-    from iris_lama_tpu_torch.ops import gn_solve, match_eval, scatter_pallas
-    from iris_lama_tpu_torch.ops import scatter_sorted, select4
-    from iris_lama_tpu_torch.sdm import mapping
     from iris_lama_tpu_torch.utils import simulator, state
     from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
 
-    t_start = time.perf_counter()
     data = simulator.simulate(simulator.SimConfig(
         n_steps=200, seed=7, laps=1,
         laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
-    n_steps = len(data.clouds)
     odoms = list(data.odometry)
-    nb = beam_bucket(720)
-    padded = [pad_scan(c, nb) for c in data.clouds]
-    # the fixed map: bench_loc.py's Slam2D over the log, on the card
+    padded = [pad_scan(c, beam_bucket(720)) for c in data.clouds]
     sopts_map = Slam2DOptions(resolution=0.05, max_range=10.0,
                               trans_thresh=0.2, rot_thresh=0.2,
                               capacity=8192)
@@ -593,17 +721,26 @@ def loc_phases(torch, dev) -> list:
         [tuple(torch.as_tensor(a, device=dev) for a in p) for p in padded],
         odoms)
     maps = loc2d.maps_from_slam(slam.map, slam.cfg)
-    maps_np = state.locmaps_to_numpy(maps)
-    map_cfg = slam.cfg
-    del slam
     opts = loc2d.Loc2DOptions(resolution=0.05, l2_max=0.5, max_range=10.0,
                               trans_thresh=0.1, rot_thresh=0.1)
     staged = [(torch.as_tensor(np.ascontiguousarray(p[:, :2]), device=dev),
                torch.as_tensor(m, device=dev)) for p, m, _ in padded]
-    map_mb = sum(a.nbytes for a in maps_np.values()) / 2 ** 20
+    return {"data": data, "odoms": odoms, "padded": padded, "maps": maps,
+            "maps_np": state.locmaps_to_numpy(maps), "map_cfg": slam.cfg,
+            "opts": opts, "staged": staged}
 
-    # 9. the kernels at Loc2D's shapes, on the bench map --------------------
-    loc = loc2d.Loc2D(opts, maps=maps, device=dev, match="solve")
+
+def loc_kernel_inputs(torch, dev, lw) -> dict:
+    """Phase 9's inputs on loc_setup's workload ``lw``: Loc2D (``solve``)
+    after 11 updates, the pose predicted for scan 11 and its 576 x 576
+    match window; B4's arguments at one particle and at eight, each at the
+    (noisy) true pose of a scan of its own."""
+    from iris_lama_tpu_torch.algos import loc2d
+    from iris_lama_tpu_torch.core import lie
+    from iris_lama_tpu_torch.core.pose import Pose2D
+
+    data, odoms, staged = lw["data"], lw["odoms"], lw["staged"]
+    loc = loc2d.Loc2D(lw["opts"], maps=lw["maps"], device=dev, match="solve")
     loc.set_prior(Pose2D(*data.poses_gt[0]))
     loc.update_many_prepadded(staged[:11], odoms[:11])
     k = 11
@@ -612,13 +749,10 @@ def loc_phases(torch, dev) -> list:
     sub, sub_org = loc.match_window(pose0)
     pts, msk = staged[k]
     geo, sop = loc.geo, loc.sopts
-    b = pts.shape[0]
     b4_kw = dict(max_dist=loc.max_dist, res=geo.resolution, scale=geo.scale,
                  cell_offset=geo.cell_offset, cauchy_c=sop.robust.param,
                  eps1=sop.eps1, eps2=sop.eps2,
                  max_iter=sop.max_iterations)
-    b4_args = (sub[None], sub_org[None], pose0[None].contiguous(), pts, msk)
-    # eight particles, each at the (noisy) true pose of a scan of its own
     g = torch.Generator().manual_seed(3)
     noise = (torch.rand((8, 3), generator=g) - 0.5) * torch.tensor(
         [0.2, 0.2, 0.1])
@@ -630,9 +764,53 @@ def loc_phases(torch, dev) -> list:
         wins.append(w_j)
         orgs.append(o_j)
         starts.append(pj)
-    b4p_args = (torch.stack(wins), torch.stack(orgs), torch.stack(starts),
-                torch.stack([staged[k + j][0] for j in range(8)]),
-                torch.stack([staged[k + j][1] for j in range(8)]))
+    return {"loc": loc, "k": k, "pose0": pose0, "sub": sub,
+            "sub_org": sub_org, "pts": pts, "msk": msk, "b4_kw": b4_kw,
+            "b4_args": (sub[None], sub_org[None], pose0[None].contiguous(),
+                        pts, msk),
+            "b4p_args": (torch.stack(wins), torch.stack(orgs),
+                         torch.stack(starts),
+                         torch.stack([staged[k + j][0] for j in range(8)]),
+                         torch.stack([staged[k + j][1] for j in range(8)]))}
+
+
+def loc_phases(torch, dev) -> list:
+    """Phases 9-11 (Loc2D, the bench_loc.py workload): B4, B5, B2, B7 and
+    B8 against their plain versions, the first ``LOC_PREFIX`` updates on the
+    CPU and on the card, then the workload in every match mode on the
+    card. Returns the kernels line's entries of this path."""
+    from iris_lama_tpu_torch.algos import loc2d
+    from iris_lama_tpu_torch.core import lie
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.match import match_surface_2d as match_mod
+    from iris_lama_tpu_torch.nlls import solver as nlls_solver
+    from iris_lama_tpu_torch.ops import gn_solve, match_eval, scatter_pallas
+    from iris_lama_tpu_torch.ops import scatter_sorted, select4
+    from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.utils import state
+
+    t_start = time.perf_counter()
+    lw = loc_setup(torch, dev)
+    data, odoms, padded, staged = (lw[n] for n in (
+        "data", "odoms", "padded", "staged"))
+    maps, maps_np, map_cfg, opts = (lw[n] for n in (
+        "maps", "maps_np", "map_cfg", "opts"))
+    n_steps = len(data.clouds)
+    map_mb = sum(a.nbytes for a in maps_np.values()) / 2 ** 20
+
+    # 9. the kernels at Loc2D's shapes, on the bench map --------------------
+    kin = loc_kernel_inputs(torch, dev, lw)
+    loc, k, pose0, sub, sub_org, pts, msk = (kin[n] for n in (
+        "loc", "k", "pose0", "sub", "sub_org", "pts", "msk"))
+    b4_kw, b4_args, b4p_args = kin["b4_kw"], kin["b4_args"], kin["b4p_args"]
+    geo, sop = loc.geo, loc.sopts
+    b = pts.shape[0]
+    # the edges of the design with a scan per particle: 255, 257 and 2048
+    # beams, windows read from global memory (576 x 576, and 459 x 459, one
+    # row beyond the largest staged at 768 beams) and staged (432 x 432)
+    b4_edges = solve_edges(torch, dev, gn_solve, (
+        (2, (576, 576), 255), (2, (576, 576), 257), (2, (459, 459), 768),
+        (3, (432, 432), 768), (2, (432, 432), 2048)))
     b4_rows = {}
     for label, args in (("p1", b4_args), ("p8", b4p_args)):
         got = gn_solve.solve_window_sq(*args, **b4_kw, want_lik=True)
@@ -663,6 +841,9 @@ def loc_phases(torch, dev) -> list:
     b4 = {"name": "gn_solve_batched", "route": "cuda",
           "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
           "replaces": "iris_lama_tpu/ops/gn_solve.py:104",
+          "variant": "shared" if gn_solve.staged(*sub.shape, b)
+                     else "global",
+          "edge_cases": b4_edges,
           **b4_rows["p1"], "p8_per_particle_scans": b4_rows["p8"],
           "library_ms": None,
           "library_call": "none: no single PyTorch call computes an IRLS "
@@ -794,7 +975,7 @@ def loc_phases(torch, dev) -> list:
     loc_kernels = [b4, b5, b2, b7, b8]
     for kern in loc_kernels:
         emit({"phase": "loc_kernel", **kern})
-    del loc, wins, b4p_args, idx
+    del loc, kin, b4p_args, idx
 
     # 10. prefix: CPU plain versions vs the card, one map ------------------
     maps_cpu = state.locmaps_from_numpy(maps_np, "cpu")
@@ -996,7 +1177,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _cuda.build_all(verbose=True)
     ptxas = {n: [ln.strip() for ln in b["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
              for n, b in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": {n: b["seconds"] for n, b in built.items()},
@@ -1093,7 +1275,7 @@ def main() -> int:
     b3_err = 0
     masks = {}
     for dens in (0.0, 0.01, 0.3, 1.0):
-        m = torch.rand((wu, wu), device=dev) < dens
+        m = b3_mask(torch, dev, (wu, wu), dens)
         got = edt_pallas.edt2d(m, cap, r)
         want = edt_pallas.edt2d_plain(m, cap, r)
         torch.cuda.synchronize()
@@ -1107,6 +1289,7 @@ def main() -> int:
           "source": "iris_lama_tpu_torch/csrc/edt.cu",
           "replaces": "iris_lama_tpu/ops/edt_pallas.py:25",
           "hw": [wu, wu], "radius": r, "max_abs_err": b3_err,
+          "edge_cases": edt_edges(torch, dev, ((),)),
           **timings(torch, "", lambda: edt_pallas.edt2d(m, cap, r), 300),
           **timings(torch, "plain_", lambda: edt_pallas.edt2d_plain(
               m, cap, r), 300),

@@ -5,72 +5,475 @@
 //
 // For each particle p: an int8 squared-distance window grid[p] [h, w] whose
 // cell (0, 0) is org[p] (cell coords [x, y]), a start state st0[p] (tx, ty,
-// cos, sin) and the scan (px, py, fm) at offset p * scan_stride of the scan
-// arrays (scan_stride = b: one scan [b] per particle; 0: one shared scan).
-// The IRLS loop of gn_common.cuh:solve_block; with want_lik, one more
-// evaluation with unit weights at the final state gives sum_d2. out
-// [8, p_n] rows: tx ty cos sin chi2 iterations sum_d2 0.
+// cos, sin) and the scan (points [b, 2], bool mask [b]) at beam offset
+// p * scan_stride (scan_stride = b: one scan per particle; 0: one shared
+// scan).
+// The IRLS loop of the reference (solver.cpp:53-118 /
+// gauss_newton.cpp:53-91):
+//
+//   sums  = ten normal-equation sums at the state (A 6, g 3, chi2)
+//   loop while not stopped and it < max_iter:
+//     gn_step says converged                         -> stop, it unchanged
+//     cand = exp(h) * state; it += 1
+//     chi2(cand) < chi2 -> keep cand and its sums; else revert and stop
+//   sum_d2 = chi2 at the final state with unit weights (want_lik)
+//
+// out [8, p_n] rows: tx ty cos sin chi2 iterations sum_d2 0.
 //
 // Replaces iris_lama_tpu/ops/gn_solve.py:_kernel (:104), driven by
 // _solve_batched (:226): one Pallas program per particle (grid=(P,)) with
 // the particle's s8 window resident in VMEM, a lax.while_loop over its
 // iterations and a one-hot matrix-unit corner selection per evaluation.
-// On the GPU the corners are four byte loads (in L2 after the first
-// evaluation) and a program becomes a block. B6 replaces
-// iris_lama_tpu/ops/gn_batch.py:_kernel (:108), driven by _solve_batched
-// (:296): all particles in one Pallas program with per-particle pl.when
-// guards; here a stopped particle's block simply ends. Its WAYS/BSPLIT
-// interleave and VMEM grouping are TPU scheduling and have no counterpart.
+// B6 replaces iris_lama_tpu/ops/gn_batch.py:_kernel (:108), driven by
+// _solve_batched (:296): all particles in one Pallas program with
+// per-particle pl.when guards; here a stopped particle's block simply ends.
+// Its WAYS/BSPLIT interleave and VMEM grouping are TPU scheduling and have
+// no counterpart.
 //
 // Bound on the H100: the function must read each window once (Loc2D: one
 // 576 x 576 window, 332 KB, ~0.1 us at 3.35 TB/s; PFSlam2D: 30 x 432 x
 // 432 bytes = 5.6 MB, ~1.7 us) and the scan (768 beams, 9 KB); its
-// arithmetic (~60 flops per beam and evaluation) is far below
-// the card's rate. The solve is a chain of dependent evaluations — each a
-// gather of four grid bytes per beam, a block reduction and a scalar step —
-// so it is latency bound, and at P = 1 one block runs on one of 132 SMs.
-// Design: one block of 256 threads per particle, which loops over its own
-// iterations (a stopped particle frees its SM); thread 0 runs the scalar
-// step. Built with -fmad=false; the plain version (ops/gn_solve.py) sums in
-// this kernel's order, so on the card the two agree bit for bit. Spreading
-// one particle's beams over several blocks (a multi-block design for
-// P = 1) is later work.
+// arithmetic (~60 flops per beam and evaluation) is far below the card's
+// rate. The solve is a chain of dependent evaluations — each a gather of
+// four grid bytes per beam, a block reduction and a scalar step — so it is
+// latency bound, and at P = 1 one block runs on one of 132 SMs. Design:
+// one block per particle, which loops over its own iterations (a stopped
+// particle frees its SM), shortening the chain:
+//   - the sums keep the order of gn_common.cuh, whose 256 "logical"
+//     threads each add PT = ceil(b / 256) beams in turn (up to 8), but Q =
+//     min(PT, 4) threads share each logical thread's beams (256 Q
+//     threads: one beam each at the 768 beams of a 720-beam scan), so a
+//     beam's arithmetic runs in parallel with its logical thread's others;
+//     a partner passes its terms through shared memory (a barrier of the
+//     Q warps concerned), and the logical thread adds the PT terms in beam
+//     order;
+//   - each thread keeps the point and mask of its beams in registers for
+//     the whole solve (read from the caller's points and bool mask as they
+//     are);
+//   - where the window fits beside the exchange buffer (the PF's 432 x 432
+//     at 768 beams; see kDynSmem), the block copies it into shared memory
+//     once (16-byte cp.async with a byte head and tail, overlapped with the
+//     scan load and the first transform), so every corner read is a
+//     shared-memory read; a larger window (Loc2D's 576 x 576) is read from
+//     global memory (L2);
+//   - a thread issues the corner reads of its beams before it uses them,
+//     and takes each corner's distance sqrtf(v) * res from a 256-entry
+//     table the block fills once (the same float operations);
+//   - each warp's total goes to a double-buffered shared array and lanes
+//     0-9 of every warp add one sum's eight totals in warp order, broadcast
+//     by shuffle: every thread holds the ten sums and runs the scalar step
+//     on them itself (the same instructions on the same inputs, so every
+//     thread takes the same decision) — one block barrier per evaluation,
+//     no serial tail on thread 0.
+// Built with -fmad=false; the plain version (ops/gn_solve.py) sums in this
+// kernel's order, so on the card the two agree bit for bit.
 
 #include "gn_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(gn::kThreads)
+using gn::kSums;
+using gn::kThreads;
+using gn::kWarps;
+
+constexpr int kMaxPT = 8;   // beams per logical thread: b <= 2048
+constexpr int kMaxQ = 4;    // threads per logical thread: <= 1024 a block
+// dynamic shared memory a block may take beside its 1,664 static bytes
+// (the 232,448 bytes an H100 block may opt in to)
+constexpr int kDynSmem = 232448 - 1664;
+
+// The block's layout for PT = ceil(b / 256) beams per logical thread:
+// Q threads share each logical thread's beams (physical thread L + 256 q
+// takes its beams m = q, q + Q, ..., beam L + 256 m), S beams each; of a
+// logical thread's PT terms, NX come from its Q - 1 partners through
+// shared memory.
+template <int PT>
+struct Shape {
+  static constexpr int Q = PT < kMaxQ ? PT : kMaxQ;
+  static constexpr int S = (PT + Q - 1) / Q;
+  static constexpr int NT = kThreads * Q;
+  static constexpr int NX = PT - S;
+  static constexpr int kXBytes = NX * kSums * kThreads * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The scalar step of one IRLS iteration at sums sm and state st: false
+// when |g|_inf < eps1 or |h|_inf < eps2 (h = -A^-1 g: converged before the
+// step), else true with cand = exp(h) * st.
+__device__ bool gn_step(const float sm[kSums], const float st[4],
+                        const gn::Consts& k, float cand[4]) {
+  const float g_max = fmaxf(fmaxf(fabsf(sm[6]), fabsf(sm[7])), fabsf(sm[8]));
+  const bool stop_g = g_max < k.eps1;
+  // _solve3_scalar: adjugate solve of A h = -g
+  const float a00 = sm[0], a01 = sm[1], a02 = sm[2];
+  const float a11 = sm[3], a12 = sm[4], a22 = sm[5];
+  const float g0 = sm[6], g1 = sm[7], g2 = sm[8];
+  const float co00 = a11 * a22 - a12 * a12;
+  const float co01 = a02 * a12 - a01 * a22;
+  const float co02 = a01 * a12 - a02 * a11;
+  const float det = a00 * co00 + a01 * co01 + a02 * co02;
+  const float co11 = a00 * a22 - a02 * a02;
+  const float co12 = a01 * a02 - a00 * a12;
+  const float co22 = a00 * a11 - a01 * a01;
+  const float inv_det = fabsf(det) > 1e-30f ? 1.0f / det : 0.0f;
+  float h0 = -(co00 * g0 + co01 * g1 + co02 * g2) * inv_det;
+  float h1 = -(co01 * g0 + co11 * g1 + co12 * g2) * inv_det;
+  float h2 = -(co02 * g0 + co12 * g1 + co22 * g2) * inv_det;
+  if (stop_g) h0 = h1 = h2 = 0.0f;
+  const float h_max = fmaxf(fmaxf(fabsf(h0), fabsf(h1)), fabsf(h2));
+  if (stop_g || h_max < k.eps2) return false;
+  // _exp_compose: exp(h) * state
+  const float sw = sinf(h2);
+  const float cw = cosf(h2);
+  const bool small = fabsf(h2) < 1e-4f;
+  const float t2 = h2 * h2;
+  const float safe = small ? 1.0f : h2;
+  const float sinc = small ? 1.0f - t2 / 6.0f : sw / safe;
+  const float cosc = small ? h2 / 2.0f - t2 * h2 / 24.0f : (1.0f - cw) / safe;
+  const float etx = sinc * h0 - cosc * h1;
+  const float ety = cosc * h0 + sinc * h1;
+  cand[0] = etx + cw * st[0] - sw * st[1];
+  cand[1] = ety + sw * st[0] + cw * st[1];
+  cand[2] = cw * st[2] - sw * st[3];
+  cand[3] = sw * st[2] + cw * st[3];
+  return true;
+}
+
+// This thread's S beams (slot s: beam L + 256 (q + Q s)), kept in
+// registers for the whole solve.
+template <int S>
+struct Beams {
+  float px[S], py[S], fm[S];
+};
+
+// Where the beams land at one state: window-local cells and fractions.
+template <int S>
+struct Hits {
+  float hx[S], hy[S], mux[S], muy[S];
+  int lx[S], ly[S];
+};
+
+// beam m of logical thread L (beam L + 256 m) exists
+template <int PT>
+__device__ __forceinline__ bool has_beam(int m, int lt, int b) {
+  return m < PT && lt + m * kThreads < b;
+}
+
+// the slot of a partner's term m (m % Q != 0) in the exchange buffer
+template <int Q>
+__device__ __forceinline__ int xslot(int m) {
+  return m - m / Q - 1;
+}
+
+// lie.se2_apply + geometry.w2m_frac (floor + integer offset) of this
+// thread's beams at state st, in window cells of the window at (org_x,
+// org_y)
+template <int PT>
+__device__ __forceinline__ void locate(const Beams<Shape<PT>::S>& bm, int b,
+                                       const float st[4], const gn::Consts& k,
+                                       int org_x, int org_y,
+                                       Hits<Shape<PT>::S>& hit) {
+  using Sh = Shape<PT>;
+  const int q = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
+  const float tx = st[0], ty = st[1], c = st[2], s = st[3];
+#pragma unroll
+  for (int j = 0; j < Sh::S; ++j) {
+    if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
+    const float x = bm.px[j];
+    const float y = bm.py[j];
+    hit.hx[j] = tx + c * x - s * y;
+    hit.hy[j] = ty + s * x + c * y;
+    const float mfx = hit.hx[j] * k.scale;
+    const float mfy = hit.hy[j] * k.scale;
+    const float flx = floorf(mfx);
+    const float fly = floorf(mfy);
+    hit.lx[j] = (int)flx + k.cell_offset - org_x;
+    hit.ly[j] = (int)fly + k.cell_offset - org_y;
+    hit.mux[j] = mfx - flx;
+    hit.muy[j] = mfy - fly;
+  }
+}
+
+// The ten block sums of the beams' terms at the located hits, in every
+// thread's sm, in the order of gn_common.cuh: each thread reads the
+// corners of its beams (all reads issued first) and takes their terms;
+// the partners of a logical thread pass theirs through xbuf (a barrier of
+// their Q warps); the logical thread adds its PT terms in beam order, its
+// warp halves by shuffle-down and lane 0 writes the warp total (warp_buf,
+// one block barrier); lanes 0-9 of every warp add one sum's eight totals
+// in warp order and a shuffle broadcasts the ten.
+template <int PT>
+__device__ __forceinline__ void block_sums(
+    const int8_t* __restrict__ g, int h, int w,
+    const Beams<Shape<PT>::S>& bm, int b, const Hits<Shape<PT>::S>& hit,
+    const gn::Consts& k, int robust, const float* root, float* xbuf,
+    float (*warp_buf)[kSums], float sm[kSums]) {
+  using Sh = Shape<PT>;
+  const int q = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
+  int8_t cv[Sh::S][4];
+#pragma unroll
+  for (int j = 0; j < Sh::S; ++j) {
+    if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
+    const int64_t y0 = gn::clampi(hit.ly[j], 0, h - 1);
+    const int64_t y1 = gn::clampi(hit.ly[j] + 1, 0, h - 1);
+    const int64_t x0 = gn::clampi(hit.lx[j], 0, w - 1);
+    const int64_t x1 = gn::clampi(hit.lx[j] + 1, 0, w - 1);
+    cv[j][0] = g[y0 * w + x0];
+    cv[j][1] = g[y0 * w + x1];
+    cv[j][2] = g[y1 * w + x0];
+    cv[j][3] = g[y1 * w + x1];
+  }
+  // terms[j] = 0 + term: adding that in place of the term gives the same
+  // sums (a running sum that starts at +0 is never -0)
+  float terms[Sh::S][kSums];
+#pragma unroll
+  for (int j = 0; j < Sh::S; ++j) {
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) terms[j][i] = 0.0f;
+    if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
+    const int lx = hit.lx[j], ly = hit.ly[j];
+    const bool inx0 = lx >= 0 && lx < w, inx1 = lx + 1 >= 0 && lx + 1 < w;
+    const bool iny0 = ly >= 0 && ly < h, iny1 = ly + 1 >= 0 && ly + 1 < h;
+    const float v00 = inx0 && iny0 ? root[(uint8_t)cv[j][0]] : k.max_dist;
+    const float v10 = inx1 && iny0 ? root[(uint8_t)cv[j][1]] : k.max_dist;
+    const float v01 = inx0 && iny1 ? root[(uint8_t)cv[j][2]] : k.max_dist;
+    const float v11 = inx1 && iny1 ? root[(uint8_t)cv[j][3]] : k.max_dist;
+    gn::add_values(v00, v10, v01, v11, hit.mux[j], hit.muy[j], hit.hx[j],
+                   hit.hy[j], bm.fm[j], k, robust, terms[j]);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = lt >> 5;
+  if constexpr (Sh::Q > 1) {
+    if (q != 0) {
+#pragma unroll
+      for (int j = 0; j < Sh::S; ++j) {
+        const int m = q + Sh::Q * j;
+        if (!has_beam<PT>(m, lt, b)) continue;
+        float* x = xbuf + xslot<Sh::Q>(m) * kSums * kThreads + lt;
+#pragma unroll
+        for (int i = 0; i < kSums; ++i) x[i * kThreads] = terms[j][i];
+      }
+    }
+    // the Q warps of logical warp `warp`: warp + 8 q
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + warp), "r"(32 * Sh::Q)
+                 : "memory");
+  }
+  if (q == 0) {
+    float acc[kSums];
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int m = 0; m < PT; ++m) {
+      if (!has_beam<PT>(m, lt, b)) continue;
+      if (m % Sh::Q == 0) {
+#pragma unroll
+        for (int i = 0; i < kSums; ++i) acc[i] += terms[m / Sh::Q][i];
+      } else {
+        const float* x = xbuf + xslot<Sh::Q>(m) * kSums * kThreads + lt;
+#pragma unroll
+        for (int i = 0; i < kSums; ++i) acc[i] += x[i * kThreads];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) {
+      float v = acc[i];
+      for (int off = 16; off > 0; off >>= 1) {
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      }
+      acc[i] = v;
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kSums; ++i) warp_buf[warp][i] = acc[i];
+    }
+  }
+  __syncthreads();
+  float t = 0.0f;
+  if (lane < kSums) {
+    t = warp_buf[0][lane];
+    for (int j = 1; j < kWarps; ++j) t += warp_buf[j][lane];
+  }
+#pragma unroll
+  for (int i = 0; i < kSums; ++i) sm[i] = __shfl_sync(0xffffffffu, t, i);
+}
+
+// The whole IRLS solve of particle blockIdx.x by Shape<PT>::NT threads.
+// Dynamic shared memory: the exchange buffer (kXBytes), then, kStaged, the
+// window (h * w + 16 bytes).
+template <int PT, bool kStaged>
+__global__ void __launch_bounds__(Shape<PT>::NT)
     gn_solve_kernel(const int8_t* __restrict__ grid, int h, int w,
                     const int32_t* __restrict__ org,
                     const float* __restrict__ st0, gn::Scan scan,
                     int64_t scan_stride, gn::Consts k, int max_iter,
                     int want_lik, int p_n, float* __restrict__ out) {
+  using Sh = Shape<PT>;
+  extern __shared__ __align__(16) int8_t dyn[];
+  // warp totals, double-buffered: evaluation e writes buffer e & 1, so one
+  // block barrier per evaluation suffices (a warp can be at most one
+  // evaluation ahead of a warp still reading)
+  __shared__ float warp_buf[2][kWarps][kSums];
+  // root[v] = sqrtf(v) * res for every int8 v: a corner's distance, the
+  // same float operations as gn_common.cuh's, looked up
+  __shared__ float root[256];
+  float* xbuf = reinterpret_cast<float*>(dyn);
+  if (threadIdx.x < 256) {
+    root[threadIdx.x] = sqrtf((float)(int8_t)threadIdx.x) * k.res;
+  }
   const int p = blockIdx.x;
-  const int64_t o = p * scan_stride;
-  const gn::Scan mine{scan.px + o, scan.py + o, scan.fm + o, scan.b};
-  gn::solve_block(grid + (int64_t)p * h * w, h, w, org[2 * p], org[2 * p + 1],
-                  st0 + 4 * p, mine, k, max_iter, want_lik, p, p_n, out);
+  const int64_t n = (int64_t)h * w;
+  const int8_t* g = grid + p * n;
+  const int8_t* gw = g;
+  if (kStaged) {
+    // win + off + i has the alignment of g + i modulo 16
+    int8_t* win = dyn + Sh::kXBytes;
+    const int off = (int)(((uintptr_t)g - __cvta_generic_to_shared(win)) &
+                          15);
+    int8_t* dst = win + off;
+    const int64_t lead = (16 - ((uintptr_t)g & 15)) & 15;
+    const int head = (int)(n < lead ? n : lead);
+    const int64_t chunks = (n - head) / 16;
+    for (int64_t c = threadIdx.x; c < chunks; c += Sh::NT) {
+      cp_async16(dst + head + 16 * c, g + head + 16 * c);
+    }
+    for (int64_t i = threadIdx.x; i < head; i += Sh::NT) dst[i] = g[i];
+    for (int64_t i = head + 16 * chunks + threadIdx.x; i < n; i += Sh::NT) {
+      dst[i] = g[i];
+    }
+    gw = dst;
+  }
+
+  const int q = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
+  const int64_t so = p * scan_stride;
+  const int b = scan.b;
+  Beams<Sh::S> bm;
+#pragma unroll
+  for (int j = 0; j < Sh::S; ++j) {
+    const int m = q + Sh::Q * j;
+    if (!has_beam<PT>(m, lt, b)) continue;
+    const int64_t i = so + lt + m * kThreads;
+    bm.px[j] = scan.xy[2 * i];
+    bm.py[j] = scan.xy[2 * i + 1];
+    bm.fm[j] = scan.mask[i] ? 1.0f : 0.0f;
+  }
+  const int org_x = org[2 * p], org_y = org[2 * p + 1];
+  float st[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) st[i] = st0[4 * p + i];
+  Hits<Sh::S> hit;
+  locate<PT>(bm, b, st, k, org_x, org_y, hit);
+  if (kStaged) cp_async_wait_all();
+  __syncthreads();
+
+  // every thread holds the solver's state and takes the same decisions
+  float sm[kSums];
+  int e = 0;   // evaluations so far: picks warp_buf's buffer
+  block_sums<PT>(gw, h, w, bm, b, hit, k, k.robust, root, xbuf,
+                 warp_buf[e++ & 1], sm);
+  int it = 0;
+  while (it < max_iter) {
+    float cand[4];
+    if (!gn_step(sm, st, k, cand)) break;   // converged: it unchanged
+    float cs[kSums];
+    locate<PT>(bm, b, cand, k, org_x, org_y, hit);
+    block_sums<PT>(gw, h, w, bm, b, hit, k, k.robust, root, xbuf,
+                   warp_buf[e++ & 1], cs);
+    it += 1;
+    if (!(sm[9] - cs[9] > 0.0f)) break;     // invalid step: revert, stop
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st[i] = cand[i];
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) sm[i] = cs[i];
+  }
+
+  float sum_d2 = 0.0f;
+  if (want_lik) {
+    float ls[kSums];
+    locate<PT>(bm, b, st, k, org_x, org_y, hit);
+    block_sums<PT>(gw, h, w, bm, b, hit, k, 0, root, xbuf, warp_buf[e++ & 1],
+                   ls);
+    sum_d2 = ls[9];
+  }
+  if (threadIdx.x == 0) {
+    out[0 * p_n + p] = st[0];
+    out[1 * p_n + p] = st[1];
+    out[2 * p_n + p] = st[2];
+    out[3 * p_n + p] = st[3];
+    out[4 * p_n + p] = sm[9];
+    out[5 * p_n + p] = (float)it;
+    out[6 * p_n + p] = sum_d2;
+    out[7 * p_n + p] = 0.0f;
+  }
+}
+
+struct Args {
+  const int8_t* grid;
+  int p_n, h, w;
+  const int32_t* org;
+  const float* st0;
+  gn::Scan scan;
+  int64_t scan_stride;
+  gn::Consts k;
+  int max_iter, want_lik;
+  float* out;
+  cudaStream_t stream;
+};
+
+template <int PT, bool kStaged>
+int launch(const Args& a) {
+  using Sh = Shape<PT>;
+  const auto kern = gn_solve_kernel<PT, kStaged>;
+  const int64_t smem = Sh::kXBytes + (kStaged ? (int64_t)a.h * a.w + 16 : 0);
+  if (smem > kDynSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<a.p_n, Sh::NT, smem, a.stream>>>(
+      a.grid, a.h, a.w, a.org, a.st0, a.scan, a.scan_stride, a.k, a.max_iter,
+      a.want_lik, a.p_n, a.out);
+  return (int)cudaGetLastError();
+}
+
+// the instantiation for PT beams per logical thread
+template <int PT>
+int dispatch(const Args& a, int pt, int staged) {
+  if constexpr (PT < kMaxPT) {
+    if (pt > PT) return dispatch<PT + 1>(a, pt, staged);
+  }
+  return staged ? launch<PT, true>(a) : launch<PT, false>(a);
 }
 
 }  // namespace
 
+// staged = 1 copies each window into shared memory (the exchange buffer
+// and h * w + 16 bytes within kDynSmem), 0 reads it from global memory;
+// b <= 256 * kMaxPT.
 extern "C" int gn_solve_batched(const int8_t* grid, int p_n, int h, int w,
                                 const int32_t* org, const float* st0,
-                                const float* px, const float* py,
-                                const float* fm, int b, int64_t scan_stride,
+                                const float* xy, const uint8_t* mask, int b,
+                                int64_t scan_stride,
                                 float max_dist, float res, float scale,
                                 float cinv, int robust, float eps1,
                                 float eps2, int cell_offset, int max_iter,
-                                int want_lik, float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p_n > 0) {
-    const gn::Scan scan{px, py, fm, b};
-    const gn::Consts k{max_dist, res, scale, cinv, eps1, eps2, robust,
-                       cell_offset};
-    gn_solve_kernel<<<p_n, gn::kThreads, 0, s>>>(grid, h, w, org, st0, scan,
-                                                 scan_stride, k, max_iter,
-                                                 want_lik, p_n, out);
-  }
-  return (int)cudaGetLastError();
+                                int want_lik, int staged, float* out,
+                                void* stream) {
+  const int pt = b > 0 ? (b + kThreads - 1) / kThreads : 1;
+  if (pt > kMaxPT || h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  if (p_n <= 0) return (int)cudaGetLastError();
+  const Args a{grid, p_n, h, w, org, st0, gn::Scan{xy, mask, b},
+               scan_stride, gn::Consts{max_dist, res, scale, cinv, eps1,
+                                       eps2, robust, cell_offset},
+               max_iter, want_lik, out, static_cast<cudaStream_t>(stream)};
+  return dispatch<1>(a, pt, staged);
 }

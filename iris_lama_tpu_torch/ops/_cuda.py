@@ -46,9 +46,9 @@ SIGNATURES = {
                 "scatter_add_2d": (_P, _P, _P, _L, _I, _I, _P, _P),
                 "scatter_add_sorted": (_P, _L, _I, _I, _P, _P)},
     "select4": {"select4_sq": (_P, _I, _I, _P, _P, _I, _P, _P)},
-    "edt": {"edt2d": (_P, _I, _I, _I, _I, _I, _P, _P, _P)},
-    "gn_solve": {"gn_solve_batched": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                                      _L, _F, _F, _F, _F, _I, _F, _F, _I, _I,
+    "edt": {"edt2d": (_P, _I, _I, _I, _I, _I, _P, _P)},
+    "gn_solve": {"gn_solve_batched": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _L,
+                                      _F, _F, _F, _F, _I, _F, _F, _I, _I, _I,
                                       _I, _P, _P)},
     "match_eval": {"gn_eval_sq": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _F, _F, _F, _F, _I, _P, _P)},

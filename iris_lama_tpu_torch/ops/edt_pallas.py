@@ -9,10 +9,15 @@ a horizontal pass ``min over |dx| <= radius of dx^2 + g^2``. A mask
 ``distance.edt2d``).
 
 The TPU twin (iris_lama_tpu/ops/edt_pallas.py) ran both passes as strip
-kernels in VMEM. On the GPU they are two CUDA kernels
-(``csrc/edt.cu``); :func:`edt2d` uses :func:`edt2d_plain` — the
-shift-and-min passes of ``sdm/distance.py:edt2d`` of the JAX package — for
-CPU tensors.
+kernels in VMEM. On the GPU they are one fused CUDA kernel
+(``csrc/edt.cu``): a block per 32 x 64 output tile copies its mask tile
+with an ``R``-cell halo into shared memory and runs both passes there, the
+capped ``|dy|`` kept as uint8, so nothing but the mask and the result
+crosses device memory. That bounds the radius: at most
+:data:`MAX_RADIUS` cells (the tile then takes 37,376 bytes of shared
+memory) and ``radius + 1 <= 255``. :func:`edt2d` uses :func:`edt2d_plain`
+— the shift-and-min passes of ``sdm/distance.py:edt2d`` of the JAX
+package — for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+
+# csrc/edt.cu: kMaxRadius (3.2 m at 5 cm cells); g is stored as uint8
+MAX_RADIUS = 64
 
 
 def edt2d_plain(obstacle, max_sqdist: int, radius: int):
@@ -54,9 +62,16 @@ def edt2d(obstacle, max_sqdist: int, radius: int):
     """int32 capped squared EDT of the bool mask ``obstacle``, ``[H, W]``
     or ``[P, H, W]``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels
-    (contiguous bool mask) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (contiguous bool mask) or raise. Either raises for a radius the kernel
+    does not take (``radius + 1 > 255``, or beyond :data:`MAX_RADIUS`).
     """
+    if radius < 0 or radius + 1 > 255:
+        raise ValueError(f"edt2d: radius {radius}: the capped |dy| is kept "
+                         f"as uint8 (0 <= radius, radius + 1 <= 255)")
+    if radius > MAX_RADIUS:
+        raise ValueError(f"edt2d: radius {radius} beyond {MAX_RADIUS} cells, "
+                         f"the halo the kernel's shared-memory tile takes")
     if obstacle.device.type == "cpu":
         return edt2d_plain(obstacle, max_sqdist, radius)
     dev = obstacle.device
@@ -66,12 +81,10 @@ def edt2d(obstacle, max_sqdist: int, radius: int):
     _cuda.require(obstacle, "obstacle", torch.bool, ndim, dev)
     *lead, h, w = obstacle.shape
     p = lead[0] if lead else 1
-    g = torch.empty((p, h, w), dtype=torch.int32, device=dev)
     out = torch.empty((p, h, w), dtype=torch.int32, device=dev)
     lib = _cuda.library("edt")
     _cuda.check(lib.edt2d(obstacle.data_ptr(), p, h, w, radius, max_sqdist,
-                          g.data_ptr(), out.data_ptr(),
-                          _cuda.stream_handle(dev)),
+                          out.data_ptr(), _cuda.stream_handle(dev)),
                 "edt2d")
     edt2d.launches += 1
     return out if lead else out[0]

@@ -16,12 +16,19 @@ SSE.
 The TPU kernel (iris_lama_tpu/ops/gn_solve.py:_kernel) ran one Pallas
 program per particle with its window resident in VMEM. On the GPU it is
 one CUDA kernel (``csrc/gn_solve.cu``): one thread block per particle that
-loops over its own iterations, with the device code it shares with B5 and
-B6 (``csrc/gn_common.cuh``). Loc2D's ``match="solve"`` launches it at
-P = 1. :func:`solve_window_sq` launches it for CUDA tensors;
-:func:`solve_window_sq_plain` is the plain PyTorch version (a masked loop
-over all particles, the control flow of the JAX package's
-``match_surface_2d._solve_window_fused``), used for CPU tensors.
+loops over its own iterations, up to four threads sharing each of the 256
+summation lanes of the fixed order (one beam a thread at 768 beams), each
+keeping its beams in registers, and every thread running the scalar step
+on the broadcast sums, with the per-beam arithmetic it shares with B5
+(``csrc/gn_common.cuh``). A window that fits in shared memory beside the
+exchange buffer (:func:`staged`: the PF's 432 x 432) is copied there
+first; a larger one (Loc2D's 576 x 576) is read from global memory — the
+variant follows from the shape. Scans of up to :data:`MAX_BEAMS` beams.
+Loc2D's ``match="solve"`` launches it at P = 1. :func:`solve_window_sq`
+launches it for CUDA tensors; :func:`solve_window_sq_plain` is the plain
+PyTorch version (a masked loop over all particles, the control flow of the
+JAX package's ``match_surface_2d._solve_window_fused``), used for CPU
+tensors.
 
 The scalar helpers :func:`_exp_compose` and :func:`_solve3_scalar` work
 elementwise on tensors of any (equal) shape, in float32 and in the JAX
@@ -38,6 +45,10 @@ from ..sdm.geometry import f32
 from . import _cuda, match_eval, select4
 
 N_ROWS = 8   # tx ty cos sin chi2 iters sum_d2 pad
+# csrc/gn_solve.cu: 256 logical threads x kMaxPT beams; kDynSmem bytes of
+# dynamic shared memory a block may take
+MAX_BEAMS = 2048
+DYN_SMEM = 232_448 - 1_664
 
 
 def _exp_compose(h0, h1, h2, tx, ty, c, s):
@@ -172,6 +183,18 @@ def solve_window_sq(grid, org_cell, state0, points_xy, mask, *,
 solve_window_sq.launches = 0
 
 
+def staged(h: int, w: int, b: int) -> bool:
+    """Whether the kernel copies an ``[h, w]`` window into shared memory
+    for a scan of ``b`` beams (else it reads the window from global
+    memory): the window and its 16 bytes of alignment slack beside the
+    buffer through which the threads that share a logical thread's beams
+    pass their terms (csrc/gn_solve.cu: Shape)."""
+    pt = max(1, -(-b // match_eval.THREADS))
+    q = min(pt, 4)
+    x_bytes = (pt - -(-pt // q)) * match_eval.N_OUT * match_eval.THREADS * 4
+    return x_bytes + h * w + 16 <= DYN_SMEM
+
+
 def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
             res, scale, cell_offset, cauchy_c, eps1, eps2, max_iter,
             want_lik):
@@ -195,9 +218,9 @@ def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
             f"gn_solve: grid {tuple(grid.shape)}, org_cell "
             f"{tuple(org_cell.shape)}, state0 {tuple(state0.shape)}, "
             f"points_xy {tuple(points_xy.shape)}, mask {tuple(mask.shape)}")
-    px = points_xy[..., 0].contiguous()
-    py = points_xy[..., 1].contiguous()
-    fm = mask.to(torch.float32)
+    if b > MAX_BEAMS:
+        raise ValueError(f"gn_solve: {b} beams, at most {MAX_BEAMS} (the "
+                         f"kernel keeps each thread's beams in registers)")
     robust = float(cauchy_c) > 0.0
     cinv = f32(1.0 / (cauchy_c * cauchy_c)) if robust else 0.0
     consts = (f32(max_dist), f32(res), f32(scale), cinv, int(robust),
@@ -206,9 +229,9 @@ def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
     out = torch.empty((N_ROWS, p), dtype=torch.float32, device=dev)
     err = _cuda.library("gn_solve").gn_solve_batched(
         grid.data_ptr(), p, h, w, org_cell.data_ptr(), state0.data_ptr(),
-        px.data_ptr(), py.data_ptr(), fm.data_ptr(), b,
-        b if per_particle else 0, *consts, out.data_ptr(),
-        _cuda.stream_handle(dev))
+        points_xy.data_ptr(), mask.data_ptr(), b,
+        b if per_particle else 0, *consts, int(staged(h, w, b)),
+        out.data_ptr(), _cuda.stream_handle(dev))
     _cuda.check(err, "gn_solve_batched")
     wrapper.launches += 1
     return _unpack(out)

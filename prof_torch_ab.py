@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Slam2D and PFSlam2D main-path speed of several checkouts, in turns.
+"""Slam2D and PFSlam2D main-path speed, and the device time of the kernels
+B3, B4 and B6, of several checkouts, in turns.
 
     python3 prof_torch_ab.py ROOT [ROOT ...]
 
@@ -11,7 +12,12 @@ to compare two commits on one card. Each run replays chip_smoke.py's
 phase 5 and phase 8 passes (its ``slam_workload``/``slam_pass`` and
 ``pf_workload``/``pf_pass``, taken from the chip_smoke.py beside this
 script whatever the root), three fresh drivers each, and prints one JSON
-line: scans/s and updates/s per pass, with their accuracy.
+line: scans/s and updates/s per pass, with their accuracy, and before them
+the device µs per call (torch.profiler) of B3 at P = 1 (448 x 448) and
+P = 30, B6 (30 x 432 x 432) and B4 at P = 1 (576 x 576) and P = 8 (a scan
+each), on the inputs of chip_smoke.py's phases 3, 6 and 9 (its
+``b3_mask``, ``pf_kernel_inputs``, ``loc_setup`` and
+``loc_kernel_inputs``).
 """
 
 import importlib.util
@@ -21,6 +27,36 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def kernel_us(torch, dev, cs) -> dict:
+    """Device µs per call of B3, B6 and B4 at chip_smoke.py's shapes."""
+    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, gn_solve
+
+    def us(fn, reps):
+        return cs.device_ms(torch, fn, reps)[0] * 1e3
+
+    out = {}
+    _, opts, _ = cs.slam_workload()
+    cfg = opts.mapping_config()
+    wu = cfg.resident_update_cells
+    r, cap = cfg.distance.radius_cells, cfg.distance.max_sqdist
+    m = cs.b3_mask(torch, dev, (wu, wu), 0.01)
+    out["b3_p1_us"] = us(lambda: edt_pallas.edt2d(m, cap, r), 300)
+    data, opts, padded = cs.pf_workload()
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded]
+    kin = cs.pf_kernel_inputs(torch, dev, data, opts, staged)
+    out["b3_p30_us"] = us(lambda: edt_pallas.edt2d(
+        kin["obst"], kin["cap"], kin["radius"]), 100)
+    out["b6_us"] = us(lambda: gn_batch.solve_window_sq(
+        *kin["b6_args"], **kin["b6_kw"]), 50)
+    del kin, staged
+    lk = cs.loc_kernel_inputs(torch, dev, cs.loc_setup(torch, dev))
+    for label, args in (("p1", lk["b4_args"]), ("p8", lk["b4p_args"])):
+        out[f"b4_{label}_us"] = us(lambda: gn_solve.solve_window_sq(
+            *args, **lk["b4_kw"]), 100)
+    return out
 
 
 def run_one(root: str) -> dict:
@@ -37,7 +73,8 @@ def run_one(root: str) -> dict:
     spec.loader.exec_module(cs)
 
     dev = torch.device("cuda:0")
-    out = {"root": root, "device": torch.cuda.get_device_name(0)}
+    out = {"root": root, "device": torch.cuda.get_device_name(0),
+           **kernel_us(torch, dev, cs)}
     for key, workload, one_pass, rate, acc in (
             ("slam", cs.slam_workload, cs.slam_pass, "scans_per_s", "ate_m"),
             ("pf", cs.pf_workload, cs.pf_pass, "updates_per_s",

@@ -117,9 +117,11 @@ def test_slam2d_on_card_matches_cpu(cuda):
 def _pf_solve_case(dev, p=30, hw=432, b=768, seed=3):
     """PF shapes: p particles' s8 squared-distance windows of one wall
     layout shifted per particle, a scan of b beams on the walls (10% masked
-    out) and start states up to ~0.2 m / 0.1 rad off."""
+    out) and start states up to ~0.2 m / 0.1 rad off. ``hw``: the window's
+    side, or its (h, w) (each at least 401)."""
     g = torch.Generator().manual_seed(seed)
-    obst = torch.zeros((hw, hw), dtype=torch.bool)
+    obst = torch.zeros(hw if isinstance(hw, tuple) else (hw, hw),
+                       dtype=torch.bool)
     obst[60, 40:400] = True
     obst[60:380, 380] = True
     obst[300, 100:380] = True
@@ -180,6 +182,44 @@ def test_batched_deposit_kernel_bit_exact(cuda, order):
     assert torch.equal(got, scatter_matmul.deposit_counts_plain(ly, lx, h, w))
 
 
+@pytest.mark.parametrize("r", [1, 5, 10])
+@pytest.mark.parametrize("shape", [(61, 203), (448, 448), (33, 65)])
+def test_edt_kernel_at_tile_edges(cuda, shape, r):
+    """The tiled kernel at shapes that are no multiple of its 32 x 64 tile
+    (and at the main path's 448 x 448), P = 1, 3 and 30, on random masks
+    and on masks with obstacles only on the border rows and columns."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    h, w = shape
+    cap = (r + 1) ** 2 - 1
+    for p in (1, 3, 30):
+        rand = torch.rand((p, h, w), generator=g, device=cuda) < 0.03
+        border = torch.zeros((p, h, w), dtype=torch.bool, device=cuda)
+        for sl in ((slice(None), 0), (slice(None), -1),
+                   (slice(None), slice(None), 0),
+                   (slice(None), slice(None), -1)):
+            border[sl] = torch.rand(border[sl].shape, generator=g,
+                                    device=cuda) < 0.3
+        for m in (rand, border):
+            m = m[0] if p == 1 else m
+            before = edt_pallas.edt2d.launches
+            got = edt_pallas.edt2d(m, cap, r)
+            assert edt_pallas.edt2d.launches == before + 1
+            assert torch.equal(got, edt_pallas.edt2d_plain(m, cap, r)), \
+                (shape, r, p)
+
+
+def test_edt_kernel_refuses_radius(cuda):
+    """Radius 64, the largest halo the tile takes, is served; 65 and 255
+    (R + 1 > 255 for the uint8 |dy|) are refused."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    m = torch.rand((100, 130), generator=g, device=cuda) < 0.001
+    assert torch.equal(edt_pallas.edt2d(m, 65 * 65, 64),
+                       edt_pallas.edt2d_plain(m, 65 * 65, 64))
+    for r in (65, 255):
+        with pytest.raises(ValueError):
+            edt_pallas.edt2d(m, 100, r)
+
+
 def test_batched_edt_kernel_bit_exact(cuda):
     g = torch.Generator(device=cuda).manual_seed(5)
     dens = torch.tensor([0.0, 0.01, 0.3, 1.0], device=cuda)
@@ -209,6 +249,54 @@ def test_gn_solve_kernel_matches_plain(cuda, p, per_particle):
     for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got,
                           want):
         assert torch.equal(a, w), (name, a, w)
+
+
+@pytest.mark.parametrize("b,hw,per_particle,p,staged", [
+    (1, 432, False, 3, True),        # one beam: a singular normal matrix
+    (255, 432, True, 3, True),
+    (257, 432, False, 4, True),      # two threads share a summation lane
+    (257, 576, True, 2, False),      # the global-memory variant
+    (768, (458, 459), False, 2, True),   # the largest staged at 768 beams
+    (768, (459, 459), True, 2, False),   # one row more: global memory
+    (768, (431, 433), False, 5, True),   # windows at odd byte offsets
+    (1100, 432, False, 2, True),     # two beams a thread, five a lane
+    (2048, 432, True, 2, False),     # the most beams the kernel takes
+])
+def test_gn_solve_kernel_at_edges(cuda, b, hw, per_particle, p, staged):
+    """The whole solve at the edges of its design: scans of 1 to 2048
+    beams (one to eight a summation lane, shared by up to four threads),
+    windows staged in shared memory (up to the largest it takes beside the
+    exchange buffer, and at odd offsets, where the copy has a byte head and
+    tail) or read from global memory, shared and per-particle scans,
+    max_iter 0, 1 and 50, with and without the likelihood: state,
+    iterations, chi2 and SSE bit-equal."""
+    (grids, org, st0, pts, mask), kw = _pf_solve_case("cpu", p=p, hw=hw,
+                                                      b=b, seed=b)
+    assert gn_solve.staged(*grids.shape[1:], b) == staged
+    if per_particle:
+        g = torch.Generator().manual_seed(8)
+        pts = torch.stack([torch.roll(pts, q * 37, 0) for q in range(p)])
+        mask = torch.rand((p, b), generator=g) < 0.9
+    args = [t.to(cuda).contiguous() for t in (grids, org, st0, pts, mask)]
+    fn = gn_solve if per_particle else gn_batch
+    for max_iter in (0, 1, 50):
+        for want_lik in (False, True):
+            kw.update(max_iter=max_iter, want_lik=want_lik)
+            before = fn.solve_window_sq.launches
+            got = fn.solve_window_sq(*args, **kw)
+            assert fn.solve_window_sq.launches == before + 1
+            want = fn.solve_window_sq_plain(*args, **kw)
+            if max_iter == 50 and b > 1:
+                assert int(got[1].sum()) >= p   # the starts drive the loop
+            for name, a, wv in zip(("state", "iterations", "chi2",
+                                    "sum_d2"), got, want):
+                assert torch.equal(a, wv), (max_iter, want_lik, name, a, wv)
+
+
+def test_gn_solve_kernel_refuses_beams(cuda):
+    args, kw = _pf_solve_case(cuda, p=1, b=2049)
+    with pytest.raises(ValueError):
+        gn_batch.solve_window_sq(*args, **kw)
 
 
 @pytest.mark.parametrize("p", [1, 3])

@@ -346,6 +346,48 @@ def test_edt_bit_exact(density, cap, r):
     assert N(tdist.edt2d(T(obst), cap, r)).tobytes() == got.tobytes()
 
 
+def _edt_edge_mask(rng, lead, shape, border_only):
+    """A mask with obstacles only on the border rows and columns, or ~3%
+    random obstacles."""
+    if not border_only:
+        return rng.random((*lead, *shape)) < 0.03
+    m = np.zeros((*lead, *shape), bool)
+    m[..., 0, :] = rng.random((*lead, shape[1])) < 0.3
+    m[..., -1, :] = rng.random((*lead, shape[1])) < 0.3
+    m[..., :, 0] = rng.random((*lead, shape[0])) < 0.3
+    m[..., :, -1] = rng.random((*lead, shape[0])) < 0.3
+    return m
+
+
+@pytest.mark.parametrize("border_only", [False, True])
+@pytest.mark.parametrize("shape,r", [((61, 203), 10), ((61, 203), 1),
+                                     ((33, 65), 5)])
+def test_edt_plain_at_ragged_shapes(shape, r, border_only):
+    """The plain version at shapes that are no multiple of the kernel's
+    32 x 64 tile: one grid against the Pallas kernels in interpret mode,
+    three against the vmapped reference."""
+    rng = np.random.default_rng(r + 10 * border_only)
+    cap = (r + 1) ** 2 - 1
+    one = _edt_edge_mask(rng, (), shape, border_only)
+    np.testing.assert_array_equal(
+        N(tedt.edt2d_plain(T(one), cap, r)),
+        _edt_pallas_interpret(jnp.asarray(one), cap, r))
+    three = _edt_edge_mask(rng, (3,), shape, border_only)
+    want = jax.vmap(lambda m: jdist.edt2d(m, cap, r))(jnp.asarray(three))
+    np.testing.assert_array_equal(N(tedt.edt2d_plain(T(three), cap, r)),
+                                  np.asarray(want))
+
+
+@pytest.mark.parametrize("r,match", [(65, "beyond 64"), (255, "uint8"),
+                                     (-1, "uint8")])
+def test_edt_refuses_radius(r, match):
+    """The kernel's shared-memory tile takes a halo of at most 64 cells and
+    keeps the capped |dy| as uint8: the wrapper refuses other radii on
+    every device."""
+    with pytest.raises(ValueError, match=match):
+        tedt.edt2d(torch.zeros((8, 8), dtype=torch.bool), 25, r)
+
+
 # ---------------------------------------------------------------------------
 # pool and windows
 # ---------------------------------------------------------------------------
