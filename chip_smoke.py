@@ -54,9 +54,16 @@ Phases, one JSON line each:
    at 255, 257 and 2048 beams, on windows read from global memory and staged in
    shared memory, max_iter 0, 1 and 50, with and without the likelihood), the
    fused evaluation B5 and the corner selection B2 on the scan's cells at
-   a real pose, and the value scatters B7 / B8 on a Slam2D deposit stream
-   into [448, 512], each bit-equal to its plain version, with times and
-   bounds as in phase 3;
+   a real pose (operands as the fused loop passes them: strided views), and
+   the value scatters B7 / B8 on a Slam2D deposit stream into [448, 512],
+   each bit-equal to its plain version, with times and bounds as in phase 3
+   and, for B2 and B5, the launch floor (an empty kernel of the same launch
+   shape, csrc/floor.cu); B5 also at 1, 255, 257, 1100 and 2048 beams, P = 1
+   and 3, cells off the window on every side, an all-masked scan, strided
+   and contiguous operands, a grid at an odd byte offset and operands
+   expanded with a stride of 0 (and 2049 beams refused); B2 on grids of
+   every width modulo 4 at byte offsets 0-3 with the last column and row,
+   indices contiguous and strided;
 10. loc_prefix — the first 60 Loc2D updates of that workload on the CPU
    (plain versions) and on the card (kernels) in the "solve" and "fused"
    match modes, on one map built on the card and carried to the CPU as
@@ -69,7 +76,8 @@ Phases, one JSON line each:
    Loc2D.update_many_prepadded from device-staged scans: 3 reps of 3 fresh
    passes after a warm-up pass, launch counts set to 0 just before and read
    just after: updates/s (median rep), mean error (< 1 cm), launches and
-   host reads per update, peak memory; then one pass of the live
+   host reads per update, peak memory, and the device activities per update
+   of one more (profiled) pass; then one pass of the live
    Loc2D.update API, the time of one global-localisation round and of the
    covariance (loc_extra).
 
@@ -251,6 +259,152 @@ def solve_edges(torch, dev, mod, cases) -> int:
                         f"max_iter {max_iter}, want_lik {want_lik}"
                 n += 1
     return n
+
+
+def launch_floor_ms(torch, dev, blocks: int, threads: int) -> float:
+    """Device ms of an empty kernel launched as ``blocks`` x ``threads``
+    (csrc/floor.cu): what any launch of that shape costs on the card."""
+    from iris_lama_tpu_torch.ops import _cuda
+    lib = _cuda.library("floor")
+    stream = _cuda.stream_handle(dev)
+
+    def fn():
+        _cuda.check(lib.launch_floor(blocks, threads, stream), "launch_floor")
+
+    return device_ms(torch, fn, 1000)[0]
+
+
+def b2_floor_ms(torch, dev, b: int) -> float:
+    """The launch floor at B2's launch shape for ``b`` beams
+    (csrc/select4.cu: blocks of 256 threads, one beam a thread)."""
+    return launch_floor_ms(torch, dev, -(-b // 256), 256)
+
+
+def b5_floor_ms(torch, dev, p: int, b: int) -> float:
+    """The launch floor at B5's launch shape (gn_common.cuh: Shape): one
+    block of 256 * min(ceil(b / 256), 4) threads per particle."""
+    return launch_floor_ms(torch, dev, p, 256 * min(-(-b // 256), 4))
+
+
+def eval_case(torch, dev, p: int, b: int, seed: int, masked=False):
+    """B5's operands: p int8 windows 431 x 433 (the same bytes also at an
+    odd byte offset), cells up to 3 off the window on every side (beams
+    0-3 on its edges), fractions, hits within 10 m, 90% of the beams kept
+    (none when ``masked``), as the fused loop's [p, b, 2] cell, fraction
+    and hit tensors. Returns ((grid, odd grid), strided operand views)."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = 431, 433
+    grid = torch.randint(0, 101, (p, h, w), generator=g, dtype=torch.int8)
+    ly = torch.randint(-3, h + 3, (p, b), generator=g, dtype=torch.int32)
+    lx = torch.randint(-3, w + 3, (p, b), generator=g, dtype=torch.int32)
+    for i, (y, x) in enumerate(((-1, 5), (h - 1, 7), (9, -1), (11, w - 1))):
+        if i < b:
+            ly[:, i], lx[:, i] = y, x
+    loc = torch.stack([lx, ly], -1).to(dev)
+    mu = torch.rand((p, b, 2), generator=g).to(dev)
+    hits = ((torch.rand((p, b, 2), generator=g) - 0.5) * 20.0).to(dev)
+    fm = torch.zeros((p, b)) if masked else \
+        (torch.rand((p, b), generator=g) < 0.9).float()
+    buf = torch.empty(p * h * w + 1, dtype=torch.int8)
+    buf[1:] = grid.flatten()
+    odd = buf.to(dev)[1:].view(p, h, w)
+    return (grid.to(dev), odd), (loc[..., 1], loc[..., 0], mu[..., 0],
+                                 mu[..., 1], hits[..., 0], hits[..., 1],
+                                 fm.to(dev))
+
+
+def eval_edges(torch, dev) -> int:
+    """B5 against its plain version at the edges of its design (bit-equal
+    required): 1, 255, 257, 1100 and 2048 beams, P = 1 (the unbatched entry
+    point) and 3, unit and Cauchy weights, cells off the window on every
+    side, an all-masked scan, the fused loop's strided views and contiguous
+    copies, a grid at an odd byte offset, operands expanded with a stride of
+    0; and 2049 beams refused. Returns the count of cases."""
+    from iris_lama_tpu_torch.ops import match_eval
+    n = 0
+    for b in (1, 255, 257, 1100, 2048):
+        for p in (1, 3):
+            for masked in ((False, True) if b == 257 else (False,)):
+                grids, views = eval_case(torch, dev, p, b, b + p, masked)
+                for ops in (views, [v.contiguous() for v in views]):
+                    for grid in grids:
+                        for cauchy_c in (0.15, 0.0):
+                            kw = dict(max_dist=0.5, res=0.05, scale=20.0,
+                                      cauchy_c=cauchy_c)
+                            args = (grid, *ops) if p > 1 else \
+                                (grid[0], *(t[0] for t in ops))
+                            got = match_eval.gn_eval_sq(*args, **kw)
+                            want = match_eval.gn_eval_sq_plain(*args, **kw)
+                            torch.cuda.synchronize()
+                            assert torch.equal(got, want), \
+                                f"B5 at {p} x {b} beams, masked {masked}, " \
+                                f"cauchy_c {cauchy_c}"
+                            n += 1
+    grids, views = eval_case(torch, dev, 3, 768, 5)
+    ops = list(views)
+    ops[2] = views[2][:, :1].expand(3, 768)     # stride 0 along the beams
+    ops[6] = views[6][0].expand(3, 768)         # stride 0 along particles
+    kw = dict(max_dist=0.5, res=0.05, scale=20.0, cauchy_c=0.15)
+    got = match_eval.gn_eval_sq(grids[0], *ops, **kw)
+    want = match_eval.gn_eval_sq_plain(grids[0],
+                                       *(t.contiguous() for t in ops), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "B5 on expanded operands"
+    grids, views = eval_case(torch, dev, 1, 2049, 6)
+    try:
+        match_eval.gn_eval_sq(grids[0][0], *(t[0] for t in views), **kw)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("B5 took 2049 beams")
+    return n + 2
+
+
+def select4_edges(torch, dev) -> int:
+    """B2 against its plain version (bit-equal required) on 37-row grids of width 488-491 (every row end
+    within a 32-bit word) at byte offsets 0-3, cells in and around the last
+    column and row, indices contiguous, as the interleaved columns of a
+    [B, 2] tensor and as columns of a [B, 3] one. Returns the count of
+    cases."""
+    from iris_lama_tpu_torch.ops import select4
+    n = 0
+    for w in (488, 489, 490, 491):
+        g = torch.Generator().manual_seed(w)
+        h, b = 37, 777
+        buf = torch.randint(-128, 128, (h * w + 3,), generator=g,
+                            dtype=torch.int8).to(dev)
+        ly = torch.randint(-3, h + 3, (b,), generator=g, dtype=torch.int32)
+        lx = torch.randint(-3, w + 3, (b,), generator=g, dtype=torch.int32)
+        edge = torch.tensor([[h - 1, w - 1], [h - 1, w - 2], [h - 2, w - 1],
+                             [h, w], [-1, w - 1], [h - 1, -1], [0, 0],
+                             [h - 1, w - 3], [h - 1, w - 4]],
+                            dtype=torch.int32)
+        ly[:len(edge)], lx[:len(edge)] = edge[:, 0], edge[:, 1]
+        pair = torch.stack([lx, ly], -1).to(dev)
+        wide = torch.stack([ly, ly, lx], -1).to(dev)
+        for off in range(4):
+            grid = buf[off:off + h * w].view(h, w)
+            for iy, ix in ((ly.to(dev), lx.to(dev)), (pair[:, 1], pair[:, 0]),
+                           (wide[:, 0], wide[:, 2])):
+                got = select4.select4_sq(grid, iy, ix)
+                want = select4.select4_sq_plain(grid, iy, ix)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), \
+                    f"B2 at w {w}, offset {off}, strides {iy.stride()}"
+                n += 1
+    return n
+
+
+def device_launches(torch, fn) -> int:
+    """The device activities (kernels, copies, fills) that ``fn``
+    launches, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA"))
 
 
 def slam_workload():
@@ -853,10 +1007,10 @@ def loc_phases(torch, dev) -> list:
     hits = lie.se2_apply(pose0, pts)
     mi, mu = geo.w2m_frac(hits)
     loc_c = mi - sub_org
-    b5_args = (sub, loc_c[:, 1].contiguous(), loc_c[:, 0].contiguous(),
-               mu[:, 0].contiguous(), mu[:, 1].contiguous(),
-               hits[:, 0].contiguous(), hits[:, 1].contiguous(),
-               msk.to(torch.float32))
+    # the operands as match_surface_2d._solve_window_fused passes them:
+    # views of the [768, 2] cells, fractions and hits
+    b5_args = (sub, loc_c[:, 1], loc_c[:, 0], mu[:, 0], mu[:, 1],
+               hits[:, 0], hits[:, 1], msk.to(torch.float32))
     b5_kw = dict(max_dist=loc.max_dist, res=geo.resolution, scale=geo.scale,
                  cauchy_c=sop.robust.param)
     got = match_eval.gn_eval_sq(*b5_args, **b5_kw)
@@ -869,6 +1023,8 @@ def loc_phases(torch, dev) -> list:
           "source": "iris_lama_tpu_torch/csrc/match_eval.cu",
           "replaces": "iris_lama_tpu/ops/match_eval.py:122",
           "shape": list(sub.shape) + [b], "max_abs_err": b5_err,
+          "edge_cases": eval_edges(torch, dev),
+          "launch_floor_ms": b5_floor_ms(torch, dev, 1, b),
           **timings(torch, "", lambda: match_eval.gn_eval_sq(
               *b5_args, **b5_kw), 300),
           **timings(torch, "plain_", lambda: match_eval.gn_eval_sq_plain(
@@ -901,6 +1057,8 @@ def loc_phases(torch, dev) -> list:
           "n": b, "hw": [hs, ws], "max_abs_err": b2_err,
           "in_window": float(((s_ly >= 0) & (s_ly < hs) & (s_lx >= 0)
                               & (s_lx < ws)).float().mean()),
+          "edge_cases": select4_edges(torch, dev),
+          "launch_floor_ms": b2_floor_ms(torch, dev, b),
           **timings(torch, "", lambda: select4.select4_sq(
               sub, s_ly, s_lx), 1000),
           **timings(torch, "plain_", lambda: select4.select4_sq_plain(
@@ -1080,6 +1238,12 @@ def loc_phases(torch, dev) -> list:
             "host_reads_per_update": (nlls_solver.host_read.count
                                       - reads0) / updates,
             "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
+        # every device activity (kernels, copies, fills) of one more pass,
+        # counted by the profiler, after the launch counts were read
+        box = []
+        n_dev = device_launches(
+            torch, lambda: box.append(one_pass(mode, 8, 0)))
+        modes[mode]["device_launches_per_update"] = n_dev / box[0][2]
         emit({"phase": "loc_main_path", "mode": mode, **modes[mode]})
         for r in reps:
             assert r["mean_err_m"] < LOC_ERR_BOUND_M, \
@@ -1263,6 +1427,7 @@ def main() -> int:
           "source": "iris_lama_tpu_torch/csrc/select4.cu",
           "replaces": "iris_lama_tpu/ops/select4.py:36",
           "n": nbeam, "hw": [wm, wm], "max_abs_err": b2_err,
+          "launch_floor_ms": b2_floor_ms(torch, dev, nbeam),
           **timings(torch, "", lambda: select4.select4_sq(
               grid, sly, slx), 1000),
           **timings(torch, "plain_", lambda: select4.select4_sq_plain(

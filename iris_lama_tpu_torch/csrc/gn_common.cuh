@@ -1,7 +1,10 @@
 // Device code shared by the Gauss-Newton kernels: the whole IRLS solve
 // (gn_solve.cu: B4 with one scan per particle, B6 with one scan shared by
 // all particles) and B5 (match_eval.cu, one evaluation of the ten
-// normal-equation sums): the per-beam terms, and B5's block reduction.
+// normal-equation sums). One evaluation is the same code in all three: the
+// block layout (Shape), the corner reads, the per-beam terms (add_values)
+// and the block sums (block_sums); B4/B6 locate the beams at each state,
+// B5 takes them as its operands give them.
 //
 // Every source that includes this header is built with -fmad=false (no
 // multiply-add is fused: a fused hx = tx + c*px - s*py can floor into the
@@ -9,10 +12,11 @@
 // math). The per-beam arithmetic repeats iris_lama_tpu/ops/match_eval.py:
 // _eval_math and the scalar step iris_lama_tpu/ops/gn_solve.py:
 // _solve3_scalar/_exp_compose statement for statement. Sums are reduced in
-// one fixed order — thread t adds beams t, t + 256, ...; each warp halves by
-// shuffle-down; the eight warp totals are added in turn — which the
-// plain PyTorch versions repeat (ops/match_eval.py:_block_sum), so kernel and
-// plain version agree bit for bit on the card.
+// one fixed order — logical thread t adds beams t, t + 256, ... in turn;
+// each warp halves by shuffle-down; the eight warp totals are added in
+// turn — which the plain PyTorch versions repeat
+// (ops/match_eval.py:_block_sum), so kernel and plain version agree bit
+// for bit on the card.
 
 #pragma once
 
@@ -24,6 +28,8 @@ namespace gn {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 10;   // a00 a01 a02 a11 a12 a22 g0 g1 g2 chi2
+constexpr int kMaxPT = 8;   // beams per logical thread: b <= 2048
+constexpr int kMaxQ = 4;    // threads per logical thread: <= 1024 a block
 
 // a scan of b beams: points [b, 2] (x, y) and a bool mask [b]
 struct Scan {
@@ -77,57 +83,157 @@ __device__ __forceinline__ void add_values(float v00, float v10, float v01,
   acc[9] += rw * rw;
 }
 
-// One beam's ten terms added into acc: four clipped corner reads of the
-// squared-distance grid g [h, w] (B2's function; out of range -> max_dist),
-// then add_values.
-__device__ __forceinline__ void add_beam(const int8_t* __restrict__ g, int h,
-                                         int w, int ly, int lx, float mux,
-                                         float muy, float hx, float hy,
-                                         float fm, const Consts& k,
-                                         int robust, float acc[kSums]) {
-  const int64_t y0 = clampi(ly, 0, h - 1), y1 = clampi(ly + 1, 0, h - 1);
-  const int64_t x0 = clampi(lx, 0, w - 1), x1 = clampi(lx + 1, 0, w - 1);
-  const bool inx0 = lx >= 0 && lx < w, inx1 = lx + 1 >= 0 && lx + 1 < w;
-  const bool iny0 = ly >= 0 && ly < h, iny1 = ly + 1 >= 0 && ly + 1 < h;
-  const float v00 = inx0 && iny0 ? sqrtf((float)g[y0 * w + x0]) * k.res
-                                 : k.max_dist;
-  const float v10 = inx1 && iny0 ? sqrtf((float)g[y0 * w + x1]) * k.res
-                                 : k.max_dist;
-  const float v01 = inx0 && iny1 ? sqrtf((float)g[y1 * w + x0]) * k.res
-                                 : k.max_dist;
-  const float v11 = inx1 && iny1 ? sqrtf((float)g[y1 * w + x1]) * k.res
-                                 : k.max_dist;
-  add_values(v00, v10, v01, v11, mux, muy, hx, hy, fm, k, robust, acc);
+// The block's layout for PT = ceil(b / 256) beams per logical thread:
+// Q threads share each logical thread's beams (physical thread L + 256 q
+// takes its beams m = q, q + Q, ..., beam L + 256 m), S beams each; of a
+// logical thread's PT terms, NX come from its Q - 1 partners through
+// shared memory.
+template <int PT>
+struct Shape {
+  static constexpr int Q = PT < kMaxQ ? PT : kMaxQ;
+  static constexpr int S = (PT + Q - 1) / Q;
+  static constexpr int NT = kThreads * Q;
+  static constexpr int NX = PT - S;
+  static constexpr int kXBytes = NX * kSums * kThreads * 4;
+};
+
+// This thread's S beams (slot s: beam L + 256 (q + Q s)); B4/B6 keep them
+// in registers for the whole solve, B5 only their masks.
+template <int S>
+struct Beams {
+  float px[S], py[S], fm[S];
+};
+
+// Where the beams land at one state: window-local cells and fractions.
+template <int S>
+struct Hits {
+  float hx[S], hy[S], mux[S], muy[S];
+  int lx[S], ly[S];
+};
+
+// beam m of logical thread L (beam L + 256 m) exists
+template <int PT>
+__device__ __forceinline__ bool has_beam(int m, int lt, int b) {
+  return m < PT && lt + m * kThreads < b;
 }
 
-// Block sum of the ten partial sums; the totals land in thread 0's acc.
-// Ends with all threads past the barrier, so warp_buf may be rewritten by
-// the next call only after thread 0 has read it (callers put a barrier in
-// between).
-__device__ void block_reduce(float acc[kSums], float (*warp_buf)[kSums]) {
+// the slot of a partner's term m (m % Q != 0) in the exchange buffer
+template <int Q>
+__device__ __forceinline__ int xslot(int m) {
+  return m - m / Q - 1;
+}
+
+// root[v] = sqrtf(v) * res for every int8 v: a corner's distance (the
+// float operations of _eval_math's corner), looked up. The block's first
+// 256 threads fill it; a block barrier must come before block_sums reads
+// it.
+__device__ __forceinline__ void fill_root(float* root, float res) {
+  if (threadIdx.x < 256) {
+    root[threadIdx.x] = sqrtf((float)(int8_t)threadIdx.x) * res;
+  }
+}
+
+// The ten block sums of the beams' terms at the hits, in every thread's
+// sm, in the order above: each thread reads the
+// corners of its beams (all reads issued first) and takes their terms;
+// the partners of a logical thread pass theirs through xbuf (a barrier of
+// their Q warps); the logical thread adds its PT terms in beam order, its
+// warp halves by shuffle-down and lane 0 writes the warp total (warp_buf,
+// one block barrier); lanes 0-9 of every warp add one sum's eight totals
+// in warp order and a shuffle broadcasts the ten.
+template <int PT>
+__device__ __forceinline__ void block_sums(
+    const int8_t* __restrict__ g, int h, int w,
+    const Beams<Shape<PT>::S>& bm, int b, const Hits<Shape<PT>::S>& hit,
+    const Consts& k, int robust, const float* root, float* xbuf,
+    float (*warp_buf)[kSums], float sm[kSums]) {
+  using Sh = Shape<PT>;
+  const int q = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
+  int8_t cv[Sh::S][4];
+#pragma unroll
+  for (int j = 0; j < Sh::S; ++j) {
+    if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
+    const int64_t y0 = clampi(hit.ly[j], 0, h - 1);
+    const int64_t y1 = clampi(hit.ly[j] + 1, 0, h - 1);
+    const int64_t x0 = clampi(hit.lx[j], 0, w - 1);
+    const int64_t x1 = clampi(hit.lx[j] + 1, 0, w - 1);
+    cv[j][0] = g[y0 * w + x0];
+    cv[j][1] = g[y0 * w + x1];
+    cv[j][2] = g[y1 * w + x0];
+    cv[j][3] = g[y1 * w + x1];
+  }
+  // terms[j] = 0 + term: adding that in place of the term gives the same
+  // sums (a running sum that starts at +0 is never -0)
+  float terms[Sh::S][kSums];
+#pragma unroll
+  for (int j = 0; j < Sh::S; ++j) {
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) terms[j][i] = 0.0f;
+    if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
+    const int lx = hit.lx[j], ly = hit.ly[j];
+    const bool inx0 = lx >= 0 && lx < w, inx1 = lx + 1 >= 0 && lx + 1 < w;
+    const bool iny0 = ly >= 0 && ly < h, iny1 = ly + 1 >= 0 && ly + 1 < h;
+    const float v00 = inx0 && iny0 ? root[(uint8_t)cv[j][0]] : k.max_dist;
+    const float v10 = inx1 && iny0 ? root[(uint8_t)cv[j][1]] : k.max_dist;
+    const float v01 = inx0 && iny1 ? root[(uint8_t)cv[j][2]] : k.max_dist;
+    const float v11 = inx1 && iny1 ? root[(uint8_t)cv[j][3]] : k.max_dist;
+    add_values(v00, v10, v01, v11, hit.mux[j], hit.muy[j], hit.hx[j],
+               hit.hy[j], bm.fm[j], k, robust, terms[j]);
+  }
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int warp = lt >> 5;
+  if constexpr (Sh::Q > 1) {
+    if (q != 0) {
 #pragma unroll
-  for (int i = 0; i < kSums; ++i) {
-    float v = acc[i];
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
+      for (int j = 0; j < Sh::S; ++j) {
+        const int m = q + Sh::Q * j;
+        if (!has_beam<PT>(m, lt, b)) continue;
+        float* x = xbuf + xslot<Sh::Q>(m) * kSums * kThreads + lt;
+#pragma unroll
+        for (int i = 0; i < kSums; ++i) x[i * kThreads] = terms[j][i];
+      }
     }
-    acc[i] = v;
+    // the Q warps of logical warp `warp`: warp + 8 q
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + warp), "r"(32 * Sh::Q)
+                 : "memory");
   }
-  if (lane == 0) {
+  if (q == 0) {
+    float acc[kSums];
 #pragma unroll
-    for (int i = 0; i < kSums; ++i) warp_buf[warp][i] = acc[i];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int m = 0; m < PT; ++m) {
+      if (!has_beam<PT>(m, lt, b)) continue;
+      if (m % Sh::Q == 0) {
+#pragma unroll
+        for (int i = 0; i < kSums; ++i) acc[i] += terms[m / Sh::Q][i];
+      } else {
+        const float* x = xbuf + xslot<Sh::Q>(m) * kSums * kThreads + lt;
+#pragma unroll
+        for (int i = 0; i < kSums; ++i) acc[i] += x[i * kThreads];
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kSums; ++i) {
-      float t = warp_buf[0][i];
-      for (int j = 1; j < kWarps; ++j) t += warp_buf[j][i];
-      acc[i] = t;
+      float v = acc[i];
+      for (int off = 16; off > 0; off >>= 1) {
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      }
+      acc[i] = v;
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kSums; ++i) warp_buf[warp][i] = acc[i];
     }
   }
+  __syncthreads();
+  float t = 0.0f;
+  if (lane < kSums) {
+    t = warp_buf[0][lane];
+    for (int j = 1; j < kWarps; ++j) t += warp_buf[j][lane];
+  }
+#pragma unroll
+  for (int i = 0; i < kSums; ++i) sm[i] = __shfl_sync(0xffffffffu, t, i);
 }
 
 }  // namespace gn

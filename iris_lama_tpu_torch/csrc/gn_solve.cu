@@ -72,29 +72,18 @@
 
 namespace {
 
+using gn::Beams;
+using gn::Hits;
+using gn::Shape;
+using gn::has_beam;
+using gn::kMaxPT;
 using gn::kSums;
 using gn::kThreads;
 using gn::kWarps;
 
-constexpr int kMaxPT = 8;   // beams per logical thread: b <= 2048
-constexpr int kMaxQ = 4;    // threads per logical thread: <= 1024 a block
 // dynamic shared memory a block may take beside its 1,664 static bytes
 // (the 232,448 bytes an H100 block may opt in to)
 constexpr int kDynSmem = 232448 - 1664;
-
-// The block's layout for PT = ceil(b / 256) beams per logical thread:
-// Q threads share each logical thread's beams (physical thread L + 256 q
-// takes its beams m = q, q + Q, ..., beam L + 256 m), S beams each; of a
-// logical thread's PT terms, NX come from its Q - 1 partners through
-// shared memory.
-template <int PT>
-struct Shape {
-  static constexpr int Q = PT < kMaxQ ? PT : kMaxQ;
-  static constexpr int S = (PT + Q - 1) / Q;
-  static constexpr int NT = kThreads * Q;
-  static constexpr int NX = PT - S;
-  static constexpr int kXBytes = NX * kSums * kThreads * 4;
-};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -148,32 +137,6 @@ __device__ bool gn_step(const float sm[kSums], const float st[4],
   return true;
 }
 
-// This thread's S beams (slot s: beam L + 256 (q + Q s)), kept in
-// registers for the whole solve.
-template <int S>
-struct Beams {
-  float px[S], py[S], fm[S];
-};
-
-// Where the beams land at one state: window-local cells and fractions.
-template <int S>
-struct Hits {
-  float hx[S], hy[S], mux[S], muy[S];
-  int lx[S], ly[S];
-};
-
-// beam m of logical thread L (beam L + 256 m) exists
-template <int PT>
-__device__ __forceinline__ bool has_beam(int m, int lt, int b) {
-  return m < PT && lt + m * kThreads < b;
-}
-
-// the slot of a partner's term m (m % Q != 0) in the exchange buffer
-template <int Q>
-__device__ __forceinline__ int xslot(int m) {
-  return m - m / Q - 1;
-}
-
 // lie.se2_apply + geometry.w2m_frac (floor + integer offset) of this
 // thread's beams at state st, in window cells of the window at (org_x,
 // org_y)
@@ -203,109 +166,6 @@ __device__ __forceinline__ void locate(const Beams<Shape<PT>::S>& bm, int b,
   }
 }
 
-// The ten block sums of the beams' terms at the located hits, in every
-// thread's sm, in the order of gn_common.cuh: each thread reads the
-// corners of its beams (all reads issued first) and takes their terms;
-// the partners of a logical thread pass theirs through xbuf (a barrier of
-// their Q warps); the logical thread adds its PT terms in beam order, its
-// warp halves by shuffle-down and lane 0 writes the warp total (warp_buf,
-// one block barrier); lanes 0-9 of every warp add one sum's eight totals
-// in warp order and a shuffle broadcasts the ten.
-template <int PT>
-__device__ __forceinline__ void block_sums(
-    const int8_t* __restrict__ g, int h, int w,
-    const Beams<Shape<PT>::S>& bm, int b, const Hits<Shape<PT>::S>& hit,
-    const gn::Consts& k, int robust, const float* root, float* xbuf,
-    float (*warp_buf)[kSums], float sm[kSums]) {
-  using Sh = Shape<PT>;
-  const int q = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
-  int8_t cv[Sh::S][4];
-#pragma unroll
-  for (int j = 0; j < Sh::S; ++j) {
-    if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
-    const int64_t y0 = gn::clampi(hit.ly[j], 0, h - 1);
-    const int64_t y1 = gn::clampi(hit.ly[j] + 1, 0, h - 1);
-    const int64_t x0 = gn::clampi(hit.lx[j], 0, w - 1);
-    const int64_t x1 = gn::clampi(hit.lx[j] + 1, 0, w - 1);
-    cv[j][0] = g[y0 * w + x0];
-    cv[j][1] = g[y0 * w + x1];
-    cv[j][2] = g[y1 * w + x0];
-    cv[j][3] = g[y1 * w + x1];
-  }
-  // terms[j] = 0 + term: adding that in place of the term gives the same
-  // sums (a running sum that starts at +0 is never -0)
-  float terms[Sh::S][kSums];
-#pragma unroll
-  for (int j = 0; j < Sh::S; ++j) {
-#pragma unroll
-    for (int i = 0; i < kSums; ++i) terms[j][i] = 0.0f;
-    if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
-    const int lx = hit.lx[j], ly = hit.ly[j];
-    const bool inx0 = lx >= 0 && lx < w, inx1 = lx + 1 >= 0 && lx + 1 < w;
-    const bool iny0 = ly >= 0 && ly < h, iny1 = ly + 1 >= 0 && ly + 1 < h;
-    const float v00 = inx0 && iny0 ? root[(uint8_t)cv[j][0]] : k.max_dist;
-    const float v10 = inx1 && iny0 ? root[(uint8_t)cv[j][1]] : k.max_dist;
-    const float v01 = inx0 && iny1 ? root[(uint8_t)cv[j][2]] : k.max_dist;
-    const float v11 = inx1 && iny1 ? root[(uint8_t)cv[j][3]] : k.max_dist;
-    gn::add_values(v00, v10, v01, v11, hit.mux[j], hit.muy[j], hit.hx[j],
-                   hit.hy[j], bm.fm[j], k, robust, terms[j]);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = lt >> 5;
-  if constexpr (Sh::Q > 1) {
-    if (q != 0) {
-#pragma unroll
-      for (int j = 0; j < Sh::S; ++j) {
-        const int m = q + Sh::Q * j;
-        if (!has_beam<PT>(m, lt, b)) continue;
-        float* x = xbuf + xslot<Sh::Q>(m) * kSums * kThreads + lt;
-#pragma unroll
-        for (int i = 0; i < kSums; ++i) x[i * kThreads] = terms[j][i];
-      }
-    }
-    // the Q warps of logical warp `warp`: warp + 8 q
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + warp), "r"(32 * Sh::Q)
-                 : "memory");
-  }
-  if (q == 0) {
-    float acc[kSums];
-#pragma unroll
-    for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
-#pragma unroll
-    for (int m = 0; m < PT; ++m) {
-      if (!has_beam<PT>(m, lt, b)) continue;
-      if (m % Sh::Q == 0) {
-#pragma unroll
-        for (int i = 0; i < kSums; ++i) acc[i] += terms[m / Sh::Q][i];
-      } else {
-        const float* x = xbuf + xslot<Sh::Q>(m) * kSums * kThreads + lt;
-#pragma unroll
-        for (int i = 0; i < kSums; ++i) acc[i] += x[i * kThreads];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kSums; ++i) {
-      float v = acc[i];
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      }
-      acc[i] = v;
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < kSums; ++i) warp_buf[warp][i] = acc[i];
-    }
-  }
-  __syncthreads();
-  float t = 0.0f;
-  if (lane < kSums) {
-    t = warp_buf[0][lane];
-    for (int j = 1; j < kWarps; ++j) t += warp_buf[j][lane];
-  }
-#pragma unroll
-  for (int i = 0; i < kSums; ++i) sm[i] = __shfl_sync(0xffffffffu, t, i);
-}
-
 // The whole IRLS solve of particle blockIdx.x by Shape<PT>::NT threads.
 // Dynamic shared memory: the exchange buffer (kXBytes), then, kStaged, the
 // window (h * w + 16 bytes).
@@ -322,13 +182,9 @@ __global__ void __launch_bounds__(Shape<PT>::NT)
   // block barrier per evaluation suffices (a warp can be at most one
   // evaluation ahead of a warp still reading)
   __shared__ float warp_buf[2][kWarps][kSums];
-  // root[v] = sqrtf(v) * res for every int8 v: a corner's distance, the
-  // same float operations as gn_common.cuh's, looked up
   __shared__ float root[256];
   float* xbuf = reinterpret_cast<float*>(dyn);
-  if (threadIdx.x < 256) {
-    root[threadIdx.x] = sqrtf((float)(int8_t)threadIdx.x) * k.res;
-  }
+  gn::fill_root(root, k.res);
   const int p = blockIdx.x;
   const int64_t n = (int64_t)h * w;
   const int8_t* g = grid + p * n;
@@ -377,16 +233,16 @@ __global__ void __launch_bounds__(Shape<PT>::NT)
   // every thread holds the solver's state and takes the same decisions
   float sm[kSums];
   int e = 0;   // evaluations so far: picks warp_buf's buffer
-  block_sums<PT>(gw, h, w, bm, b, hit, k, k.robust, root, xbuf,
-                 warp_buf[e++ & 1], sm);
+  gn::block_sums<PT>(gw, h, w, bm, b, hit, k, k.robust, root, xbuf,
+                     warp_buf[e++ & 1], sm);
   int it = 0;
   while (it < max_iter) {
     float cand[4];
     if (!gn_step(sm, st, k, cand)) break;   // converged: it unchanged
     float cs[kSums];
     locate<PT>(bm, b, cand, k, org_x, org_y, hit);
-    block_sums<PT>(gw, h, w, bm, b, hit, k, k.robust, root, xbuf,
-                   warp_buf[e++ & 1], cs);
+    gn::block_sums<PT>(gw, h, w, bm, b, hit, k, k.robust, root, xbuf,
+                       warp_buf[e++ & 1], cs);
     it += 1;
     if (!(sm[9] - cs[9] > 0.0f)) break;     // invalid step: revert, stop
 #pragma unroll
@@ -399,8 +255,8 @@ __global__ void __launch_bounds__(Shape<PT>::NT)
   if (want_lik) {
     float ls[kSums];
     locate<PT>(bm, b, st, k, org_x, org_y, hit);
-    block_sums<PT>(gw, h, w, bm, b, hit, k, 0, root, xbuf, warp_buf[e++ & 1],
-                   ls);
+    gn::block_sums<PT>(gw, h, w, bm, b, hit, k, 0, root, xbuf,
+                       warp_buf[e++ & 1], ls);
     sum_d2 = ls[9];
   }
   if (threadIdx.x == 0) {

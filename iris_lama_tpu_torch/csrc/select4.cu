@@ -4,7 +4,9 @@
 //   out[2, i] = grid[y1, x0]   out[3, i] = grid[y1, x1]
 //
 // with y0 = clip(ly[i], 0, h-1), y1 = clip(ly[i]+1, 0, h-1) and likewise x;
-// int8 [h, w] grid, int32 [b] indices -> int32 [4, b].
+// int8 [h, w] grid, int32 [b] indices read through their element strides
+// (so lx = loc[:, 0] and ly = loc[:, 1] of a [b, 2] tensor are read in
+// place) -> int32 [4, b].
 //
 // Replaces iris_lama_tpu/ops/select4.py:_kernel (:36), driven by
 // _select_batched (:67). The TPU has no fast gather, so the kernel there
@@ -13,9 +15,14 @@
 //
 // Bound on the H100: launch latency. One call moves ~28 bytes per beam
 // (8 of indices, 4 grid bytes, 16 of output: ~21 KB for 768 beams, a few
-// nanoseconds at 3.35 TB/s). Design: a plain gather, one thread per beam and
-// four int8 loads from the grid (488 x 488 = 238 KB, resident in L2 across
-// the IRLS iterations); the four stores are coalesced along the beam axis.
+// nanoseconds at 3.35 TB/s); an empty kernel of the same launch shape
+// takes ~0.8 us, and what is left is two dependent round trips to L2 (the
+// indices, then the grid, 488 x 488 = 238 KB, resident in L2 across the
+// IRLS iterations). Design: a plain gather, one thread per beam and four
+// int8 loads from the grid; the four stores are coalesced along the beam
+// axis. Two variants that shortened the loads — (lx, ly) in one 8-byte
+// load and each row's two corners from one 32-bit word, one beam or four
+// beams a thread — measured no faster (PERF.md, Findings).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -27,13 +34,13 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 __global__ void select4_kernel(const int8_t* __restrict__ grid, int h, int w,
-                               const int32_t* __restrict__ ly,
-                               const int32_t* __restrict__ lx, int b,
-                               int32_t* __restrict__ out) {
+                               const int32_t* __restrict__ ly, int64_t sly,
+                               const int32_t* __restrict__ lx, int64_t slx,
+                               int b, int32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= b) return;
-  const int y = ly[i];
-  const int x = lx[i];
+  const int y = ly[i * sly];
+  const int x = lx[i * slx];
   const int64_t y0 = clampi(y, 0, h - 1), y1 = clampi(y + 1, 0, h - 1);
   const int64_t x0 = clampi(x, 0, w - 1), x1 = clampi(x + 1, 0, w - 1);
   out[i] = grid[y0 * w + x0];
@@ -44,14 +51,16 @@ __global__ void select4_kernel(const int8_t* __restrict__ grid, int h, int w,
 
 }  // namespace
 
+// sly, slx: the indices' element strides.
 extern "C" int select4_sq(const int8_t* grid, int h, int w, const int32_t* ly,
-                          const int32_t* lx, int b, int32_t* out,
-                          void* stream) {
+                          int64_t sly, const int32_t* lx, int64_t slx, int b,
+                          int32_t* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b > 0) {
     const int threads = 256;
     const int blocks = (b + threads - 1) / threads;
-    select4_kernel<<<blocks, threads, 0, s>>>(grid, h, w, ly, lx, b, out);
+    select4_kernel<<<blocks, threads, 0, s>>>(grid, h, w, ly, sly, lx, slx,
+                                              b, out);
   }
   return (int)cudaGetLastError();
 }

@@ -150,12 +150,11 @@ def _solve_window_fused(grid, org_cell, geo, max_dist, points_xy, mask,
         hits = lie.se2_apply(state, points_xy)
         mi, mu = geo.w2m_frac(hits)
         loc = mi - org
+        # the columns pass as views: B5 reads each through its strides
         return match_eval.gn_eval_sq(
-            grid, loc[..., 1].contiguous(), loc[..., 0].contiguous(),
-            mu[..., 0].contiguous(), mu[..., 1].contiguous(),
-            hits[..., 0].contiguous(), hits[..., 1].contiguous(), fm,
-            max_dist=max_dist, res=geo.resolution, scale=geo.scale,
-            cauchy_c=cauchy_c)
+            grid, loc[..., 1], loc[..., 0], mu[..., 0], mu[..., 1],
+            hits[..., 0], hits[..., 1], fm, max_dist=max_dist,
+            res=geo.resolution, scale=geo.scale, cauchy_c=cauchy_c)
 
     # the carry holds the evaluation (the 10 sums) at the current state, so
     # each step runs exactly one fused evaluation — the candidate's

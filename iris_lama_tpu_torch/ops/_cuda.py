@@ -45,13 +45,15 @@ SIGNATURES = {
     "deposit": {"deposit_counts": (_P, _P, _L, _I, _I, _I, _P, _P),
                 "scatter_add_2d": (_P, _P, _P, _L, _I, _I, _P, _P),
                 "scatter_add_sorted": (_P, _L, _I, _I, _P, _P)},
-    "select4": {"select4_sq": (_P, _I, _I, _P, _P, _I, _P, _P)},
+    "select4": {"select4_sq": (_P, _I, _I, _P, _L, _P, _L, _I, _P, _P)},
     "edt": {"edt2d": (_P, _I, _I, _I, _I, _I, _P, _P)},
     "gn_solve": {"gn_solve_batched": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _L,
                                       _F, _F, _F, _F, _I, _F, _F, _I, _I, _I,
                                       _I, _P, _P)},
     "match_eval": {"gn_eval_sq": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _F, _F, _F, _F, _I, _P, _P)},
+                                  _P, _I, _F, _F, _F, _F, _I, _P, _P)},
+    # an empty kernel: the launch floor (timed beside the kernels)
+    "floor": {"launch_floor": (_I, _I, _P)},
 }
 
 _libs: dict = {}
@@ -162,7 +164,17 @@ def stream_handle(device) -> int:
 
 def require(t, name: str, dtype, ndim: int, device) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
-    ``ndim`` dims on ``device`` — what every launcher takes."""
+    ``ndim`` dims on ``device`` — what every launcher takes, unless it reads
+    an operand through its strides (:func:`require_strided`)."""
+    require_strided(t, name, dtype, ndim, device)
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_strided(t, name: str, dtype, ndim: int, device) -> tuple:
+    """Raise unless ``t`` is a CUDA tensor of ``dtype`` and ``ndim`` dims
+    on ``device``, in any layout; return its element strides, for a
+    launcher that reads the operand through them."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device}, "
                          f"got {t.device}")
@@ -170,5 +182,4 @@ def require(t, name: str, dtype, ndim: int, device) -> None:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t.stride()

@@ -19,7 +19,7 @@ one CUDA kernel (``csrc/gn_solve.cu``): one thread block per particle that
 loops over its own iterations, up to four threads sharing each of the 256
 summation lanes of the fixed order (one beam a thread at 768 beams), each
 keeping its beams in registers, and every thread running the scalar step
-on the broadcast sums, with the per-beam arithmetic it shares with B5
+on the broadcast sums; each evaluation is the code it shares with B5
 (``csrc/gn_common.cuh``). A window that fits in shared memory beside the
 exchange buffer (:func:`staged`: the PF's 432 x 432) is copied there
 first; a larger one (Loc2D's 576 x 576) is read from global memory — the

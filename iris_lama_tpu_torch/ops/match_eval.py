@@ -10,9 +10,12 @@ repeat it per evaluation.
 
 The TPU kernel (iris_lama_tpu/ops/match_eval.py:_kernel) selected the
 corners with a one-hot matrix product and reduced in VMEM. On the GPU it is
-one CUDA kernel (``csrc/match_eval.cu``): one block of 256 threads per
-particle, four byte loads per beam, a block reduction in the order of
-:func:`_block_sum`. :func:`gn_eval_sq` launches it for CUDA tensors;
+one CUDA kernel (``csrc/match_eval.cu``) that runs the evaluation of the
+whole-solve kernels B4/B6 (``csrc/gn_common.cuh``): one block of
+``256 * Q`` threads per particle (one beam a thread at 768 beams), the
+sums in the order of :func:`_block_sum`, up to :data:`MAX_BEAMS` beams, each
+beam operand read through its strides (views such as ``loc[..., 1]`` pass
+as they are). :func:`gn_eval_sq` launches it for CUDA tensors;
 :func:`gn_eval_sq_plain` — B2's plain corners, :func:`_eval_math` and the
 block-order sum — is its plain version, bit-equal on the card, and runs
 for CPU tensors.
@@ -20,13 +23,17 @@ for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..sdm.geometry import f32
 from . import _cuda, select4
 
 N_OUT = 10   # a00 a01 a02 a11 a12 a22 g0 g1 g2 chi2
-THREADS, LANES = 256, 32   # csrc/gn_common.cuh: threads per block, warp
+# csrc/gn_common.cuh: summation lanes (logical threads) of a block, warp
+THREADS, LANES = 256, 32
+MAX_BEAMS = 2048   # csrc/gn_common.cuh: 256 lanes x kMaxPT beams
 
 
 def _block_sum(x):
@@ -134,7 +141,8 @@ def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
     ``fm`` the float mask; ``cauchy_c <= 0`` selects unit weights.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (contiguous operands of these dtypes and shapes) or raise.
+    (a contiguous grid, beam operands of these dtypes and shapes in any
+    layout, at most :data:`MAX_BEAMS` beams) or raise.
     """
     kw = dict(max_dist=max_dist, res=res, scale=scale, cauchy_c=cauchy_c)
     if grid.device.type == "cpu":
@@ -144,12 +152,17 @@ def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
     nd = 2 if batched else 1
     _cuda.require(grid, "grid", torch.int8, nd + 1, dev)
     ops = dict(ly=ly, lx=lx, mux=mux, muy=muy, hx=hx, hy=hy, fm=fm)
+    strides = []
     for name, t in ops.items():
         dt = torch.int32 if name in ("ly", "lx") else torch.float32
-        _cuda.require(t, name, dt, nd, dev)
+        st = _cuda.require_strided(t, name, dt, nd, dev)
         if t.shape != ly.shape or (batched and t.shape[0] != grid.shape[0]):
             raise ValueError(f"gn_eval_sq: grid {tuple(grid.shape)}, {name} "
                              f"{tuple(t.shape)}, ly {tuple(ly.shape)}")
+        strides += st if batched else (0, *st)   # (particles, beams)
+    b = ly.shape[-1]
+    if b > MAX_BEAMS:
+        raise ValueError(f"gn_eval_sq: {b} beams, at most {MAX_BEAMS}")
     p = grid.shape[0] if batched else 1
     h, w = grid.shape[-2:]
     robust = float(cauchy_c) > 0.0
@@ -158,8 +171,9 @@ def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
     lib = _cuda.library("match_eval")
     _cuda.check(lib.gn_eval_sq(
         grid.data_ptr(), p, h, w, *(t.data_ptr() for t in ops.values()),
-        ly.shape[-1], f32(max_dist), f32(res), f32(scale), cinv, int(robust),
-        out.data_ptr(), _cuda.stream_handle(dev)), "gn_eval_sq")
+        (ctypes.c_int64 * len(strides))(*strides), b, f32(max_dist),
+        f32(res), f32(scale), cinv, int(robust), out.data_ptr(),
+        _cuda.stream_handle(dev)), "gn_eval_sq")
     gn_eval_sq.launches += 1
     return out if batched else out[0]
 

@@ -100,8 +100,8 @@ def _interp_window_sq(grid, org_cell, geo: MapGeometry, world_xy, max_dist):
     mi, mu = geo.w2m_frac(world_xy)                  # int cell (x, y), frac
     loc = mi - org_cell.to(torch.int32)              # [..., 2] (lx, ly)
     h, w = grid.shape
-    lx = loc[..., 0].contiguous()
-    ly = loc[..., 1].contiguous()
+    lx = loc[..., 0]                                 # views: B2 reads
+    ly = loc[..., 1]                                 # them in place
     v = select4.select4_sq(grid, ly, lx)             # i32[4, B]
     md = f32(max_dist)
     res = f32(geo.resolution)

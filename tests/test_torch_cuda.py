@@ -318,6 +318,116 @@ def test_gn_eval_kernel_matches_plain(cuda, p):
         assert torch.equal(got, match_eval.gn_eval_sq_plain(*args, **kw))
 
 
+def _eval_case(dev, p, b, seed, masked=False):
+    """B5's operands: p int8 windows 431 x 433 (the same bytes also at an
+    odd byte offset), cells up to 3 off the window on every side (beams 0-3
+    on its edges), fractions, hits within 10 m and 90% of the beams kept
+    (none when ``masked``), as the [p, b, 2] cell / fraction / hit tensors
+    of the fused loop. Returns (grids, (loc, mu, hits, fm))."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = 431, 433
+    grid = torch.randint(0, 101, (p, h, w), generator=g, dtype=torch.int8)
+    ly = torch.randint(-3, h + 3, (p, b), generator=g, dtype=torch.int32)
+    lx = torch.randint(-3, w + 3, (p, b), generator=g, dtype=torch.int32)
+    for i, (y, x) in enumerate(((-1, 5), (h - 1, 7), (9, -1), (11, w - 1))):
+        if i < b:
+            ly[:, i], lx[:, i] = y, x
+    loc = torch.stack([lx, ly], -1)
+    mu = torch.rand((p, b, 2), generator=g)
+    hits = (torch.rand((p, b, 2), generator=g) - 0.5) * 20.0
+    fm = torch.zeros((p, b)) if masked else \
+        (torch.rand((p, b), generator=g) < 0.9).float()
+    buf = torch.empty(p * h * w + 1, dtype=torch.int8)
+    buf[1:] = grid.flatten()
+    odd = buf.to(dev)[1:].view(p, h, w)
+    assert odd.data_ptr() % 2 == 1
+    return (grid.to(dev), odd), tuple(t.to(dev) for t in (loc, mu, hits, fm))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("b", [1, 255, 257, 768, 1100, 2048])
+def test_gn_eval_kernel_at_edges(cuda, b, p, masked):
+    """B5 at the edges of its design — 1 to 2048 beams (one to eight a
+    summation lane, shared by up to four threads), one window or three
+    (P = 1 through the unbatched entry point), cells off the window on
+    every side, an all-masked scan — with contiguous operands and with the
+    strided views the fused loop passes, on a grid at an even and at an odd
+    byte offset, unit and Cauchy weights: bit-equal to the plain
+    version."""
+    grids, (loc, mu, hits, fm) = _eval_case(cuda, p, b, b + p, masked)
+    views = (loc[..., 1], loc[..., 0], mu[..., 0], mu[..., 1], hits[..., 0],
+             hits[..., 1], fm)
+    for ops in (views, [v.contiguous() for v in views]):
+        for grid in grids:
+            for cauchy_c in (0.15, 0.0):
+                kw = dict(max_dist=0.5, res=0.05, scale=20.0,
+                          cauchy_c=cauchy_c)
+                args = (grid, *ops) if p > 1 else \
+                    (grid[0], *(t[0] for t in ops))
+                before = match_eval.gn_eval_sq.launches
+                got = match_eval.gn_eval_sq(*args, **kw)
+                assert match_eval.gn_eval_sq.launches == before + 1
+                want = match_eval.gn_eval_sq_plain(*args, **kw)
+                assert torch.equal(got, want), (cauchy_c, got, want)
+                if masked:
+                    assert not got.any()
+
+
+def test_gn_eval_kernel_reads_expanded_operands(cuda):
+    """Operands with a stride of 0 — one mask expanded over the particles,
+    one fraction expanded over the beams — are read as they stand."""
+    grids, (loc, mu, hits, fm) = _eval_case(cuda, 3, 768, 5)
+    mux = mu[:, :1, 0].expand(3, 768)
+    fmx = fm[0].expand(3, 768)
+    assert mux.stride()[1] == 0 and fmx.stride()[0] == 0
+    args = (grids[0], loc[..., 1], loc[..., 0], mux, mu[..., 1],
+            hits[..., 0], hits[..., 1], fmx)
+    kw = dict(max_dist=0.5, res=0.05, scale=20.0, cauchy_c=0.15)
+    got = match_eval.gn_eval_sq(*args, **kw)
+    assert torch.equal(got, match_eval.gn_eval_sq_plain(
+        *(t.contiguous() for t in args), **kw))
+
+
+def test_gn_eval_kernel_refuses_beams(cuda):
+    grids, (loc, mu, hits, fm) = _eval_case(cuda, 1, 2049, 6)
+    with pytest.raises(ValueError):
+        match_eval.gn_eval_sq(grids[0], loc[..., 1], loc[..., 0], mu[..., 0],
+                              mu[..., 1], hits[..., 0], hits[..., 1], fm,
+                              max_dist=0.5, res=0.05, scale=20.0,
+                              cauchy_c=0.15)
+
+
+@pytest.mark.parametrize("w", [488, 489, 490, 491])    # w % 4: 0, 1, 2, 3
+def test_select4_kernel_at_edges(cuda, w):
+    """B2 on grids whose rows end at every offset within a 32-bit word, at
+    byte offsets 0-3, with cells in and around the last column and row,
+    and indices contiguous, as the interleaved columns of a [B, 2] tensor
+    and as columns of a [B, 3] one: bit-equal to the plain version."""
+    g = torch.Generator().manual_seed(w)
+    h, b = 37, 777
+    buf = torch.randint(-128, 128, (h * w + 3,), generator=g,
+                        dtype=torch.int8).to(cuda)
+    ly = torch.randint(-3, h + 3, (b,), generator=g, dtype=torch.int32)
+    lx = torch.randint(-3, w + 3, (b,), generator=g, dtype=torch.int32)
+    edge = torch.tensor([[h - 1, w - 1], [h - 1, w - 2], [h - 2, w - 1],
+                         [h, w], [-1, w - 1], [h - 1, -1], [0, 0],
+                         [h - 1, w - 3], [h - 1, w - 4]], dtype=torch.int32)
+    ly[:len(edge)], lx[:len(edge)] = edge[:, 0], edge[:, 1]
+    pair = torch.stack([lx, ly], -1).to(cuda)
+    wide = torch.stack([ly, ly, lx], -1).to(cuda)
+    layouts = ((ly.to(cuda), lx.to(cuda)), (pair[:, 1], pair[:, 0]),
+               (wide[:, 0], wide[:, 2]))
+    for off in range(4):
+        grid = buf[off:off + h * w].view(h, w)
+        for iy, ix in layouts:
+            before = select4.select4_sq.launches
+            got = select4.select4_sq(grid, iy, ix)
+            assert select4.select4_sq.launches == before + 1
+            want = select4.select4_sq_plain(grid, iy, ix)
+            assert torch.equal(got, want), (off, iy.stride())
+
+
 def test_value_scatters_match_plain(cuda):
     """B7 and B8 on ~21 k elements into [448, 512], with duplicates."""
     g = torch.Generator(device=cuda).manual_seed(10)

@@ -7,8 +7,9 @@
   reduced in another order (the kernel's block order against the
   interpreter's), so they agree to a few ulp.
 * B5 (``ops/match_eval.py``): the plain version against the JAX fused
-  evaluation in interpret mode (rtol 1e-5), and the fused solve loop
-  against the JAX one.
+  evaluation in interpret mode (rtol 1e-5; at 1-2048 beams with cells off
+  the window on every side also atol 1e-6 per beam), an all-masked scan,
+  strided operand views, and the fused solve loop against the JAX one.
 * B7 and B8: bit-exact against the interpret-mode ``pallas_call``s.
 * The pool-side reads (``active_keys``, ``cell_distance``,
   ``interp_pool``, the simple occupancy map, ``map_bounds``), the float
@@ -216,6 +217,93 @@ def test_gn_eval_plain_matches_jax_kernel(case):
     # the unbatched entry point gives particle 0's row
     one = tme.gn_eval_sq(targs[0][0], *(t[0] for t in targs[1:]), **kw)
     np.testing.assert_array_equal(one.numpy(), got[0].numpy())
+
+
+def _eval_operands(rng, p, b, masked=False):
+    """B5's operands drawn directly on a 40 x 52 window (cap 25): cells
+    up to 3 off the window, beams 0-3 off its top, bottom, left and right
+    edge, fractions in [0, 1), hits within 5 m, 90% of the beams kept (none
+    when ``masked``)."""
+    h, w = 40, 52
+    grid = rng.integers(0, 26, (p, h, w)).astype(np.int8)
+    ly = rng.integers(-3, h + 3, (p, b)).astype(np.int32)
+    lx = rng.integers(-3, w + 3, (p, b)).astype(np.int32)
+    for i, (y, x) in enumerate(((-1, 5), (h - 1, 7), (9, -1), (11, w - 1))):
+        if i < b:
+            ly[:, i], lx[:, i] = y, x
+    mux, muy = (rng.uniform(size=(p, b)).astype(np.float32)
+                for _ in range(2))
+    hx, hy = (rng.uniform(-5, 5, (p, b)).astype(np.float32)
+              for _ in range(2))
+    keep = np.zeros((p, b), bool) if masked else rng.uniform(size=(p, b)) < 0.9
+    return grid, ly, lx, mux, muy, hx, hy, keep.astype(np.float32)
+
+
+def _jax_eval(args, kw):
+    """The JAX fused evaluation in interpret mode: [10] for one particle,
+    [P, 10] (vmapped) for P."""
+    jargs = [jnp.asarray(a) for a in args]
+    if args[0].ndim == 2:
+        return np.asarray(jme.gn_eval_sq(*jargs, **kw, impl="interpret"))
+    return np.asarray(jax.vmap(lambda *a: jme.gn_eval_sq(
+        *a, **kw, impl="interpret"))(*jargs))
+
+
+@pytest.mark.parametrize("weights", ["cauchy", "unit"])
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("b", [1, 255, 257, 1100, 2048])
+def test_gn_eval_plain_matches_jax_at_edges(b, p, weights):
+    """B5's plain version at the edges of the kernel's design — 1 to 2048
+    beams (one to eight a summation lane), one window or three, unit and
+    Cauchy weights, cells off the window on every side — against the JAX
+    fused evaluation in interpret mode: rtol 1e-5, plus atol 1e-6 times
+    the beam count (the ten sums are reduced in another order, and a sum
+    whose terms cancel keeps the absolute error of its parts)."""
+    args = _eval_operands(np.random.default_rng(b + p), p, b)
+    if p == 1:
+        args = tuple(a[0] for a in args)
+    kw = dict(max_dist=MAXD, res=RES, scale=JGEO.scale,
+              cauchy_c=0.15 if weights == "cauchy" else 0.0)
+    want = _jax_eval(args, kw)
+    got = tme.gn_eval_sq(*(T(a) for a in args), **kw)
+    assert got.shape == want.shape == ((tme.N_OUT,) if p == 1
+                                       else (p, tme.N_OUT))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * b)
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_gn_eval_plain_all_masked_scan(p):
+    """An all-masked scan: every sum is zero, in both packages."""
+    args = _eval_operands(np.random.default_rng(11), p, 300, masked=True)
+    if p == 1:
+        args = tuple(a[0] for a in args)
+    kw = dict(max_dist=MAXD, res=RES, scale=JGEO.scale, cauchy_c=0.15)
+    got = tme.gn_eval_sq(*(T(a) for a in args), **kw).numpy()
+    np.testing.assert_array_equal(got, np.zeros_like(got))
+    np.testing.assert_array_equal(_jax_eval(args, kw), got)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_gn_eval_takes_strided_views(batched):
+    """The operands as the fused loop passes them — the columns of [.., 2]
+    cell, fraction and hit tensors — and a mask expanded over the
+    particles (stride 0) give what the contiguous operands give."""
+    p, b = 3, 300
+    grid, ly, lx, mux, muy, hx, hy, fm = (T(a) for a in _eval_operands(
+        np.random.default_rng(12), p, b))
+    fm = fm[0]
+    loc, mu, hits = (torch.stack(c, -1) for c in ((lx, ly), (mux, muy),
+                                                  (hx, hy)))
+    views = (loc[..., 1], loc[..., 0], mu[..., 0], mu[..., 1], hits[..., 0],
+             hits[..., 1], fm.expand(p, b))
+    assert not any(v.is_contiguous() for v in views)
+    dense = [v.contiguous() for v in views]
+    if not batched:
+        grid, views, dense = grid[0], [v[0] for v in views], \
+            [v[0] for v in dense]
+    kw = dict(max_dist=MAXD, res=RES, scale=JGEO.scale, cauchy_c=0.15)
+    assert torch.equal(tme.gn_eval_sq(grid, *views, **kw),
+                       tme.gn_eval_sq(grid, *dense, **kw))
 
 
 def test_fused_solve_matches_jax_fused():

@@ -316,6 +316,30 @@ def test_select4_bit_exact(impl, dtype):
     np.testing.assert_array_equal(N(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("layout", ["pair_columns", "wide_columns"])
+def test_select4_takes_strided_views(layout):
+    """Indices as the callers pass them — the columns of a [B, 2] cell
+    tensor (lx, ly), or of a wider one — give what contiguous indices give,
+    and what the JAX kernel gives."""
+    rng = np.random.default_rng(4)
+    h, w = 37, 51
+    grid = T(rng.integers(0, 101, (h, w)).astype(np.int8))
+    ly = rng.integers(-3, h + 3, 300).astype(np.int32)
+    lx = rng.integers(-3, w + 3, 300).astype(np.int32)
+    if layout == "pair_columns":
+        loc = T(np.stack([lx, ly], -1))
+        vy, vx = loc[:, 1], loc[:, 0]
+    else:
+        loc = T(np.stack([ly, ly, lx], -1))
+        vy, vx = loc[:, 0], loc[:, 2]
+    assert not vy.is_contiguous() and not vx.is_contiguous()
+    got = ts4.select4_sq(grid, vy, vx)
+    assert torch.equal(got, ts4.select4_sq(grid, T(ly), T(lx)))
+    want = js4.select4_sq(jnp.asarray(N(grid)), jnp.asarray(ly),
+                          jnp.asarray(lx), impl="interpret")
+    np.testing.assert_array_equal(N(got), np.asarray(want))
+
+
 # ---------------------------------------------------------------------------
 # B3: EDT
 # ---------------------------------------------------------------------------
