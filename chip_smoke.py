@@ -12,7 +12,11 @@ Phases, one JSON line each:
    each kernel's registers, shared memory and spills (ptxas -v);
 3. kernels — each kernel against its plain PyTorch version at the main
    path's shapes (bit-equal required; B3 also at shapes that are no
-   multiple of its tile, radii 1, 5, 10), with its device time per call
+   multiple of its tile, radii 1, 5, 10, and its large-radius kernel at R =
+   65, 100 and 254; B1 on the scan's beam-ordered free-space stream, timed
+   there, shuffled and with sentinels, alone and as the map update's pair
+   with the hits; B2 also at uint8, int16 and int32), with its device time
+   per call
    (torch.profiler) beside the plain version's, a one-call PyTorch
    yardstick's and the bytes/ops bound; beside them the CUDA-event time
    per call of back-to-back calls (host enqueue included): ``kernel_ms``,
@@ -24,15 +28,18 @@ Phases, one JSON line each:
    SimConfig(n_steps=440, seed=3), 720 beams, 5 cm cells) replayed through
    Slam2D.update_many_prepadded from device-staged scans, with every
    kernel's launch count set to 0 just before and read just after:
-   scans/s, ATE (< 12 mm), re-orgs, zero escapes, launches > 0;
+   scans/s, ATE (< 12 mm), re-orgs, zero escapes, launches > 0 (the
+   deposit through the pair);
 6. pf_kernel — the particle filter's kernels at the bench_pf.py shapes (30
    particles, 720 beams padded to 768, 5 cm cells) on a real particle set:
-   the batched Gauss-Newton solve B6, the batched deposit and the batched
-   EDT, each bit-equal to its plain version, with times and bounds as in
-   phase 3; B6 also at 1, 255, 257 and 1100 beams, on the largest window
-   it stages in shared memory and on windows at odd byte offsets, max_iter
-   0, 1 and 50, with and without the likelihood; the batched EDT also at
-   P = 3, on border-only masks and at ragged shapes;
+   the batched Gauss-Newton solve B6 (also at uint8, int16 and int32 on
+   the same windows), the batched deposit and pair and the batched EDT,
+   each bit-equal to its plain version, with times and bounds as in phase
+   3; B6 also at 1, 255, 257, 1100, 2049, 3000 and 4096 beams, on the
+   largest window it stages in shared memory and on windows at odd byte
+   offsets, at every width, max_iter 0, 1 and 50, with and without the
+   likelihood; the batched EDT also at P = 3, on border-only masks and at
+   ragged shapes;
 7. pf_prefix — the first 24 PFSlam2D updates of that workload on the CPU
    (plain versions) and on the card (kernels), one seed, through the run's
    first band scroll: the same resample indices, best particle, scrolls
@@ -51,19 +58,20 @@ Phases, one JSON line each:
 9. loc_kernel — Loc2D's kernels at the bench_loc.py shapes (720 beams
    padded to 768, 5 cm cells, 576 x 576 match windows of the bench map):
    the whole solve B4 at one particle and at eight with a scan each (and
-   at 255, 257 and 2048 beams, on windows read from global memory and staged in
-   shared memory, max_iter 0, 1 and 50, with and without the likelihood), the
-   fused evaluation B5 and the corner selection B2 on the scan's cells at
-   a real pose (operands as the fused loop passes them: strided views), and
-   the value scatters B7 / B8 on a Slam2D deposit stream into [448, 512],
-   each bit-equal to its plain version, with times and bounds as in phase 3
-   and, for B2 and B5, the launch floor (an empty kernel of the same launch
-   shape, csrc/floor.cu); B5 also at 1, 255, 257, 1100 and 2048 beams, P = 1
-   and 3, cells off the window on every side, an all-masked scan, strided
-   and contiguous operands, a grid at an odd byte offset and operands
-   expanded with a stride of 0 (and 2049 beams refused); B2 on grids of
-   every width modulo 4 at byte offsets 0-3 with the last column and row,
-   indices contiguous and strided;
+   at 255, 257, 2048, 2049 and 4096 beams, on windows read from global
+   memory and staged in shared memory, at every width, max_iter 0, 1 and
+   50, with and without the likelihood), the fused evaluation B5 and the
+   corner selection B2 on the scan's cells at a real pose (operands as the
+   fused loop passes them: strided views), B4 and B5 also at uint8, int16
+   and int32, and the value scatters B7 / B8 on a Slam2D deposit stream
+   into [448, 512], each bit-equal to its plain version, with times and
+   bounds as in phase 3 and, for B2 and B5, the launch floor (an empty
+   kernel of the same launch shape, csrc/floor.cu); B5 also at 1, 255,
+   257, 1100, 2048, 2049, 3000 and 4096 beams, P = 1 and 3, cells off the
+   window on every side, an all-masked scan, strided and contiguous
+   operands, a grid at an odd byte offset and operands expanded with a
+   stride of 0; B2 on grids of every width modulo 4 at byte offsets 0-3
+   with the last column and row, indices contiguous and strided;
 10. loc_prefix — the first 60 Loc2D updates of that workload on the CPU
    (plain versions) and on the card (kernels) in the "solve" and "fused"
    match modes, on one map built on the card and carried to the CPU as
@@ -73,13 +81,21 @@ Phases, one JSON line each:
 11. loc_main_path — the bench_loc.py workload (SimConfig(n_steps=200,
    seed=7, laps=1), its Loc2DOptions, the map built by Slam2D over the log)
    in each match mode (generic, sq, solve, fused) through
-   Loc2D.update_many_prepadded from device-staged scans: 3 reps of 3 fresh
-   passes after a warm-up pass, launch counts set to 0 just before and read
+   Loc2D.update_many_prepadded from device-staged scans: 3 reps of one
+   fresh pass (bench_loc.py runs 3; cut to keep the run's time) after a
+   warm-up pass, launch counts set to 0 just before and read
    just after: updates/s (median rep), mean error (< 1 cm), launches and
    host reads per update, peak memory, and the device activities per update
-   of one more (profiled) pass; then one pass of the live
-   Loc2D.update API, the time of one global-localisation round and of the
-   covariance (loc_extra).
+   of the first 41 scans of one more (profiled) pass; then one pass of the
+   live Loc2D.update API, the time of one global-localisation round and of the
+   covariance (loc_extra);
+12. fine_slam2d, fine_pf — Slam2D at 4 cm cells (uint8 windows) and 3 cm
+   (int16) over the first 40 scans of the phase 5 workload, and PFSlam2D
+   at 4 cm over the first 6 updates of the phase 8 workload, on the CPU
+   and on the card, launch counts set to 0 just before the card's run and
+   read just after: the same accepted scans, resample decisions and best
+   particle, poses within 1 mm / 1e-3 rad, and B2 (Slam2D) or B6 (PF)
+   launched at that width.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -87,6 +103,7 @@ the package beside this script, it exits non-zero before printing a
 result.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -104,9 +121,21 @@ PF_SCROLL_SCAN = 22            # the bench_pf.py run's first re-org: a scroll
 PF_ERR_BOUND_M = 0.05          # bench_pf.py:109
 LOC_PREFIX = 60                # Loc2D updates compared CPU vs card
 LOC_ERR_BOUND_M = 0.01         # bench_loc.py:127
+LOC_PASSES = 1                 # Loc2D passes a rep (bench_loc.py: 3)
+LOC_PROFILED = 41              # Loc2D scans of the profiled pass
+WIDTHS = ("uint8", "int16", "int32")   # squared-distance widths past int8
+FINE_SCANS = 40                # Slam2D scans at 4 and 3 cm, CPU vs card
+FINE_PF = 6                    # PF updates at 4 cm, CPU vs card
+
+
+_START = []   # main()'s start on the host clock
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase line also gets the seconds since the
+    run started (``elapsed_s``)."""
+    if "phase" in obj and _START:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -203,12 +232,13 @@ def edt_edges(torch, dev, leads) -> int:
     return n
 
 
-def solve_case(torch, dev, p: int, hw: tuple, b: int, per_particle: bool):
-    """Whole-solve inputs: p s8 squared-distance windows [h, w] (each side
-    at least 401) of one wall layout shifted per particle, b beams on the
-    walls (10% masked out), one scan per particle or one shared, start
-    states up to ~0.2 m / 0.1 rad off; and the solve's keywords at 5 cm
-    cells."""
+def solve_case(torch, dev, p: int, hw: tuple, b: int, per_particle: bool,
+               width: str = "int8"):
+    """Whole-solve inputs: p squared-distance windows [h, w] (each side at
+    least 401; int8 values stored as ``width``) of one wall layout shifted
+    per particle, b beams on the walls (10% masked out), one scan per
+    particle or one shared, start states up to ~0.2 m / 0.1 rad off; and
+    the solve's keywords at 5 cm cells."""
     from iris_lama_tpu_torch.ops import edt_pallas
     g = torch.Generator().manual_seed(b + p)
     obst = torch.zeros(hw, dtype=torch.bool)
@@ -219,7 +249,7 @@ def solve_case(torch, dev, p: int, hw: tuple, b: int, per_particle: bool):
          torch.randint(40, 400, (40,), generator=g)] = True
     sq = edt_pallas.edt2d_plain(obst, 100, 10).to(torch.int8)
     grids = torch.stack([torch.roll(sq, (q % 3, q % 5), (0, 1))
-                         for q in range(p)])
+                         for q in range(p)]).to(getattr(torch, width))
     ys, xs = torch.nonzero(obst, as_tuple=True)
     lead = (p,) if per_particle else ()
     k = torch.randint(0, len(ys), (*lead, b), generator=g)
@@ -238,12 +268,13 @@ def solve_case(torch, dev, p: int, hw: tuple, b: int, per_particle: bool):
 def solve_edges(torch, dev, mod, cases) -> int:
     """The whole solve (``mod``: ops.gn_batch, one shared scan, or
     ops.gn_solve, a scan per particle) against its plain version on each
-    (p, (h, w), b) of ``cases`` at max_iter 0, 1 and 50, with and without
-    the likelihood (bit-equal required). Returns the count of cases."""
+    (p, (h, w), b[, width]) of ``cases`` at max_iter 0, 1 and 50, with and
+    without the likelihood (bit-equal required). Returns the count of
+    cases."""
     n = 0
-    for p, hw, b in cases:
+    for p, hw, b, *width in cases:
         args, kw = solve_case(torch, dev, p, hw, b,
-                              mod.__name__.endswith("gn_solve"))
+                              mod.__name__.endswith("gn_solve"), *width)
         for max_iter in (0, 1, 50):
             for want_lik in (False, True):
                 got = mod.solve_window_sq(*args, **kw, max_iter=max_iter,
@@ -259,6 +290,63 @@ def solve_edges(torch, dev, mod, cases) -> int:
                         f"max_iter {max_iter}, want_lik {want_lik}"
                 n += 1
     return n
+
+
+def widened(torch, grid, width: str):
+    """An int8 squared-distance grid as ``width``: the same values."""
+    return grid.to(getattr(torch, width)).contiguous()
+
+
+def width_grid(torch, grid, width: str, seed: int):
+    """A grid of ``grid``'s shape over ``width``'s non-negative range (the
+    squared distances a window of that width can hold)."""
+    g = torch.Generator().manual_seed(seed)
+    hi = torch.iinfo(getattr(torch, width)).max
+    return torch.randint(0, hi, tuple(grid.shape), generator=g,
+                         dtype=torch.int64).to(getattr(torch, width)).to(
+                             grid.device)
+
+
+def memset_floor_ms(torch, dev, nbytes: int, blocks: int,
+                    threads: int) -> float:
+    """Device ms of the cudaMemsetAsync of ``nbytes`` and an empty kernel
+    of ``blocks`` x ``threads`` (csrc/floor.cu): the floor of the deposit's
+    zero-then-scatter pair of launches."""
+    from iris_lama_tpu_torch.ops import _cuda
+    lib = _cuda.library("floor")
+    stream = _cuda.stream_handle(dev)
+    buf = torch.empty(nbytes // 4, dtype=torch.int32, device=dev)
+
+    def fn():
+        _cuda.check(lib.memset_floor(buf.data_ptr(), nbytes, blocks, threads,
+                                     stream), "memset_floor")
+
+    return device_ms(torch, fn, 1000)[0]
+
+
+def deposit_library(torch, dev, streams, p: int, h: int, w: int):
+    """One PyTorch call computing a deposit: ``index_put_(accumulate=True)``
+    of ones into a zeroed buffer with one bin per cell of each output grid
+    and one dropped bin per grid. ``streams``: (ly, lx, grids) with ly, lx
+    [p, n] and grids the output grids (0: occ/counts, 1: vis) they add
+    to."""
+    hw1 = h * w + 1
+    n_grids = max(g for *_, gs in streams for g in gs) + 1
+    parts = []
+    for ly, lx, gs in streams:
+        ok = (ly >= 0) & (ly < h) & (lx >= 0) & (lx < w)
+        cell = torch.where(ok, ly.long() * w + lx.long(), h * w)
+        for g in gs:
+            base = (torch.arange(p, device=dev)[:, None] * n_grids + g) * hw1
+            parts.append((cell.reshape(p, -1) + base).reshape(-1))
+    flat = torch.cat(parts)
+    ones = torch.ones(flat.numel(), dtype=torch.int32, device=dev)
+
+    def call():
+        torch.zeros(p * n_grids * hw1, dtype=torch.int32,
+                    device=dev).index_put_((flat,), ones, accumulate=True)
+
+    return call
 
 
 def launch_floor_ms(torch, dev, blocks: int, threads: int) -> float:
@@ -315,14 +403,15 @@ def eval_case(torch, dev, p: int, b: int, seed: int, masked=False):
 
 def eval_edges(torch, dev) -> int:
     """B5 against its plain version at the edges of its design (bit-equal
-    required): 1, 255, 257, 1100 and 2048 beams, P = 1 (the unbatched entry
-    point) and 3, unit and Cauchy weights, cells off the window on every
-    side, an all-masked scan, the fused loop's strided views and contiguous
-    copies, a grid at an odd byte offset, operands expanded with a stride of
-    0; and 2049 beams refused. Returns the count of cases."""
+    required): 1, 255, 257, 1100 and 2048 beams (held in registers) and
+    2049, 3000 and 4096 (the further beams read again), P = 1 (the
+    unbatched entry point) and 3, unit and Cauchy weights, cells off the
+    window on every side, an all-masked scan, the fused loop's strided
+    views and contiguous copies, a grid at an odd byte offset, operands
+    expanded with a stride of 0. Returns the count of cases."""
     from iris_lama_tpu_torch.ops import match_eval
     n = 0
-    for b in (1, 255, 257, 1100, 2048):
+    for b in (1, 255, 257, 1100, 2048, 2049, 3000, 4096):
         for p in (1, 3):
             for masked in ((False, True) if b == 257 else (False,)):
                 grids, views = eval_case(torch, dev, p, b, b + p, masked)
@@ -350,14 +439,7 @@ def eval_edges(torch, dev) -> int:
                                        *(t.contiguous() for t in ops), **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want), "B5 on expanded operands"
-    grids, views = eval_case(torch, dev, 1, 2049, 6)
-    try:
-        match_eval.gn_eval_sq(grids[0][0], *(t[0] for t in views), **kw)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("B5 took 2049 beams")
-    return n + 2
+    return n + 1
 
 
 def select4_edges(torch, dev) -> int:
@@ -407,6 +489,7 @@ def device_launches(torch, fn) -> int:
                if str(e.device_type).endswith("CUDA"))
 
 
+@functools.lru_cache(maxsize=None)
 def slam_workload():
     """bench.py's Slam2D workload: (data, options, scans padded to 768)."""
     from iris_lama_tpu_torch.algos.slam2d import Slam2DOptions
@@ -447,6 +530,7 @@ def slam_pass(torch, dev, data, opts, staged, p: int) -> dict:
             "scrolls": slam.n_scrolls, "escaped": slam.escaped_count()}
 
 
+@functools.lru_cache(maxsize=None)
 def pf_workload():
     """bench_pf.py's PFSlam2D workload: (data, options, scans padded to
     768)."""
@@ -549,7 +633,7 @@ def pf_phases(torch, dev) -> list:
     from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
     from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, gn_solve
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch, gn_solve
     from iris_lama_tpu_torch.ops import scatter_matmul
     from iris_lama_tpu_torch.sdm import mapping
 
@@ -584,7 +668,10 @@ def pf_phases(torch, dev) -> list:
     # exchange buffer, windows at odd byte offsets
     b6_edges = solve_edges(torch, dev, gn_batch, (
         (3, (432, 432), 1), (3, (432, 432), 255), (4, (432, 432), 257),
-        (2, (458, 459), 768), (5, (431, 433), 768), (2, (432, 432), 1100)))
+        (2, (458, 459), 768), (5, (431, 433), 768), (2, (432, 432), 1100),
+        (2, (432, 432), 2049), (2, (576, 576), 3000, "int16"),
+        (2, (432, 432), 4096, "uint8"), (3, (458, 459), 768, "uint8"),
+        (2, (432, 432), 768, "int32")))
     # bytes: every grid once, the scan, the starts and the rows; operations:
     # ~60 per beam and evaluation, over this run's evaluations (the start,
     # each iteration's candidate, the likelihood)
@@ -609,6 +696,38 @@ def pf_phases(torch, dev) -> list:
           "library_call": "none: no single PyTorch call computes an IRLS "
                           "solve",
           "bound_ms": b6_bound[0], "bound_by": b6_bound[1]}
+    # B6's other widths on the same windows (an exact widening: the int8
+    # kernel's results); int16 and int32 windows of 432 x 432 no longer fit
+    # in shared memory and are read from global memory
+    b6_widths = []
+    for width in WIDTHS:
+        args_w = (widened(torch, grids, width), *b6_args[1:])
+        got_w = gn_batch.solve_window_sq(*args_w, **b6_kw)
+        want_w = gn_batch.solve_window_sq_plain(*args_w, **b6_kw)
+        torch.cuda.synchronize()
+        for name, a, w_, i8 in zip(("state", "iterations", "chi2", "sum_d2"),
+                                   got_w, want_w, got):
+            assert torch.equal(a, w_) and torch.equal(a, i8), \
+                f"B6 {width} {name} differs"
+        bd = bound(args_w[0].numel() * args_w[0].element_size()
+                   + n_p * (8 + 16 + 32) + b * 9, 60 * b * evals)
+        b6_widths.append({
+            "name": f"gn_batch_solve_{width}", "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
+            "replaces": "iris_lama_tpu/ops/gn_batch.py:108",
+            "shape": [n_p, grids.shape[1], grids.shape[2], b],
+            "dtype": width,
+            "variant": "shared" if gn_solve.staged(
+                *grids.shape[1:], b, args_w[0].element_size()) else "global",
+            "max_abs_err": 0.0,
+            **timings(torch, "", lambda: gn_batch.solve_window_sq(
+                *args_w, **b6_kw), 50),
+            **timings(torch, "plain_", lambda: gn_batch.solve_window_sq_plain(
+                *args_w, **b6_kw), 3),
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes an IRLS "
+                            "solve",
+            "bound_ms": bd[0], "bound_by": bd[1]})
 
     # the map phase's streams and masks for every particle (the exact-update
     # sub-window at each particle's pose)
@@ -630,30 +749,57 @@ def pf_phases(torch, dev) -> list:
         torch.cuda.synchronize()
         b1_err = max(b1_err, int((g1 - w1).abs().max()))
         assert torch.equal(g1, w1), f"B1 batched {name}: differs"
-    ly, lx = cases["shuffled"]
-    ok = (ly >= 0) & (ly < wu) & (lx >= 0) & (lx < wu)
-    plane = torch.arange(n_p, device=dev)[:, None] * (wu * wu + 1)
-    flat = (torch.where(ok, ly.long() * wu + lx.long(), wu * wu)
-            + plane).reshape(-1)
-    ones = torch.ones(flat.numel(), dtype=torch.int32, device=dev)
-
-    def b1_library():
-        torch.zeros(n_p * (wu * wu + 1), dtype=torch.int32,
-                    device=dev).index_put_((flat,), ones, accumulate=True)
-
+    ly, lx = cases["beam_ordered"]
     b1_bound = bound(n_p * (n_dep * 8 + wu * wu * 4), n_p * n_dep)
     b1b = {"name": "deposit_counts_batched", "route": "cuda",
            "source": "iris_lama_tpu_torch/csrc/deposit.cu",
            "replaces": "iris_lama_tpu/ops/scatter_matmul.py:228",
-           "shape": [n_p, n_dep, wu, wu], "max_abs_err": b1_err,
+           "shape": [n_p, n_dep, wu, wu],
+           "stream": "beam_ordered", "max_abs_err": b1_err,
+           "launch_floor_ms": memset_floor_ms(
+               torch, dev, n_p * wu * wu * 4,
+               scatter_matmul.launch_blocks(n_p, [n_dep]), 256),
            **timings(torch, "", lambda: scatter_matmul.deposit_counts(
                ly, lx, wu, wu), 100),
            **timings(torch, "plain_",
                      lambda: scatter_matmul.deposit_counts_plain(
                          ly, lx, wu, wu), 20),
-           **timings(torch, "library_", b1_library, 10),
+           **timings(torch, "library_", deposit_library(
+               torch, dev, [(ly, lx, (0,))], n_p, wu, wu), 10),
            "library_call": "zeros + index_put_(accumulate=True)",
            "bound_ms": b1_bound[0], "bound_by": b1_bound[1]}
+    hit = (idx.hit_ly, idx.hit_lx)
+    n_hit = hit[0].shape[1]
+    pair_err = 0
+    for name, (fly, flx) in cases.items():
+        got_p = scatter_matmul.deposit_pair(*hit, fly, flx, wu, wu)
+        want_p = scatter_matmul.deposit_pair_plain(*hit, fly, flx, wu, wu)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got_p, want_p):
+            pair_err = max(pair_err, int((g_ - w_).abs().max()))
+            assert torch.equal(g_, w_), f"B1 pair batched {name}: differs"
+    del got_p, want_p
+    pb_bound = bound(n_p * ((n_hit + n_dep) * 8 + 2 * wu * wu * 4),
+                     n_p * (2 * n_hit + n_dep))
+    pair_b = {"name": "deposit_pair_batched", "route": "cuda",
+              "source": "iris_lama_tpu_torch/csrc/deposit.cu",
+              "replaces": "iris_lama_tpu/ops/scatter_matmul.py:228",
+              "shape": [n_p, n_hit, n_dep, wu, wu],
+              "stream": "beam_ordered", "max_abs_err": pair_err,
+              "launch_floor_ms": memset_floor_ms(
+                  torch, dev, 2 * n_p * wu * wu * 4,
+                  scatter_matmul.launch_blocks(n_p, [n_hit, n_dep]), 256),
+              **timings(torch, "", lambda: scatter_matmul.deposit_pair(
+                  *hit, ly, lx, wu, wu), 100),
+              **timings(torch, "plain_",
+                        lambda: scatter_matmul.deposit_pair_plain(
+                            *hit, ly, lx, wu, wu), 20),
+              **timings(torch, "library_", deposit_library(
+                  torch, dev, [(hit[0], hit[1], (0, 1)), (ly, lx, (1,))],
+                  n_p, wu, wu), 10),
+              "library_call": "zeros + index_put_(accumulate=True) over "
+                              "both grids' bins",
+              "bound_ms": pb_bound[0], "bound_by": pb_bound[1]}
 
     r, cap, obst = kin["radius"], kin["cap"], kin["obst"]
     b3_err = 0
@@ -679,7 +825,7 @@ def pf_phases(torch, dev) -> list:
            "library_call": "none: no single PyTorch call computes a capped "
                            "EDT",
            "bound_ms": b3_bound[0], "bound_by": b3_bound[1]}
-    pf_kernels = [b6, b1b, b3b]
+    pf_kernels = [b6, *b6_widths, b1b, pair_b, b3b]
     for kern in pf_kernels:
         emit({"phase": "pf_kernel", **kern})
     del pf, ps, grids, b6_args, cases, idx, obst, kin
@@ -820,11 +966,11 @@ def pf_phases(torch, dev) -> list:
     del cpu_pf, gpu_pf, ctl_pf
 
     # 8. the bench_pf.py workload on the card -------------------------------
-    fns = {"deposit_counts_batched": scatter_matmul.deposit_counts,
+    fns = {"deposit_pair_batched": scatter_matmul.deposit_pair,
+           "deposit_counts_batched": scatter_matmul.deposit_counts,
            "edt2d_batched": edt_pallas.edt2d,
            "gn_batch_solve": gn_batch.solve_window_sq}
-    for fn in fns.values():
-        fn.launches = 0
+    _cuda.reset_launches(*fns.values())
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -844,9 +990,12 @@ def pf_phases(torch, dev) -> list:
         assert p["final_err_m"] < PF_ERR_BOUND_M, \
             f"PF final error {p['final_err_m']:.4f} m"
         assert p["reorgs"] >= 1, "PF: no re-org"
-    assert all(v > 0 for v in launches.values()), f"launches {launches}"
+    # the map update deposits through the pair
+    assert all(launches[n] > 0 for n in ("deposit_pair_batched",
+                                         "edt2d_batched", "gn_batch_solve")
+               ), f"launches {launches}"
     for kern in pf_kernels:
-        kern["launches"] = launches[kern["name"]]
+        kern["launches"] = launches.get(kern["name"], 0)
     return pf_kernels
 
 
@@ -964,7 +1113,9 @@ def loc_phases(torch, dev) -> list:
     # row beyond the largest staged at 768 beams) and staged (432 x 432)
     b4_edges = solve_edges(torch, dev, gn_solve, (
         (2, (576, 576), 255), (2, (576, 576), 257), (2, (459, 459), 768),
-        (3, (432, 432), 768), (2, (432, 432), 2048)))
+        (3, (432, 432), 768), (2, (432, 432), 2048), (2, (576, 576), 2049),
+        (2, (432, 432), 4096, "int16"), (2, (576, 576), 768, "uint8"),
+        (2, (432, 432), 768, "int32")))
     b4_rows = {}
     for label, args in (("p1", b4_args), ("p8", b4p_args)):
         got = gn_solve.solve_window_sq(*args, **b4_kw, want_lik=True)
@@ -1002,6 +1153,36 @@ def loc_phases(torch, dev) -> list:
           "library_ms": None,
           "library_call": "none: no single PyTorch call computes an IRLS "
                           "solve"}
+    # B4's other widths on the same window (an exact widening)
+    b4_widths = []
+    ref8 = gn_solve.solve_window_sq(*b4_args, **b4_kw, want_lik=True)
+    for width in WIDTHS:
+        args_w = (widened(torch, b4_args[0], width), *b4_args[1:])
+        got_w = gn_solve.solve_window_sq(*args_w, **b4_kw, want_lik=True)
+        want_w = gn_solve.solve_window_sq_plain(*args_w, **b4_kw,
+                                                want_lik=True)
+        torch.cuda.synchronize()
+        for name, a, w_, i8 in zip(("state", "iterations", "chi2", "sum_d2"),
+                                   got_w, want_w, ref8):
+            assert torch.equal(a, w_) and torch.equal(a, i8), \
+                f"B4 {width} {name} differs"
+        evals = int(got_w[1].sum()) + 1
+        bd = bound(args_w[0].numel() * args_w[0].element_size()
+                   + b * 9 + 56, 60 * b * evals)
+        b4_widths.append({
+            "name": f"gn_solve_batched_{width}", "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
+            "replaces": "iris_lama_tpu/ops/gn_solve.py:104",
+            "shape": list(args_w[0].shape) + [b], "dtype": width,
+            "max_abs_err": 0.0,
+            **timings(torch, "", lambda: gn_solve.solve_window_sq(
+                *args_w, **b4_kw), 100),
+            **timings(torch, "plain_", lambda: gn_solve.solve_window_sq_plain(
+                *args_w, **b4_kw), 3),
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes an IRLS "
+                            "solve",
+            "bound_ms": bd[0], "bound_by": bd[1]})
 
     # B5: one evaluation at the predicted pose, as the fused loop makes it
     hits = lie.se2_apply(pose0, pts)
@@ -1033,6 +1214,33 @@ def loc_phases(torch, dev) -> list:
           "library_call": "none: no single PyTorch call computes the ten "
                           "weighted normal-equation sums",
           "bound_ms": bd[0], "bound_by": bd[1]}
+    b5_widths = []
+    for k_w, width in enumerate(WIDTHS):
+        sub_w = width_grid(torch, sub, width, 40 + k_w)
+        args_w = (sub_w, *b5_args[1:])
+        for a_ in ((widened(torch, sub, width), *b5_args[1:]), args_w):
+            got = match_eval.gn_eval_sq(*a_, **b5_kw)
+            want = match_eval.gn_eval_sq_plain(*a_, **b5_kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"B5 {width} differs"
+        assert torch.equal(match_eval.gn_eval_sq(
+            widened(torch, sub, width), *b5_args[1:], **b5_kw),
+            match_eval.gn_eval_sq(*b5_args, **b5_kw)), f"B5 {width} vs int8"
+        bd = bound(b * (7 * 4 + 4 * sub_w.element_size()) + 40, 60 * b)
+        b5_widths.append({
+            "name": f"gn_eval_sq_{width}", "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/match_eval.cu",
+            "replaces": "iris_lama_tpu/ops/match_eval.py:122",
+            "shape": list(sub.shape) + [b], "dtype": width,
+            "max_abs_err": 0.0,
+            **timings(torch, "", lambda: match_eval.gn_eval_sq(
+                *args_w, **b5_kw), 300),
+            **timings(torch, "plain_", lambda: match_eval.gn_eval_sq_plain(
+                *args_w, **b5_kw), 100),
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes the ten "
+                            "weighted normal-equation sums",
+            "bound_ms": bd[0], "bound_by": bd[1]})
 
     # B2 at Loc2D's shapes: the scan's cells at the predicted pose in the
     # 576 x 576 match window, as the covariance/RMSE evaluation (and each
@@ -1130,7 +1338,7 @@ def loc_phases(torch, dev) -> list:
           **timings(torch, "library_", index_put_library, 100),
           "library_call": "zeros + index_put_(accumulate=True)",
           "bound_ms": b8_bd[0], "bound_by": b8_bd[1]}
-    loc_kernels = [b4, b5, b2, b7, b8]
+    loc_kernels = [b4, *b4_widths, b5, *b5_widths, b2, b7, b8]
     for kern in loc_kernels:
         emit({"phase": "loc_kernel", **kern})
     del loc, kin, b4p_args, idx
@@ -1192,13 +1400,13 @@ def loc_phases(torch, dev) -> list:
            "scatter_add_2d": scatter_pallas.scatter_add_2d,
            "scatter_add_sorted": scatter_sorted.scatter_add_sorted}
 
-    def one_pass(mode, rep, p):
+    def one_pass(mode, rep, p, scans=n_steps):
         lc = loc2d.Loc2D(opts, maps=maps, device=dev, match=mode)
         lc.set_prior(Pose2D(data.poses_gt[0][0] + (rep * 7 + p) * 1e-4,
                             data.poses_gt[0][1], data.poses_gt[0][2]))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        acc = lc.update_many_prepadded(staged, odoms)
+        acc = lc.update_many_prepadded(staged[:scans], odoms[:scans])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         est = lc.trajectory()[-len(acc):]
@@ -1218,7 +1426,7 @@ def loc_phases(torch, dev) -> list:
         for rep in range(3):
             t_tot = err_sum = 0.0
             n_tot = gathers = 0
-            for p in range(3):
+            for p in range(LOC_PASSES):
                 dt, es, n, ng = one_pass(mode, rep, p)
                 t_tot += dt
                 err_sum += es
@@ -1238,11 +1446,13 @@ def loc_phases(torch, dev) -> list:
             "host_reads_per_update": (nlls_solver.host_read.count
                                       - reads0) / updates,
             "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
-        # every device activity (kernels, copies, fills) of one more pass,
-        # counted by the profiler, after the launch counts were read
+        # every device activity (kernels, copies, fills) of the first
+        # LOC_PROFILED scans of one more pass, counted by the profiler (whose
+        # overhead on a whole pass of the generic modes is ~75 s), after the
+        # launch counts were read
         box = []
         n_dev = device_launches(
-            torch, lambda: box.append(one_pass(mode, 8, 0)))
+            torch, lambda: box.append(one_pass(mode, 8, 0, LOC_PROFILED)))
         modes[mode]["device_launches_per_update"] = n_dev / box[0][2]
         emit({"phase": "loc_main_path", "mode": mode, **modes[mode]})
         for r in reps:
@@ -1304,12 +1514,133 @@ def loc_phases(torch, dev) -> list:
           "map_mb": map_mb, "seconds": time.perf_counter() - t_start})
     for kern in loc_kernels:      # summed over phase 11's match modes
         counter = kern["name"].removesuffix("_loc2d")
-        kern["launches"] = sum(m["launches"][counter]
+        kern["launches"] = sum(m["launches"].get(counter, 0)
                                for m in modes.values())
     return loc_kernels
 
 
+def fine_phases(torch, dev) -> dict:
+    """Phase 12: squared-distance windows wider than int8 on their paths.
+    Slam2D at 4 cm cells (uint8 windows) and 3 cm (int16) over the first
+    ``FINE_SCANS`` scans of the phase 5 workload, and PFSlam2D at 4 cm over
+    the first ``FINE_PF`` updates of the phase 8 workload, each on the CPU
+    (plain versions) and on the card (kernels), the launch counts set to 0
+    just before the card's run and read just after: the same accepted
+    scans, resample decisions and best particle, poses within 1 mm / 1e-3
+    rad, the window of the expected width, and B2 (Slam2D) or B6 (PF)
+    launched at that width. Returns {kernels-line name: launches}."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
+    from iris_lama_tpu_torch.algos.slam2d import Slam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
+    from iris_lama_tpu_torch.ops import scatter_matmul, select4
+    from iris_lama_tpu_torch.utils.evaluation import ate_rmse
+
+    fns = (select4.select4_sq, gn_batch.solve_window_sq,
+           scatter_matmul.deposit_pair, edt_pallas.edt2d)
+    out = {}
+
+    def pose_diff(a, g):
+        dth = np.angle(np.exp(1j * (a[..., 2] - g[..., 2])))
+        return float(np.abs(a[..., :2] - g[..., :2]).max()), \
+            float(np.abs(dth).max())
+
+    data, opts, padded = slam_workload()
+    for res, width in ((0.04, "uint8"), (0.03, "int16")):
+        o = dataclasses.replace(opts, resolution=res)
+        runs = []
+        for device in ("cpu", dev):
+            staged = [tuple(torch.as_tensor(a, device=device) for a in p)
+                      for p in padded[:FINE_SCANS]]
+            slam = Slam2D(o, device=device)
+            slam.set_prior(Pose2D(*data.poses_gt[0]))
+            if device != "cpu":
+                torch.cuda.synchronize()
+                _cuda.reset_launches(*fns)
+            t0 = time.perf_counter()
+            acc = slam.update_many_prepadded(staged,
+                                             data.odometry[:FINE_SCANS])
+            if device != "cpu":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            runs.append((acc, slam.trajectory(), str(slam._res_dist.dtype),
+                         slam.escaped_count(), dt))
+        counts = {f.__module__.rsplit(".", 1)[1] + "." + f.__name__:
+                  dict(f.width_launches, all=f.launches)
+                  if hasattr(f, "width_launches") else f.launches
+                  for f in fns}
+        (acc_c, tc, dt_c, _, s_c), (acc_g, tg, dt_g, esc, s_g) = runs
+        dxy, dth = pose_diff(tc, tg)
+        gt = np.asarray([data.poses_gt[k] for k in acc_g])
+        ate = ate_rmse(tg, gt)
+        n_b2 = select4.select4_sq.width_launches.get(width, 0)
+        emit({"phase": "fine_slam2d", "resolution": res, "dtype": dt_g,
+              "scans": FINE_SCANS, "accepted": len(acc_g), "cpu_s": s_c,
+              "card_s": s_g, "max_dxy_m": dxy, "max_dtheta_rad": dth,
+              "ate_m": ate, "escaped": esc, "launches": counts})
+        assert acc_c == acc_g, f"Slam2D {res} m: accepted scans differ"
+        assert dt_c == dt_g == f"torch.{width}", (dt_c, dt_g)
+        assert dxy <= 1e-3 and dth <= 1e-3, f"Slam2D {res} m: poses differ"
+        assert ate < ATE_BOUND_M and esc == 0, f"Slam2D {res} m: {ate}, {esc}"
+        assert n_b2 > 0, f"Slam2D {res} m: B2 at {width} never launched"
+        out[f"select4_sq_{width}"] = n_b2
+
+    data, opts, padded = pf_workload()
+    o = dataclasses.replace(opts, resolution=0.04)
+    runs = []
+    for device in ("cpu", dev):
+        f = PFSlam2D(o, device=device)
+        f.set_prior(Pose2D(*data.poses_gt[0]))
+        staged = [tuple(torch.as_tensor(a, device=device) for a in p)
+                  for p in padded[:FINE_PF + 1]]
+        if device != "cpu":
+            torch.cuda.synchronize()
+            _cuda.reset_launches(*fns)
+        t0 = time.perf_counter()
+        infos = []
+        for i in range(FINE_PF + 1):
+            if f.update_prepadded(*staged[i], data.odometry[i]) and i:
+                infos.append((f.pset.pose.cpu().numpy(),
+                              f.pset.lineage.cpu().numpy(),
+                              f.best_particle_idx()))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        runs.append((infos, str(f.pset.res_dist.dtype),
+                     time.perf_counter() - t0))
+        del f
+    (inf_c, dt_c, s_c), (inf_g, dt_g, s_g) = runs
+    diffs = []
+    for a, g in zip(inf_c, inf_g):
+        pa = np.stack([a[0][:, 0], a[0][:, 1],
+                       np.arctan2(a[0][:, 3], a[0][:, 2])], -1)
+        pg = np.stack([g[0][:, 0], g[0][:, 1],
+                       np.arctan2(g[0][:, 3], g[0][:, 2])], -1)
+        diffs.append(pose_diff(pa, pg))
+    dxy = max(d[0] for d in diffs)
+    dth = max(d[1] for d in diffs)
+    n_b6 = gn_batch.solve_window_sq.width_launches.get("uint8", 0)
+    emit({"phase": "fine_pf", "resolution": 0.04, "dtype": dt_g,
+          "updates": len(inf_g), "cpu_s": s_c, "card_s": s_g,
+          "max_dxy_m": dxy, "max_dtheta_rad": dth,
+          "resample_indices_equal": all(np.array_equal(a[1], g[1])
+                                        for a, g in zip(inf_c, inf_g)),
+          "best_particle_equal": all(a[2] == g[2]
+                                     for a, g in zip(inf_c, inf_g)),
+          "gn_batch_width_launches": dict(
+              gn_batch.solve_window_sq.width_launches)})
+    assert len(inf_c) == len(inf_g) == FINE_PF, "PF 4 cm: accepted"
+    assert dt_c == dt_g == "torch.uint8", (dt_c, dt_g)
+    assert all(np.array_equal(a[1], g[1]) and a[2] == g[2]
+               for a, g in zip(inf_c, inf_g)), "PF 4 cm: decisions differ"
+    assert dxy <= 1e-3 and dth <= 1e-3, f"PF 4 cm: particles {dxy} {dth}"
+    assert n_b6 > 0, "PF 4 cm: B6 at uint8 never launched"
+    out["gn_batch_solve_uint8"] = n_b6
+    return out
+
+
 def main() -> int:
+    _START.append(time.perf_counter())
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1372,6 +1703,8 @@ def main() -> int:
         "sentinels": (torch.where(sent, wu, idx.free_ly).contiguous(),
                       idx.free_lx),
     }
+    # B1 on the free-space stream as the map update sends it (beam-major),
+    # shuffled and with sentinels
     b1_err = 0
     for name, (ly, lx) in b1_cases.items():
         got = scatter_matmul.deposit_counts(ly, lx, wu, wu)
@@ -1380,20 +1713,18 @@ def main() -> int:
         err = int((got - want).abs().max())
         assert torch.equal(got, want), f"B1 {name}: max abs err {err}"
         b1_err = max(b1_err, err)
-    ly, lx = b1_cases["shuffled"]
-    ok = (ly >= 0) & (ly < wu) & (lx >= 0) & (lx < wu)
-    flat = torch.where(ok, ly.long() * wu + lx.long(), wu * wu)
-    ones = torch.ones(n_dep, dtype=torch.int32, device=dev)
-
-    def b1_library():
-        torch.zeros(wu * wu + 1, dtype=torch.int32, device=dev).index_put_(
-            (flat,), ones, accumulate=True)
-
+    ly, lx = b1_cases["beam_ordered"]
+    b1_library = deposit_library(torch, dev, [(ly[None], lx[None], (0,))],
+                                 1, wu, wu)
     b1_bound = bound(n_dep * 8 + wu * wu * 4, n_dep)
     b1 = {"name": "deposit_counts", "route": "cuda",
           "source": "iris_lama_tpu_torch/csrc/deposit.cu",
           "replaces": "iris_lama_tpu/ops/scatter_matmul.py:81",
           "n": n_dep, "hw": [wu, wu], "max_abs_err": b1_err,
+          "stream": "beam_ordered",
+          "launch_floor_ms": memset_floor_ms(
+              torch, dev, wu * wu * 4,
+              scatter_matmul.launch_blocks(1, [n_dep]), 256),
           **timings(torch, "", lambda: scatter_matmul.deposit_counts(
               ly, lx, wu, wu), 300),
           **timings(torch, "plain_",
@@ -1402,6 +1733,40 @@ def main() -> int:
           **timings(torch, "library_", b1_library, 20),
           "library_call": "zeros + index_put_(accumulate=True)",
           "bound_ms": b1_bound[0], "bound_by": b1_bound[1]}
+    # the pair: the scan's hits into occ and vis, its free cells into vis,
+    # one memset and one launch (the map update's call)
+    hit = (idx.hit_ly, idx.hit_lx)
+    n_hit = int(idx.hit_ly.numel())
+    pair_err = 0
+    for name, (fly, flx) in b1_cases.items():
+        got = scatter_matmul.deposit_pair(*hit, fly, flx, wu, wu)
+        want = scatter_matmul.deposit_pair_plain(*hit, fly, flx, wu, wu)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            pair_err = max(pair_err, int((g_ - w_).abs().max()))
+            assert torch.equal(g_, w_), f"B1 pair {name}: differs"
+    pair_library = deposit_library(torch, dev, [
+        (idx.hit_ly[None], idx.hit_lx[None], (0, 1)),
+        (ly[None], lx[None], (1,))], 1, wu, wu)
+    pair_bound = bound((n_hit + n_dep) * 8 + 2 * wu * wu * 4,
+                       2 * n_hit + n_dep)
+    pair = {"name": "deposit_pair", "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/deposit.cu",
+            "replaces": "iris_lama_tpu/ops/scatter_matmul.py:81",
+            "n_hit": n_hit, "n_free": n_dep, "hw": [wu, wu],
+            "max_abs_err": pair_err, "stream": "beam_ordered",
+            "launch_floor_ms": memset_floor_ms(
+                torch, dev, 2 * wu * wu * 4,
+                scatter_matmul.launch_blocks(1, [n_hit, n_dep]), 256),
+            **timings(torch, "", lambda: scatter_matmul.deposit_pair(
+                *hit, ly, lx, wu, wu), 300),
+            **timings(torch, "plain_",
+                      lambda: scatter_matmul.deposit_pair_plain(
+                          *hit, ly, lx, wu, wu), 300),
+            **timings(torch, "library_", pair_library, 20),
+            "library_call": "zeros + index_put_(accumulate=True) over both "
+                            "grids' bins",
+            "bound_ms": pair_bound[0], "bound_by": pair_bound[1]}
 
     wm = cfg.match_window_cells
     grid = torch.as_tensor(rng.integers(0, cfg.distance.max_sqdist + 1,
@@ -1435,6 +1800,33 @@ def main() -> int:
           **timings(torch, "library_", b2_library, 1000),
           "library_call": "four advanced-index reads",
           "bound_ms": b2_bound[0], "bound_by": b2_bound[1]}
+    # B2's other widths: an exact widening of the grid (the int8 corners)
+    # and the width's whole non-negative range
+    b2_widths = []
+    for k_w, width in enumerate(WIDTHS):
+        gw = width_grid(torch, grid, width, 30 + k_w)
+        for g_ in (widened(torch, grid, width), gw):
+            got = select4.select4_sq(g_, sly, slx)
+            want = select4.select4_sq_plain(g_, sly, slx)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"B2 {width} differs"
+        assert torch.equal(select4.select4_sq(widened(torch, grid, width),
+                                              sly, slx),
+                           select4.select4_sq(grid, sly, slx))
+        bd = bound(nbeam * (8 + 4 * gw.element_size() + 16), nbeam * 8)
+        b2_widths.append({
+            "name": f"select4_sq_{width}", "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/select4.cu",
+            "replaces": "iris_lama_tpu/ops/select4.py:36",
+            "n": nbeam, "hw": [wm, wm], "dtype": width, "max_abs_err": 0,
+            **timings(torch, "", lambda: select4.select4_sq(
+                gw, sly, slx), 1000),
+            **timings(torch, "plain_", lambda: select4.select4_sq_plain(
+                gw, sly, slx), 300),
+            **timings(torch, "library_", lambda: (
+                gw[y0, x0], gw[y0, x1], gw[y1, x0], gw[y1, x1]), 300),
+            "library_call": "four advanced-index reads",
+            "bound_ms": bd[0], "bound_by": bd[1]})
 
     r, cap = cfg.distance.radius_cells, cfg.distance.max_sqdist
     b3_err = 0
@@ -1461,7 +1853,34 @@ def main() -> int:
           "library_ms": None,
           "library_call": "none: no single PyTorch call computes a capped EDT",
           "bound_ms": b3_bound[0], "bound_by": b3_bound[1]}
-    kernels = [b1, b2, b3]
+    # B3 beyond the tile's 64-cell halo: the two-launch kernel, up to
+    # R + 1 = 255 and beyond the uint8 |dy|
+    big_err, big_cases = 0, 0
+    for rr in (65, 100, 254):
+        for dens in (0.0, 0.01, 0.3):
+            cap_r = min((rr + 1) ** 2 - 1, 32767)
+            got = edt_pallas.edt2d(masks[dens], cap_r, rr)
+            want = edt_pallas.edt2d_plain(masks[dens], cap_r, rr)
+            torch.cuda.synchronize()
+            big_err = max(big_err, int((got - want).abs().max()))
+            assert torch.equal(got, want), f"B3 R={rr} density {dens}"
+            big_cases += 1
+    rb, cap_b = 100, 101 * 101 - 1
+    bd = bound(wu * wu * (1 + 4), wu * wu * 4 * (2 * rb + 1))
+    b3_big = {"name": "edt2d_large_radius", "route": "cuda",
+              "source": "iris_lama_tpu_torch/csrc/edt.cu",
+              "replaces": "iris_lama_tpu/ops/edt_pallas.py:37",
+              "hw": [wu, wu], "radius": rb, "radii_checked": [65, 100, 254],
+              "cases": big_cases, "max_abs_err": big_err,
+              **timings(torch, "", lambda: edt_pallas.edt2d(m, cap_b, rb),
+                        100),
+              **timings(torch, "plain_", lambda: edt_pallas.edt2d_plain(
+                  m, cap_b, rb), 5),
+              "library_ms": None,
+              "library_call": "none: no single PyTorch call computes a "
+                              "capped EDT",
+              "bound_ms": bd[0], "bound_by": bd[1]}
+    kernels = [b1, pair, b2, *b2_widths, b3, b3_big]
     for k in kernels:
         emit({"phase": "kernel", **k})
 
@@ -1505,15 +1924,14 @@ def main() -> int:
     # 5. the main path on the card ------------------------------------------
     staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
               for p in padded]
-    for fn in (scatter_matmul.deposit_counts, select4.select4_sq,
-               edt_pallas.edt2d):
-        fn.launches = 0
+    fns = {"deposit_pair": scatter_matmul.deposit_pair,
+           "deposit_counts": scatter_matmul.deposit_counts,
+           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+    _cuda.reset_launches(*fns.values())
     passes = []
     for p in range(3):
         passes.append(slam_pass(torch, dev, data, opts, staged, p))
-    launches = {"deposit_counts": scatter_matmul.deposit_counts.launches,
-                "select4_sq": select4.select4_sq.launches,
-                "edt2d": edt_pallas.edt2d.launches}
+    launches = {n: fn.launches for n, fn in fns.items()}
     rates = sorted(p["scans_per_s"] for p in passes)
     updates = sum(p["updates"] for p in passes)
     emit({"phase": "main_path", "passes": passes,
@@ -1523,16 +1941,24 @@ def main() -> int:
     for p in passes:
         assert p["ate_m"] < ATE_BOUND_M, f"ATE {p['ate_m']:.4f} m"
         assert p["escaped"] == 0, "updates escaped the resident safe zone"
-    assert all(v > 0 for v in launches.values()), f"launches {launches}"
+    # the map update deposits through the pair; deposit_counts stays B1's
+    # interface for other callers
+    assert all(launches[n] > 0 for n in ("deposit_pair", "select4_sq",
+                                         "edt2d")), f"launches {launches}"
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"], 0)
 
     # 6-8. the particle filter: its kernels, the CPU/card prefix, the bench
     # workload
     kernels += pf_phases(torch, dev)
     # 9-11. Loc2D: its kernels, the CPU/card prefix, the bench workload
     kernels += loc_phases(torch, dev)
+    # 12. Slam2D at 4 and 3 cm, the PF at 4 cm: the wider instantiations
+    fine = fine_phases(torch, dev)
+    for k in kernels:
+        if k["name"] in fine:
+            k["launches"] = fine[k["name"]]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -18,13 +18,17 @@ counted by ``nlls.solver.host_read``.
 become this constructor argument):
 
 * ``"generic"`` — float32 meter windows, the generic IRLS solver;
-* ``"sq"`` — int8 squared-distance windows, the generic solver over B2;
-* ``"solve"`` — int8 windows, the whole solve in one launch of B4;
-* ``"fused"`` — int8 windows, one launch of B5 per IRLS evaluation.
+* ``"sq"`` — squared-distance windows (``DistanceConfig.sq_dtype``: int8
+  at 5 cm cells and ``l2_max`` 0.5, wider at finer cells), the generic
+  solver over B2;
+* ``"solve"`` — squared-distance windows, the whole solve in one launch of
+  B4;
+* ``"fused"`` — squared-distance windows, one launch of B5 per IRLS
+  evaluation.
 
 The covariance and RMSE evaluation after the solve reads the same window
-(through B2 in the int8 modes). A kernel mode raises ValueError for
-options it cannot serve (``strategy="lm"``).
+(through B2 in the squared-distance modes). A kernel mode raises
+ValueError for options it cannot serve (``strategy="lm"``).
 
 Random numbers: one gloc round draws ``uniform (n, 2)`` then
 ``uniform (n,)``, the order of the JAX package's key stream. They come
@@ -417,7 +421,7 @@ class Loc2D:
 
     def _gather_resident(self, org) -> None:
         """Gather the resident window at origin ``org`` [x, y] (host ints)
-        from the pool; int8 squared distances in the int8 modes."""
+        from the pool; squared distances in the squared-distance modes."""
         org_t = torch.tensor(org, dtype=torch.int32, device=self.device)
         keys = win_mod.window_patch_keys(self.geo, org_t, self._wp_res)
         dm = self.maps.distance

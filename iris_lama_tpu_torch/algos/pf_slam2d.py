@@ -507,10 +507,18 @@ class PFSlam2D:
         self._step(points, mask, origin)
         return True
 
-    def update_many_prepadded(self, staged, odoms) -> list:
+    def update_many_prepadded(self, staged, odoms, chunk: int = 8) -> list:
         """Replay a pre-staged log: ``staged`` holds (points, mask, origin)
         per scan, ``odoms`` the matching odometry; each scan goes through
-        :meth:`update_prepadded`. Returns the accepted scan indices."""
+        :meth:`update_prepadded` (motion draws, gate and re-orgs per scan).
+        Returns the accepted scan indices.
+
+        ``chunk`` is the JAX package's dispatch amortisation (accepted
+        updates per device program); here each update runs in turn, so
+        every ``chunk`` gives the same results.
+        """
+        if chunk < 1:
+            raise ValueError(f"chunk {chunk}: expected >= 1")
         return [k for k in range(len(staged))
                 if self.update_prepadded(*staged[k], odoms[k])]
 

@@ -231,11 +231,18 @@ class Slam2D:
         self._do_step(self._tensor(odelta.se2_array()), points, mask, origin)
         return True
 
-    def update_many_prepadded(self, staged, odoms) -> list:
+    def update_many_prepadded(self, staged, odoms, chunk: int = 32) -> list:
         """Replay a pre-staged log: ``staged`` is a list of (points, mask,
         origin), ``odoms`` the matching odometry. The motion gate and the
         re-orgs run per scan exactly as in :meth:`update`. Returns the
-        accepted scan indices."""
+        accepted scan indices.
+
+        ``chunk`` is the JAX package's dispatch amortisation (accepted
+        scans per device program); here each accepted scan runs in turn,
+        so every ``chunk`` gives the same results.
+        """
+        if chunk < 1:
+            raise ValueError(f"chunk {chunk}: expected >= 1")
         return [k for k in range(len(staged))
                 if self.update_prepadded(*staged[k], odoms[k])]
 

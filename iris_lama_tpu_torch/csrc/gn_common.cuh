@@ -22,13 +22,14 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace gn {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 10;   // a00 a01 a02 a11 a12 a22 g0 g1 g2 chi2
-constexpr int kMaxPT = 8;   // beams per logical thread: b <= 2048
+constexpr int kMaxPT = 8;   // beams per logical thread held in registers
 constexpr int kMaxQ = 4;    // threads per logical thread: <= 1024 a block
 
 // a scan of b beams: points [b, 2] (x, y) and a bool mask [b]
@@ -123,15 +124,51 @@ __device__ __forceinline__ int xslot(int m) {
   return m - m / Q - 1;
 }
 
-// root[v] = sqrtf(v) * res for every int8 v: a corner's distance (the
-// float operations of _eval_math's corner), looked up. The block's first
-// 256 threads fill it; a block barrier must come before block_sums reads
-// it.
+// The squared-distance element types of a window (DistanceConfig.sq_dtype:
+// int8, uint8, int16, int32) by the code the wrappers pass.
+enum SqType { kI8 = 0, kU8 = 1, kI16 = 2, kI32 = 3 };
+
+// root[v] = sqrtf(v) * res for every one-byte v — int8 values indexed by
+// their byte (root[(uint8_t)v]), uint8 values by their value: a corner's
+// distance (the float operations of _eval_math's corner), looked up. The
+// block's first 256 threads fill it; a block barrier must come before
+// block_sums reads it. Wider types have no table: each corner computes
+// sqrtf(v) * res itself, the same operations.
+template <typename T>
 __device__ __forceinline__ void fill_root(float* root, float res) {
-  if (threadIdx.x < 256) {
-    root[threadIdx.x] = sqrtf((float)(int8_t)threadIdx.x) * res;
+  if constexpr (std::is_same_v<T, int8_t>) {
+    if (threadIdx.x < 256) {
+      root[threadIdx.x] = sqrtf((float)(int8_t)threadIdx.x) * res;
+    }
+  } else if constexpr (std::is_same_v<T, uint8_t>) {
+    if (threadIdx.x < 256) root[threadIdx.x] = sqrtf((float)threadIdx.x) * res;
   }
 }
+
+// a stored squared distance v -> its distance sqrtf(v) * res (m)
+template <typename T>
+__device__ __forceinline__ float root_of(const float* root, T v, float res) {
+  if constexpr (std::is_same_v<T, int8_t>) {
+    return root[(uint8_t)v];
+  } else if constexpr (std::is_same_v<T, uint8_t>) {
+    return root[v];
+  } else {
+    return sqrtf((float)v) * res;
+  }
+}
+
+// One beam beyond the kMaxPT * 256 held in registers (kMore kernels): its
+// hit and mask, which the kernel's functor reads or computes again from
+// global memory each evaluation.
+struct Hit1 {
+  float hx, hy, mux, muy, fm;
+  int lx, ly;
+};
+
+// The functor of a kernel without extra beams: never called.
+struct NoMore {
+  __device__ void operator()(int, Hit1&) const {}
+};
 
 // The ten block sums of the beams' terms at the hits, in every thread's
 // sm, in the order above: each thread reads the
@@ -140,16 +177,19 @@ __device__ __forceinline__ void fill_root(float* root, float res) {
 // their Q warps); the logical thread adds its PT terms in beam order, its
 // warp halves by shuffle-down and lane 0 writes the warp total (warp_buf,
 // one block barrier); lanes 0-9 of every warp add one sum's eight totals
-// in warp order and a shuffle broadcasts the ten.
-template <int PT>
+// in warp order and a shuffle broadcasts the ten. With kMore (PT = kMaxPT
+// and b > 256 * kMaxPT) the logical thread then adds its beams lt + 256 m,
+// m >= kMaxPT, in turn, each located by more(i, hit) and its corners read
+// there: the order of _block_sum for any b.
+template <int PT, typename T, bool kMore = false, typename More = NoMore>
 __device__ __forceinline__ void block_sums(
-    const int8_t* __restrict__ g, int h, int w,
+    const T* __restrict__ g, int h, int w,
     const Beams<Shape<PT>::S>& bm, int b, const Hits<Shape<PT>::S>& hit,
     const Consts& k, int robust, const float* root, float* xbuf,
-    float (*warp_buf)[kSums], float sm[kSums]) {
+    float (*warp_buf)[kSums], float sm[kSums], const More& more = More{}) {
   using Sh = Shape<PT>;
   const int q = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
-  int8_t cv[Sh::S][4];
+  T cv[Sh::S][4];
 #pragma unroll
   for (int j = 0; j < Sh::S; ++j) {
     if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
@@ -173,10 +213,14 @@ __device__ __forceinline__ void block_sums(
     const int lx = hit.lx[j], ly = hit.ly[j];
     const bool inx0 = lx >= 0 && lx < w, inx1 = lx + 1 >= 0 && lx + 1 < w;
     const bool iny0 = ly >= 0 && ly < h, iny1 = ly + 1 >= 0 && ly + 1 < h;
-    const float v00 = inx0 && iny0 ? root[(uint8_t)cv[j][0]] : k.max_dist;
-    const float v10 = inx1 && iny0 ? root[(uint8_t)cv[j][1]] : k.max_dist;
-    const float v01 = inx0 && iny1 ? root[(uint8_t)cv[j][2]] : k.max_dist;
-    const float v11 = inx1 && iny1 ? root[(uint8_t)cv[j][3]] : k.max_dist;
+    const float v00 = inx0 && iny0 ? root_of(root, cv[j][0], k.res)
+                                   : k.max_dist;
+    const float v10 = inx1 && iny0 ? root_of(root, cv[j][1], k.res)
+                                   : k.max_dist;
+    const float v01 = inx0 && iny1 ? root_of(root, cv[j][2], k.res)
+                                   : k.max_dist;
+    const float v11 = inx1 && iny1 ? root_of(root, cv[j][3], k.res)
+                                   : k.max_dist;
     add_values(v00, v10, v01, v11, hit.mux[j], hit.muy[j], hit.hx[j],
                hit.hy[j], bm.fm[j], k, robust, terms[j]);
   }
@@ -211,6 +255,32 @@ __device__ __forceinline__ void block_sums(
         const float* x = xbuf + xslot<Sh::Q>(m) * kSums * kThreads + lt;
 #pragma unroll
         for (int i = 0; i < kSums; ++i) acc[i] += x[i * kThreads];
+      }
+    }
+    if constexpr (kMore) {
+      for (int bi = lt + PT * kThreads; bi < b; bi += kThreads) {
+        Hit1 e;
+        more(bi, e);
+        const int64_t y0 = clampi(e.ly, 0, h - 1);
+        const int64_t y1 = clampi(e.ly + 1, 0, h - 1);
+        const int64_t x0 = clampi(e.lx, 0, w - 1);
+        const int64_t x1 = clampi(e.lx + 1, 0, w - 1);
+        const T c00 = g[y0 * w + x0], c10 = g[y0 * w + x1];
+        const T c01 = g[y1 * w + x0], c11 = g[y1 * w + x1];
+        const bool inx0 = e.lx >= 0 && e.lx < w;
+        const bool inx1 = e.lx + 1 >= 0 && e.lx + 1 < w;
+        const bool iny0 = e.ly >= 0 && e.ly < h;
+        const bool iny1 = e.ly + 1 >= 0 && e.ly + 1 < h;
+        float t[kSums];
+#pragma unroll
+        for (int i = 0; i < kSums; ++i) t[i] = 0.0f;
+        add_values(inx0 && iny0 ? root_of(root, c00, k.res) : k.max_dist,
+                   inx1 && iny0 ? root_of(root, c10, k.res) : k.max_dist,
+                   inx0 && iny1 ? root_of(root, c01, k.res) : k.max_dist,
+                   inx1 && iny1 ? root_of(root, c11, k.res) : k.max_dist,
+                   e.mux, e.muy, e.hx, e.hy, e.fm, k, robust, t);
+#pragma unroll
+        for (int i = 0; i < kSums; ++i) acc[i] += t[i];
       }
     }
 #pragma unroll

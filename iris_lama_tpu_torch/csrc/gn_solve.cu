@@ -3,7 +3,8 @@
 // shared by all (B6, PFSlam2D: ops/gn_batch.py launches this entry point
 // with scan_stride 0).
 //
-// For each particle p: an int8 squared-distance window grid[p] [h, w] whose
+// For each particle p: a squared-distance window grid[p] [h, w] (int8,
+// uint8, int16 or int32: one instantiation each) whose
 // cell (0, 0) is org[p] (cell coords [x, y]), a start state st0[p] (tx, ty,
 // cos, sin) and the scan (points [b, 2], bool mask [b]) at beam offset
 // p * scan_stride (scan_stride = b: one scan per particle; 0: one shared
@@ -50,15 +51,21 @@
 //   - each thread keeps the point and mask of its beams in registers for
 //     the whole solve (read from the caller's points and bool mask as they
 //     are);
-//   - where the window fits beside the exchange buffer (the PF's 432 x 432
-//     at 768 beams; see kDynSmem), the block copies it into shared memory
+//   - where the window fits beside the exchange buffer (the PF's int8 or
+//     uint8 432 x 432 at 768 beams; see kDynSmem), the block copies it into
+//     shared memory
 //     once (16-byte cp.async with a byte head and tail, overlapped with the
 //     scan load and the first transform), so every corner read is a
 //     shared-memory read; a larger window (Loc2D's 576 x 576) is read from
 //     global memory (L2);
 //   - a thread issues the corner reads of its beams before it uses them,
 //     and takes each corner's distance sqrtf(v) * res from a 256-entry
-//     table the block fills once (the same float operations);
+//     table the block fills once for one-byte windows (the same float
+//     operations; int16 and int32 windows compute it);
+//   - beyond 256 * kMaxPT = 2048 beams (the kMore instantiation of PT =
+//     kMaxPT), each summing thread adds its further beams lt + 256 m in
+//     turn after its register-held ones, reading each beam's point and
+//     mask again from global memory at every evaluation;
 //   - each warp's total goes to a double-buffered shared array and lanes
 //     0-9 of every warp add one sum's eight totals in warp order, broadcast
 //     by shuffle: every thread holds the ten sums and runs the scalar step
@@ -73,6 +80,7 @@
 namespace {
 
 using gn::Beams;
+using gn::Hit1;
 using gn::Hits;
 using gn::Shape;
 using gn::has_beam;
@@ -137,9 +145,27 @@ __device__ bool gn_step(const float sm[kSums], const float st[4],
   return true;
 }
 
-// lie.se2_apply + geometry.w2m_frac (floor + integer offset) of this
-// thread's beams at state st, in window cells of the window at (org_x,
-// org_y)
+// lie.se2_apply + geometry.w2m_frac (floor + integer offset) of one beam
+// (x, y) at state st, in window cells of the window at (org_x, org_y)
+__device__ __forceinline__ void locate1(float x, float y, const float st[4],
+                                        const gn::Consts& k, int org_x,
+                                        int org_y, float& hx, float& hy,
+                                        float& mux, float& muy, int& lx,
+                                        int& ly) {
+  const float tx = st[0], ty = st[1], c = st[2], s = st[3];
+  hx = tx + c * x - s * y;
+  hy = ty + s * x + c * y;
+  const float mfx = hx * k.scale;
+  const float mfy = hy * k.scale;
+  const float flx = floorf(mfx);
+  const float fly = floorf(mfy);
+  lx = (int)flx + k.cell_offset - org_x;
+  ly = (int)fly + k.cell_offset - org_y;
+  mux = mfx - flx;
+  muy = mfy - fly;
+}
+
+// locate1 of this thread's register-held beams
 template <int PT>
 __device__ __forceinline__ void locate(const Beams<Shape<PT>::S>& bm, int b,
                                        const float st[4], const gn::Consts& k,
@@ -147,31 +173,38 @@ __device__ __forceinline__ void locate(const Beams<Shape<PT>::S>& bm, int b,
                                        Hits<Shape<PT>::S>& hit) {
   using Sh = Shape<PT>;
   const int q = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
-  const float tx = st[0], ty = st[1], c = st[2], s = st[3];
 #pragma unroll
   for (int j = 0; j < Sh::S; ++j) {
     if (!has_beam<PT>(q + Sh::Q * j, lt, b)) continue;
-    const float x = bm.px[j];
-    const float y = bm.py[j];
-    hit.hx[j] = tx + c * x - s * y;
-    hit.hy[j] = ty + s * x + c * y;
-    const float mfx = hit.hx[j] * k.scale;
-    const float mfy = hit.hy[j] * k.scale;
-    const float flx = floorf(mfx);
-    const float fly = floorf(mfy);
-    hit.lx[j] = (int)flx + k.cell_offset - org_x;
-    hit.ly[j] = (int)fly + k.cell_offset - org_y;
-    hit.mux[j] = mfx - flx;
-    hit.muy[j] = mfy - fly;
+    locate1(bm.px[j], bm.py[j], st, k, org_x, org_y, hit.hx[j], hit.hy[j],
+            hit.mux[j], hit.muy[j], hit.lx[j], hit.ly[j]);
   }
 }
 
+// The beams beyond the register-held ones (kMore): beam i of the scan at
+// beam offset so, read from global memory and located at the state (st0..
+// st3, held by value).
+struct ScanMore {
+  const float* xy;
+  const uint8_t* mask;
+  int64_t so;
+  float st[4];
+  gn::Consts k;
+  int org_x, org_y;
+  __device__ __forceinline__ void operator()(int i, Hit1& e) const {
+    const int64_t gi = so + i;
+    e.fm = mask[gi] ? 1.0f : 0.0f;
+    locate1(xy[2 * gi], xy[2 * gi + 1], st, k, org_x, org_y, e.hx, e.hy,
+            e.mux, e.muy, e.lx, e.ly);
+  }
+};
+
 // The whole IRLS solve of particle blockIdx.x by Shape<PT>::NT threads.
 // Dynamic shared memory: the exchange buffer (kXBytes), then, kStaged, the
-// window (h * w + 16 bytes).
-template <int PT, bool kStaged>
+// window (h * w * sizeof(T) + 16 bytes).
+template <typename T, int PT, bool kStaged, bool kMore>
 __global__ void __launch_bounds__(Shape<PT>::NT)
-    gn_solve_kernel(const int8_t* __restrict__ grid, int h, int w,
+    gn_solve_kernel(const T* __restrict__ grid, int h, int w,
                     const int32_t* __restrict__ org,
                     const float* __restrict__ st0, gn::Scan scan,
                     int64_t scan_stride, gn::Consts k, int max_iter,
@@ -184,28 +217,32 @@ __global__ void __launch_bounds__(Shape<PT>::NT)
   __shared__ float warp_buf[2][kWarps][kSums];
   __shared__ float root[256];
   float* xbuf = reinterpret_cast<float*>(dyn);
-  gn::fill_root(root, k.res);
+  gn::fill_root<T>(root, k.res);
   const int p = blockIdx.x;
   const int64_t n = (int64_t)h * w;
-  const int8_t* g = grid + p * n;
-  const int8_t* gw = g;
+  const T* g = grid + p * n;
+  const T* gw = g;
   if (kStaged) {
-    // win + off + i has the alignment of g + i modulo 16
+    // the window's n * sizeof(T) bytes; win + off + i has the alignment of
+    // gb + i modulo 16
+    const int8_t* gb = reinterpret_cast<const int8_t*>(g);
+    const int64_t nb = n * (int64_t)sizeof(T);
     int8_t* win = dyn + Sh::kXBytes;
-    const int off = (int)(((uintptr_t)g - __cvta_generic_to_shared(win)) &
+    const int off = (int)(((uintptr_t)gb - __cvta_generic_to_shared(win)) &
                           15);
     int8_t* dst = win + off;
-    const int64_t lead = (16 - ((uintptr_t)g & 15)) & 15;
-    const int head = (int)(n < lead ? n : lead);
-    const int64_t chunks = (n - head) / 16;
+    const int64_t lead = (16 - ((uintptr_t)gb & 15)) & 15;
+    const int head = (int)(nb < lead ? nb : lead);
+    const int64_t chunks = (nb - head) / 16;
     for (int64_t c = threadIdx.x; c < chunks; c += Sh::NT) {
-      cp_async16(dst + head + 16 * c, g + head + 16 * c);
+      cp_async16(dst + head + 16 * c, gb + head + 16 * c);
     }
-    for (int64_t i = threadIdx.x; i < head; i += Sh::NT) dst[i] = g[i];
-    for (int64_t i = head + 16 * chunks + threadIdx.x; i < n; i += Sh::NT) {
-      dst[i] = g[i];
+    for (int64_t i = threadIdx.x; i < head; i += Sh::NT) dst[i] = gb[i];
+    for (int64_t i = head + 16 * chunks + threadIdx.x; i < nb;
+         i += Sh::NT) {
+      dst[i] = gb[i];
     }
-    gw = dst;
+    gw = reinterpret_cast<const T*>(dst);
   }
 
   const int q = threadIdx.x / kThreads, lt = threadIdx.x % kThreads;
@@ -230,19 +267,24 @@ __global__ void __launch_bounds__(Shape<PT>::NT)
   if (kStaged) cp_async_wait_all();
   __syncthreads();
 
+  // the beams beyond the register-held ones, located at state s
+  auto more = [=](const float s[4]) {
+    return ScanMore{scan.xy, scan.mask, so, {s[0], s[1], s[2], s[3]}, k,
+                    org_x, org_y};
+  };
   // every thread holds the solver's state and takes the same decisions
   float sm[kSums];
   int e = 0;   // evaluations so far: picks warp_buf's buffer
-  gn::block_sums<PT>(gw, h, w, bm, b, hit, k, k.robust, root, xbuf,
-                     warp_buf[e++ & 1], sm);
+  gn::block_sums<PT, T, kMore>(gw, h, w, bm, b, hit, k, k.robust, root,
+                               xbuf, warp_buf[e++ & 1], sm, more(st));
   int it = 0;
   while (it < max_iter) {
     float cand[4];
     if (!gn_step(sm, st, k, cand)) break;   // converged: it unchanged
     float cs[kSums];
     locate<PT>(bm, b, cand, k, org_x, org_y, hit);
-    gn::block_sums<PT>(gw, h, w, bm, b, hit, k, k.robust, root, xbuf,
-                       warp_buf[e++ & 1], cs);
+    gn::block_sums<PT, T, kMore>(gw, h, w, bm, b, hit, k, k.robust, root,
+                                 xbuf, warp_buf[e++ & 1], cs, more(cand));
     it += 1;
     if (!(sm[9] - cs[9] > 0.0f)) break;     // invalid step: revert, stop
 #pragma unroll
@@ -255,8 +297,8 @@ __global__ void __launch_bounds__(Shape<PT>::NT)
   if (want_lik) {
     float ls[kSums];
     locate<PT>(bm, b, st, k, org_x, org_y, hit);
-    gn::block_sums<PT>(gw, h, w, bm, b, hit, k, 0, root, xbuf,
-                       warp_buf[e++ & 1], ls);
+    gn::block_sums<PT, T, kMore>(gw, h, w, bm, b, hit, k, 0, root, xbuf,
+                                 warp_buf[e++ & 1], ls, more(st));
     sum_d2 = ls[9];
   }
   if (threadIdx.x == 0) {
@@ -272,7 +314,7 @@ __global__ void __launch_bounds__(Shape<PT>::NT)
 }
 
 struct Args {
-  const int8_t* grid;
+  const void* grid;
   int p_n, h, w;
   const int32_t* org;
   const float* st0;
@@ -284,11 +326,13 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int PT, bool kStaged>
+template <typename T, int PT, bool kStaged, bool kMore>
 int launch(const Args& a) {
   using Sh = Shape<PT>;
-  const auto kern = gn_solve_kernel<PT, kStaged>;
-  const int64_t smem = Sh::kXBytes + (kStaged ? (int64_t)a.h * a.w + 16 : 0);
+  const auto kern = gn_solve_kernel<T, PT, kStaged, kMore>;
+  const int64_t smem =
+      Sh::kXBytes +
+      (kStaged ? (int64_t)a.h * a.w * (int64_t)sizeof(T) + 16 : 0);
   if (smem > kDynSmem) return (int)cudaErrorInvalidValue;
   if (smem > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -296,27 +340,34 @@ int launch(const Args& a) {
     if (err != cudaSuccess) return (int)err;
   }
   kern<<<a.p_n, Sh::NT, smem, a.stream>>>(
-      a.grid, a.h, a.w, a.org, a.st0, a.scan, a.scan_stride, a.k, a.max_iter,
-      a.want_lik, a.p_n, a.out);
+      static_cast<const T*>(a.grid), a.h, a.w, a.org, a.st0, a.scan,
+      a.scan_stride, a.k, a.max_iter, a.want_lik, a.p_n, a.out);
   return (int)cudaGetLastError();
 }
 
-// the instantiation for PT beams per logical thread
-template <int PT>
+// the instantiation for PT beams per logical thread (pt > kMaxPT: kMaxPT
+// with the further beams read from global memory)
+template <typename T, int PT>
 int dispatch(const Args& a, int pt, int staged) {
   if constexpr (PT < kMaxPT) {
-    if (pt > PT) return dispatch<PT + 1>(a, pt, staged);
+    if (pt > PT) return dispatch<T, PT + 1>(a, pt, staged);
+  } else {
+    if (pt > PT) {
+      return staged ? launch<T, PT, true, true>(a)
+                    : launch<T, PT, false, true>(a);
+    }
   }
-  return staged ? launch<PT, true>(a) : launch<PT, false>(a);
+  return staged ? launch<T, PT, true, false>(a)
+                : launch<T, PT, false, false>(a);
 }
 
 }  // namespace
 
-// staged = 1 copies each window into shared memory (the exchange buffer
-// and h * w + 16 bytes within kDynSmem), 0 reads it from global memory;
-// b <= 256 * kMaxPT.
-extern "C" int gn_solve_batched(const int8_t* grid, int p_n, int h, int w,
-                                const int32_t* org, const float* st0,
+// dtype: gn::SqType of the windows; staged = 1 copies each window into
+// shared memory (the exchange buffer and h * w * sizeof(T) + 16 bytes
+// within kDynSmem), 0 reads it from global memory; any b >= 0.
+extern "C" int gn_solve_batched(const void* grid, int dtype, int p_n, int h,
+                                int w, const int32_t* org, const float* st0,
                                 const float* xy, const uint8_t* mask, int b,
                                 int64_t scan_stride,
                                 float max_dist, float res, float scale,
@@ -325,11 +376,17 @@ extern "C" int gn_solve_batched(const int8_t* grid, int p_n, int h, int w,
                                 int want_lik, int staged, float* out,
                                 void* stream) {
   const int pt = b > 0 ? (b + kThreads - 1) / kThreads : 1;
-  if (pt > kMaxPT || h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  if (h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
   if (p_n <= 0) return (int)cudaGetLastError();
   const Args a{grid, p_n, h, w, org, st0, gn::Scan{xy, mask, b},
                scan_stride, gn::Consts{max_dist, res, scale, cinv, eps1,
                                        eps2, robust, cell_offset},
                max_iter, want_lik, out, static_cast<cudaStream_t>(stream)};
-  return dispatch<1>(a, pt, staged);
+  switch (dtype) {
+    case gn::kI8: return dispatch<int8_t, 1>(a, pt, staged);
+    case gn::kU8: return dispatch<uint8_t, 1>(a, pt, staged);
+    case gn::kI16: return dispatch<int16_t, 1>(a, pt, staged);
+    case gn::kI32: return dispatch<int32_t, 1>(a, pt, staged);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,12 +1,14 @@
-// B2: the four bilinear corners of an int8 squared-distance grid.
+// B2: the four bilinear corners of a squared-distance grid.
 //
 //   out[0, i] = grid[y0, x0]   out[1, i] = grid[y0, x1]
 //   out[2, i] = grid[y1, x0]   out[3, i] = grid[y1, x1]
 //
 // with y0 = clip(ly[i], 0, h-1), y1 = clip(ly[i]+1, 0, h-1) and likewise x;
-// int8 [h, w] grid, int32 [b] indices read through their element strides
-// (so lx = loc[:, 0] and ly = loc[:, 1] of a [b, 2] tensor are read in
-// place) -> int32 [4, b].
+// [h, w] grid of int8, uint8, int16 or int32 (DistanceConfig.sq_dtype: one
+// instantiation each, the value widened as its type says — uint8 unsigned,
+// the others signed — as the plain version's .to(torch.int32)), int32 [b]
+// indices read through their element strides (so lx = loc[:, 0] and ly =
+// loc[:, 1] of a [b, 2] tensor are read in place) -> int32 [4, b].
 //
 // Replaces iris_lama_tpu/ops/select4.py:_kernel (:36), driven by
 // _select_batched (:67). The TPU has no fast gather, so the kernel there
@@ -33,7 +35,8 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void select4_kernel(const int8_t* __restrict__ grid, int h, int w,
+template <typename T>
+__global__ void select4_kernel(const T* __restrict__ grid, int h, int w,
                                const int32_t* __restrict__ ly, int64_t sly,
                                const int32_t* __restrict__ lx, int64_t slx,
                                int b, int32_t* __restrict__ out) {
@@ -49,18 +52,32 @@ __global__ void select4_kernel(const int8_t* __restrict__ grid, int h, int w,
   out[3 * b + i] = grid[y1 * w + x1];
 }
 
+template <typename T>
+void launch(const void* grid, int h, int w, const int32_t* ly, int64_t sly,
+            const int32_t* lx, int64_t slx, int b, int32_t* out,
+            cudaStream_t s) {
+  const int threads = 256;
+  const int blocks = (b + threads - 1) / threads;
+  select4_kernel<T><<<blocks, threads, 0, s>>>(
+      static_cast<const T*>(grid), h, w, ly, sly, lx, slx, b, out);
+}
+
 }  // namespace
 
-// sly, slx: the indices' element strides.
-extern "C" int select4_sq(const int8_t* grid, int h, int w, const int32_t* ly,
-                          int64_t sly, const int32_t* lx, int64_t slx, int b,
-                          int32_t* out, void* stream) {
+// dtype: the grid's element type, 0 int8, 1 uint8, 2 int16, 3 int32
+// (gn_common.cuh: SqType); sly, slx: the indices' element strides.
+extern "C" int select4_sq(const void* grid, int dtype, int h, int w,
+                          const int32_t* ly, int64_t sly, const int32_t* lx,
+                          int64_t slx, int b, int32_t* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b > 0) {
-    const int threads = 256;
-    const int blocks = (b + threads - 1) / threads;
-    select4_kernel<<<blocks, threads, 0, s>>>(grid, h, w, ly, sly, lx, slx,
-                                              b, out);
+    switch (dtype) {
+      case 0: launch<int8_t>(grid, h, w, ly, sly, lx, slx, b, out, s); break;
+      case 1: launch<uint8_t>(grid, h, w, ly, sly, lx, slx, b, out, s); break;
+      case 2: launch<int16_t>(grid, h, w, ly, sly, lx, slx, b, out, s); break;
+      case 3: launch<int32_t>(grid, h, w, ly, sly, lx, slx, b, out, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

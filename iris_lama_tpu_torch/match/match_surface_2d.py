@@ -70,6 +70,9 @@ def rmse_cells(table, dist, geo: MapGeometry, max_dist, points_xy, mask,
 
 
 ROUTES = ("generic", "solve", "fused")
+# the widths of squared-distance windows (DistanceConfig.sq_dtype), each
+# with an instantiation of the kernels B2, B4 and B5
+SQ_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.int32)
 
 
 def solve_window(grid, org_cell, geo, max_dist, points_xy, mask,
@@ -81,10 +84,11 @@ def solve_window(grid, org_cell, geo, max_dist, points_xy, mask,
     :func:`make_window_eval` (any window dtype, GN or LM); ``"solve"`` —
     the whole solve in one launch of kernel B4 (``ops/gn_solve.py``);
     ``"fused"`` — :func:`_solve_window_fused`, one launch of kernel B5 per
-    evaluation. The two kernel routes take an int8 squared-distance window,
-    the GN strategy and a Cauchy or unit robust cost, and raise ValueError
-    otherwise (no silent change of solver). ``r`` and ``J`` of their result
-    are 0-dim zeros.
+    evaluation. The two kernel routes take a squared-distance window of
+    any width ``DistanceConfig.sq_dtype`` picks (int8, uint8, int16,
+    int32), the GN strategy and a Cauchy or unit robust cost, and raise
+    ValueError otherwise (no silent change of solver). ``r`` and ``J`` of
+    their result are 0-dim zeros.
     """
     if route == "generic":
         eval_fn = make_window_eval(grid, org_cell, geo, max_dist, points_xy,
@@ -119,9 +123,9 @@ def check_kernel_route(route: str, opts, dtype=torch.int8) -> None:
         raise ValueError(f"route {route!r} weighs by Cauchy or unit; "
                          f"robust cost {opts.robust.kind!r} needs route "
                          "'generic'")
-    if dtype != torch.int8:
-        raise ValueError(f"route {route!r} reads an int8 squared-distance "
-                         f"window, got {dtype}")
+    if dtype not in SQ_DTYPES:
+        raise ValueError(f"route {route!r} reads an integer squared-distance "
+                         f"window (int8, uint8, int16, int32), got {dtype}")
 
 
 def _cauchy_c(opts) -> float:

@@ -43,17 +43,19 @@ _F = ctypes.c_float
 # (a cudaError_t, 0 = success)
 SIGNATURES = {
     "deposit": {"deposit_counts": (_P, _P, _L, _I, _I, _I, _P, _P),
+                "deposit_pair": (_P, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P),
                 "scatter_add_2d": (_P, _P, _P, _L, _I, _I, _P, _P),
                 "scatter_add_sorted": (_P, _L, _I, _I, _P, _P)},
-    "select4": {"select4_sq": (_P, _I, _I, _P, _L, _P, _L, _I, _P, _P)},
-    "edt": {"edt2d": (_P, _I, _I, _I, _I, _I, _P, _P)},
-    "gn_solve": {"gn_solve_batched": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _L,
-                                      _F, _F, _F, _F, _I, _F, _F, _I, _I, _I,
-                                      _I, _P, _P)},
-    "match_eval": {"gn_eval_sq": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _F, _F, _F, _F, _I, _P, _P)},
+    "select4": {"select4_sq": (_P, _I, _I, _I, _P, _L, _P, _L, _I, _P, _P)},
+    "edt": {"edt2d": (_P, _I, _I, _I, _I, _I, _P, _P, _P)},
+    "gn_solve": {"gn_solve_batched": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                                      _L, _F, _F, _F, _F, _I, _F, _F, _I, _I,
+                                      _I, _I, _P, _P)},
+    "match_eval": {"gn_eval_sq": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _I, _F, _F, _F, _F, _I, _P, _P)},
     # an empty kernel: the launch floor (timed beside the kernels)
-    "floor": {"launch_floor": (_I, _I, _P)},
+    "floor": {"launch_floor": (_I, _I, _P),
+              "memset_floor": (_P, _L, _I, _I, _P)},
 }
 
 _libs: dict = {}
@@ -163,22 +165,51 @@ def stream_handle(device) -> int:
 
 
 def require(t, name: str, dtype, ndim: int, device) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
-    ``ndim`` dims on ``device`` — what every launcher takes, unless it reads
-    an operand through its strides (:func:`require_strided`)."""
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (None:
+    any) and ``ndim`` dims on ``device`` — what every launcher takes,
+    unless it reads an operand through its strides
+    (:func:`require_strided`)."""
     require_strided(t, name, dtype, ndim, device)
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def sq_code(t, name: str) -> int:
+    """The element-type code (csrc/gn_common.cuh: SqType) of a
+    squared-distance grid ``t``: every dtype ``DistanceConfig.sq_dtype``
+    returns has a kernel instantiation; any other raises TypeError."""
+    import torch
+    codes = {torch.int8: 0, torch.uint8: 1, torch.int16: 2, torch.int32: 3}
+    if t.dtype not in codes:
+        raise TypeError(f"{name}: expected int8, uint8, int16 or int32, "
+                        f"got {t.dtype}")
+    return codes[t.dtype]
+
+
+def count_launch(wrapper, dtype) -> None:
+    """Count one launch of a kernel with one instantiation per element
+    type: ``wrapper.launches`` and ``wrapper.width_launches[dtype]``."""
+    wrapper.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    wrapper.width_launches[key] = wrapper.width_launches.get(key, 0) + 1
+
+
+def reset_launches(*wrappers) -> None:
+    """Set the launch counts of ``wrappers`` to 0."""
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "width_launches"):
+            w.width_launches = {}
+
+
 def require_strided(t, name: str, dtype, ndim: int, device) -> tuple:
-    """Raise unless ``t`` is a CUDA tensor of ``dtype`` and ``ndim`` dims
-    on ``device``, in any layout; return its element strides, for a
-    launcher that reads the operand through them."""
+    """Raise unless ``t`` is a CUDA tensor of ``dtype`` (None: any) and
+    ``ndim`` dims on ``device``, in any layout; return its element strides,
+    for a launcher that reads the operand through them."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device}, "
                          f"got {t.device}")
-    if t.dtype != dtype:
+    if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")

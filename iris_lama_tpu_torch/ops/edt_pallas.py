@@ -9,15 +9,15 @@ a horizontal pass ``min over |dx| <= radius of dx^2 + g^2``. A mask
 ``distance.edt2d``).
 
 The TPU twin (iris_lama_tpu/ops/edt_pallas.py) ran both passes as strip
-kernels in VMEM. On the GPU they are one fused CUDA kernel
-(``csrc/edt.cu``): a block per 32 x 64 output tile copies its mask tile
-with an ``R``-cell halo into shared memory and runs both passes there, the
-capped ``|dy|`` kept as uint8, so nothing but the mask and the result
-crosses device memory. That bounds the radius: at most
-:data:`MAX_RADIUS` cells (the tile then takes 37,376 bytes of shared
-memory) and ``radius + 1 <= 255``. :func:`edt2d` uses :func:`edt2d_plain`
-— the shift-and-min passes of ``sdm/distance.py:edt2d`` of the JAX
-package — for CPU tensors.
+kernels in VMEM. On the GPU (``csrc/edt.cu``), up to :data:`MAX_RADIUS`
+cells, one fused CUDA kernel: a block per 32 x 64 output tile copies its
+mask tile with an ``R``-cell halo into shared memory and runs both passes
+there, the capped ``|dy|`` kept as uint8, so nothing but the mask and the
+result crosses device memory. A larger radius (any, ``R + 1 > 255``
+included) takes two launches of the same call: a column sweep into an
+int32 scratch grid, then a direct row min. :func:`edt2d` uses
+:func:`edt2d_plain` — the shift-and-min passes of ``sdm/distance.py:edt2d``
+of the JAX package — for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,20 +26,23 @@ import torch
 
 from . import _cuda
 
-# csrc/edt.cu: kMaxRadius (3.2 m at 5 cm cells); g is stored as uint8
+# csrc/edt.cu: kMaxRadius (3.2 m at 5 cm cells), the largest the shared-
+# memory tile takes; beyond it the two-launch kernel
 MAX_RADIUS = 64
 
 
 def edt2d_plain(obstacle, max_sqdist: int, radius: int):
     """Plain PyTorch version: log-doubling min-plus erosion for the
-    vertical pass, ``radius`` shift-and-min rounds for the horizontal
-    (needs ``radius`` < H, W). Leading dimensions are batch."""
+    vertical pass, ``radius`` shift-and-min rounds for the horizontal.
+    Any ``radius >= 0``: a shift of H rows or more, or of W columns or
+    more, brings in only padding, which changes nothing after the final
+    clamp, so those rounds are skipped. Leading dimensions are batch."""
     *lead, h, w = obstacle.shape
     dev = obstacle.device
     big_g = radius + 1
     g = torch.where(obstacle, 0, big_g).to(torch.int32)
     shift = 1
-    while shift <= radius:
+    while shift <= radius and shift < h:
         pad = torch.full((*lead, shift, w), big_g, dtype=torch.int32,
                          device=dev)
         up = torch.cat([g[..., shift:, :], pad], dim=-2)
@@ -49,7 +52,7 @@ def edt2d_plain(obstacle, max_sqdist: int, radius: int):
         shift <<= 1
     g2 = g * g
     d2 = g2
-    for dx in range(1, radius + 1):
+    for dx in range(1, min(radius, w - 1) + 1):
         padc = torch.full((*lead, h, dx), max_sqdist, dtype=torch.int32,
                           device=dev)
         left = torch.cat([g2[..., dx:], padc], dim=-1)
@@ -63,15 +66,11 @@ def edt2d(obstacle, max_sqdist: int, radius: int):
     or ``[P, H, W]``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (contiguous bool mask) or raise. Either raises for a radius the kernel
-    does not take (``radius + 1 > 255``, or beyond :data:`MAX_RADIUS`).
+    (contiguous bool mask) or raise. Any ``radius >= 0``; a negative one
+    raises on every device.
     """
-    if radius < 0 or radius + 1 > 255:
-        raise ValueError(f"edt2d: radius {radius}: the capped |dy| is kept "
-                         f"as uint8 (0 <= radius, radius + 1 <= 255)")
-    if radius > MAX_RADIUS:
-        raise ValueError(f"edt2d: radius {radius} beyond {MAX_RADIUS} cells, "
-                         f"the halo the kernel's shared-memory tile takes")
+    if radius < 0:
+        raise ValueError(f"edt2d: radius {radius}: expected radius >= 0")
     if obstacle.device.type == "cpu":
         return edt2d_plain(obstacle, max_sqdist, radius)
     dev = obstacle.device
@@ -82,8 +81,11 @@ def edt2d(obstacle, max_sqdist: int, radius: int):
     *lead, h, w = obstacle.shape
     p = lead[0] if lead else 1
     out = torch.empty((p, h, w), dtype=torch.int32, device=dev)
+    scratch = (torch.empty((p, h, w), dtype=torch.int32, device=dev)
+               if radius > MAX_RADIUS else None)
     lib = _cuda.library("edt")
     _cuda.check(lib.edt2d(obstacle.data_ptr(), p, h, w, radius, max_sqdist,
+                          None if scratch is None else scratch.data_ptr(),
                           out.data_ptr(), _cuda.stream_handle(dev)),
                 "edt2d")
     edt2d.launches += 1

@@ -1,16 +1,16 @@
 """B6: the batched whole-solve Gauss-Newton IRLS scan match.
 
-One call solves every particle's scan match against its own s8
-squared-distance window: grids ``[P, H, W]`` with per-particle window
-origins ``[P, 2]`` and start states ``[P, 4]``, one scan ``[B, 2]`` + mask
-``[B]`` shared by all. Each particle runs the IRLS loop of the reference
-(solver.cpp:53-118 / gauss_newton.cpp:53-91): evaluate the ten normal-
-equation sums (``match_eval._eval_math`` on B2's corners), stop when
-``|g|_inf < eps1`` or ``|h|_inf < eps2`` before a step (not counted as an
-iteration), else take the step ``exp(h) * state`` (counted) and keep it
-iff chi2 drops — an invalid step reverts and stops. With ``want_lik`` one
-more evaluation at the final state with unit weights gives ``sum_d2``, the
-masked residual SSE of the PF likelihood.
+One call solves every particle's scan match against its own
+squared-distance window (int8, uint8, int16 or int32): grids ``[P, H, W]``
+with per-particle window origins ``[P, 2]`` and start states ``[P, 4]``,
+one scan ``[B, 2]`` + mask ``[B]`` shared by all. Each particle runs the
+IRLS loop of the reference (solver.cpp:53-118 / gauss_newton.cpp:53-91):
+evaluate the ten normal-equation sums (``match_eval._eval_math`` on B2's
+corners), stop when ``|g|_inf < eps1`` or ``|h|_inf < eps2`` before a step
+(not counted as an iteration), else take the step ``exp(h) * state``
+(counted) and keep it iff chi2 drops — an invalid step reverts and stops.
+With ``want_lik`` one more evaluation at the final state with unit weights
+gives ``sum_d2``, the masked residual SSE of the PF likelihood.
 
 The TPU kernel (iris_lama_tpu/ops/gn_batch.py:_kernel) ran all particles
 in one Pallas program with every grid VMEM-resident. On the GPU it is B4's
@@ -42,7 +42,8 @@ def solve_window_sq(grid, org_cell, state0, points_xy, mask, *,
                     eps1, eps2, max_iter, want_lik=False):
     """Whole GN IRLS scan match of every particle, one launch.
 
-    grid int8 [P, H, W] squared-distance windows; org_cell int32 [P, 2]
+    grid [P, H, W] squared-distance windows (int8, uint8, int16 or
+    int32); org_cell int32 [P, 2]
     (window cell (0, 0), [x, y]); state0 f32 [P, 4]; points_xy f32 [B, 2]
     and mask bool [B] shared. Returns (state f32 [P, 4], iterations int32
     [P], chi2 f32 [P], sum_d2 f32 [P]; 0 unless ``want_lik``).
@@ -64,3 +65,4 @@ def solve_window_sq(grid, org_cell, state0, points_xy, mask, *,
 
 
 solve_window_sq.launches = 0
+solve_window_sq.width_launches = {}

@@ -1,8 +1,9 @@
 """B4: the whole Gauss-Newton IRLS scan match in one launch.
 
-Each particle solves its scan match against its own s8 squared-distance
-window: grids ``[P, H, W]`` with window origins ``[P, 2]`` and start states
-``[P, 4]``, and either one scan per particle (``points_xy [P, B, 2]``,
+Each particle solves its scan match against its own squared-distance
+window (int8, uint8, int16 or int32, as ``DistanceConfig.sq_dtype``
+picks): grids ``[P, H, W]`` with window origins ``[P, 2]`` and start
+states ``[P, 4]``, and either one scan per particle (``points_xy [P, B, 2]``,
 ``mask [P, B]``) or one scan shared by all (``[B, 2]``, ``[B]``). Each
 runs the IRLS loop of the reference (solver.cpp:53-118 /
 gauss_newton.cpp:53-91): evaluate the ten normal-equation sums
@@ -21,9 +22,13 @@ summation lanes of the fixed order (one beam a thread at 768 beams), each
 keeping its beams in registers, and every thread running the scalar step
 on the broadcast sums; each evaluation is the code it shares with B5
 (``csrc/gn_common.cuh``). A window that fits in shared memory beside the
-exchange buffer (:func:`staged`: the PF's 432 x 432) is copied there
-first; a larger one (Loc2D's 576 x 576) is read from global memory — the
-variant follows from the shape. Scans of up to :data:`MAX_BEAMS` beams.
+exchange buffer (:func:`staged`: the PF's 432 x 432 at one byte a cell) is
+copied there first; a larger one (Loc2D's 576 x 576, or any int16 or int32
+window of the PF's) is read from global memory — the variant follows from
+the shape and the element size. One instantiation per element type. Scans
+of any length: up to ``match_eval.REGISTER_BEAMS`` beams each thread keeps
+its beams in registers; beyond that the summing threads read their further
+beams from global memory at every evaluation, in the same order.
 Loc2D's ``match="solve"`` launches it at P = 1. :func:`solve_window_sq`
 launches it for CUDA tensors; :func:`solve_window_sq_plain` is the plain
 PyTorch version (a masked loop over all particles, the control flow of the
@@ -45,9 +50,7 @@ from ..sdm.geometry import f32
 from . import _cuda, match_eval, select4
 
 N_ROWS = 8   # tx ty cos sin chi2 iters sum_d2 pad
-# csrc/gn_solve.cu: 256 logical threads x kMaxPT beams; kDynSmem bytes of
-# dynamic shared memory a block may take
-MAX_BEAMS = 2048
+# csrc/gn_solve.cu: kDynSmem bytes of dynamic shared memory a block may take
 DYN_SMEM = 232_448 - 1_664
 
 
@@ -161,7 +164,8 @@ def solve_window_sq(grid, org_cell, state0, points_xy, mask, *,
                     eps1, eps2, max_iter, want_lik=False):
     """Whole GN IRLS scan match of every particle, one launch.
 
-    grid int8 [P, H, W] squared-distance windows; org_cell int32 [P, 2]
+    grid [P, H, W] squared-distance windows (int8, uint8, int16 or
+    int32); org_cell int32 [P, 2]
     (window cell (0, 0), [x, y]); state0 f32 [P, 4]; points_xy f32 [P, B, 2]
     and mask bool [P, B] (one scan per particle) or [B, 2] and [B] (one
     scan shared by all). Returns (state f32 [P, 4], iterations int32 [P],
@@ -181,18 +185,20 @@ def solve_window_sq(grid, org_cell, state0, points_xy, mask, *,
 
 
 solve_window_sq.launches = 0
+solve_window_sq.width_launches = {}
 
 
-def staged(h: int, w: int, b: int) -> bool:
-    """Whether the kernel copies an ``[h, w]`` window into shared memory
-    for a scan of ``b`` beams (else it reads the window from global
-    memory): the window and its 16 bytes of alignment slack beside the
-    buffer through which the threads that share a logical thread's beams
-    pass their terms (csrc/gn_solve.cu: Shape)."""
-    pt = max(1, -(-b // match_eval.THREADS))
+def staged(h: int, w: int, b: int, itemsize: int = 1) -> bool:
+    """Whether the kernel copies an ``[h, w]`` window of ``itemsize``-byte
+    cells into shared memory for a scan of ``b`` beams (else it reads the
+    window from global memory): the window and its 16 bytes of alignment
+    slack beside the buffer through which the threads that share a logical
+    thread's beams pass their terms (csrc/gn_solve.cu: Shape; beyond
+    ``match_eval.REGISTER_BEAMS`` beams that of ``REGISTER_BEAMS``)."""
+    pt = max(1, -(-min(b, match_eval.REGISTER_BEAMS) // match_eval.THREADS))
     q = min(pt, 4)
     x_bytes = (pt - -(-pt // q)) * match_eval.N_OUT * match_eval.THREADS * 4
-    return x_bytes + h * w + 16 <= DYN_SMEM
+    return x_bytes + h * w * itemsize + 16 <= DYN_SMEM
 
 
 def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
@@ -203,7 +209,8 @@ def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
     ``wrapper`` (B4's or B6's)."""
     dev = grid.device
     per_particle = points_xy.dim() == 3
-    _cuda.require(grid, "grid", torch.int8, 3, dev)
+    _cuda.require(grid, "grid", None, 3, dev)
+    code = _cuda.sq_code(grid, "grid")
     _cuda.require(org_cell, "org_cell", torch.int32, 2, dev)
     _cuda.require(state0, "state0", torch.float32, 2, dev)
     _cuda.require(points_xy, "points_xy", torch.float32,
@@ -218,9 +225,6 @@ def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
             f"gn_solve: grid {tuple(grid.shape)}, org_cell "
             f"{tuple(org_cell.shape)}, state0 {tuple(state0.shape)}, "
             f"points_xy {tuple(points_xy.shape)}, mask {tuple(mask.shape)}")
-    if b > MAX_BEAMS:
-        raise ValueError(f"gn_solve: {b} beams, at most {MAX_BEAMS} (the "
-                         f"kernel keeps each thread's beams in registers)")
     robust = float(cauchy_c) > 0.0
     cinv = f32(1.0 / (cauchy_c * cauchy_c)) if robust else 0.0
     consts = (f32(max_dist), f32(res), f32(scale), cinv, int(robust),
@@ -228,10 +232,11 @@ def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
               int(bool(want_lik)))
     out = torch.empty((N_ROWS, p), dtype=torch.float32, device=dev)
     err = _cuda.library("gn_solve").gn_solve_batched(
-        grid.data_ptr(), p, h, w, org_cell.data_ptr(), state0.data_ptr(),
-        points_xy.data_ptr(), mask.data_ptr(), b,
-        b if per_particle else 0, *consts, int(staged(h, w, b)),
-        out.data_ptr(), _cuda.stream_handle(dev))
+        grid.data_ptr(), code, p, h, w, org_cell.data_ptr(),
+        state0.data_ptr(), points_xy.data_ptr(), mask.data_ptr(), b,
+        b if per_particle else 0, *consts,
+        int(staged(h, w, b, grid.element_size())), out.data_ptr(),
+        _cuda.stream_handle(dev))
     _cuda.check(err, "gn_solve_batched")
-    wrapper.launches += 1
+    _cuda.count_launch(wrapper, grid.dtype)
     return _unpack(out)

@@ -13,9 +13,12 @@ corners with a one-hot matrix product and reduced in VMEM. On the GPU it is
 one CUDA kernel (``csrc/match_eval.cu``) that runs the evaluation of the
 whole-solve kernels B4/B6 (``csrc/gn_common.cuh``): one block of
 ``256 * Q`` threads per particle (one beam a thread at 768 beams), the
-sums in the order of :func:`_block_sum`, up to :data:`MAX_BEAMS` beams, each
-beam operand read through its strides (views such as ``loc[..., 1]`` pass
-as they are). :func:`gn_eval_sq` launches it for CUDA tensors;
+sums in the order of :func:`_block_sum`, each beam operand read through its
+strides (views such as ``loc[..., 1]`` pass as they are), one
+instantiation per squared-distance width (int8, uint8, int16, int32). Up
+to :data:`REGISTER_BEAMS` beams a thread keeps its beams in registers;
+beyond that the summing threads read their further beams' operands in the
+same order. :func:`gn_eval_sq` launches it for CUDA tensors;
 :func:`gn_eval_sq_plain` — B2's plain corners, :func:`_eval_math` and the
 block-order sum — is its plain version, bit-equal on the card, and runs
 for CPU tensors.
@@ -33,7 +36,7 @@ from . import _cuda, select4
 N_OUT = 10   # a00 a01 a02 a11 a12 a22 g0 g1 g2 chi2
 # csrc/gn_common.cuh: summation lanes (logical threads) of a block, warp
 THREADS, LANES = 256, 32
-MAX_BEAMS = 2048   # csrc/gn_common.cuh: 256 lanes x kMaxPT beams
+REGISTER_BEAMS = 2048   # csrc/gn_common.cuh: 256 lanes x kMaxPT beams
 
 
 def _block_sum(x):
@@ -134,7 +137,8 @@ def gn_eval_sq_plain(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res,
 def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
                cauchy_c):
     """f32 GN normal-equation sums (a00, a01, a02, a11, a12, a22, g0, g1,
-    g2, chi2) from an int8 squared-distance window: grid ``[H, W]`` with
+    g2, chi2) from a squared-distance window (int8, uint8, int16 or
+    int32): grid ``[H, W]`` with
     beam operands ``[B]`` gives ``[10]``; grids ``[P, H, W]`` with operands
     ``[P, B]`` give ``[P, 10]``. ``ly``, ``lx`` are int32 window-local
     cells, ``mux``, ``muy`` their fractions, ``hx``, ``hy`` the hits and
@@ -142,7 +146,7 @@ def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (a contiguous grid, beam operands of these dtypes and shapes in any
-    layout, at most :data:`MAX_BEAMS` beams) or raise.
+    layout, any number of beams) or raise.
     """
     kw = dict(max_dist=max_dist, res=res, scale=scale, cauchy_c=cauchy_c)
     if grid.device.type == "cpu":
@@ -150,7 +154,8 @@ def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
     dev = grid.device
     batched = grid.dim() == 3
     nd = 2 if batched else 1
-    _cuda.require(grid, "grid", torch.int8, nd + 1, dev)
+    _cuda.require(grid, "grid", None, nd + 1, dev)
+    code = _cuda.sq_code(grid, "grid")
     ops = dict(ly=ly, lx=lx, mux=mux, muy=muy, hx=hx, hy=hy, fm=fm)
     strides = []
     for name, t in ops.items():
@@ -161,8 +166,6 @@ def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
                              f"{tuple(t.shape)}, ly {tuple(ly.shape)}")
         strides += st if batched else (0, *st)   # (particles, beams)
     b = ly.shape[-1]
-    if b > MAX_BEAMS:
-        raise ValueError(f"gn_eval_sq: {b} beams, at most {MAX_BEAMS}")
     p = grid.shape[0] if batched else 1
     h, w = grid.shape[-2:]
     robust = float(cauchy_c) > 0.0
@@ -170,12 +173,14 @@ def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
     out = torch.empty((p, N_OUT), dtype=torch.float32, device=dev)
     lib = _cuda.library("match_eval")
     _cuda.check(lib.gn_eval_sq(
-        grid.data_ptr(), p, h, w, *(t.data_ptr() for t in ops.values()),
+        grid.data_ptr(), code, p, h, w,
+        *(t.data_ptr() for t in ops.values()),
         (ctypes.c_int64 * len(strides))(*strides), b, f32(max_dist),
         f32(res), f32(scale), cinv, int(robust), out.data_ptr(),
         _cuda.stream_handle(dev)), "gn_eval_sq")
-    gn_eval_sq.launches += 1
+    _cuda.count_launch(gn_eval_sq, grid.dtype)
     return out if batched else out[0]
 
 
 gn_eval_sq.launches = 0
+gn_eval_sq.width_launches = {}

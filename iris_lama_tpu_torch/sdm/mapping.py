@@ -6,7 +6,8 @@ cell arrays. Per scan, on a dense window:
 
 1. beam endpoints + truncation (slam2d.cpp:267-300 semantics, 3D norms);
 2. closed-form raycast (sdm/raycast.py);
-3. hit and visit counts deposited into the window (kernel B1);
+3. hit and visit counts deposited into the window (kernel B1, both in one
+   launch);
 4. frequency end state: occupied/visited += counts, obstacle iff
    ``4*occ > vis`` (LaMa's prob > 0.25, frequency_occupancy_map.cpp:38-44);
 5. exact capped EDT of the window (kernel B3), merged on the interior.
@@ -277,9 +278,8 @@ def scan_window_compute(cfg: MappingConfig, pose, points, mask, origin,
     radius = dcfg.radius_cells
     w = dist_old.shape[-1]
     idx = deposit_indices(cfg, pose, points, mask, origin, org_cell, w)
-    occ_add = scatter_matmul.deposit_counts(idx.hit_ly, idx.hit_lx, w, w)
-    vis_add = occ_add + scatter_matmul.deposit_counts(idx.free_ly,
-                                                      idx.free_lx, w, w)
+    occ_add, vis_add = scatter_matmul.deposit_pair(
+        idx.hit_ly, idx.hit_lx, idx.free_ly, idx.free_lx, w, w)
     vis_new = torch.clamp(vis_w.to(torch.int32) + vis_add, max=COUNT_MAX)
     occ_new = torch.clamp(occ_w.to(torch.int32) + occ_add, max=COUNT_MAX)
     # prob > 0.25  <=>  4*occ > vis (frequency_occupancy_map.cpp:40-44)

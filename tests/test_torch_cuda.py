@@ -75,10 +75,12 @@ def test_launchers_refuse_what_they_do_not_take(cuda):
     ly = torch.zeros(16, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):
         scatter_matmul.deposit_counts(ly, ly, 8, 8)
-    grid = torch.zeros((8, 8), dtype=torch.int16, device=cuda)
+    grid = torch.zeros((8, 8), dtype=torch.float32, device=cuda)
     idx = torch.zeros(16, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         select4.select4_sq(grid, idx, idx)
+    with pytest.raises(TypeError):
+        select4.select4_sq(grid.to(torch.int8), idx.long(), idx)
     m = torch.zeros((8, 16), dtype=torch.bool, device=cuda).t()
     with pytest.raises(ValueError):
         edt_pallas.edt2d(m, 25, 5)
@@ -92,7 +94,7 @@ def test_slam2d_on_card_matches_cpu(cuda):
                          trans_thresh=0.2, rot_thresh=0.2, capacity=1024,
                          scroll_kp=5)
     padded = [pad_scan(c, beam_bucket(120)) for c in data.clouds]
-    before = (scatter_matmul.deposit_counts.launches,
+    before = (scatter_matmul.deposit_pair.launches,
               select4.select4_sq.launches, edt_pallas.edt2d.launches)
     runs = []
     for dev in ("cpu", cuda):
@@ -105,7 +107,7 @@ def test_slam2d_on_card_matches_cpu(cuda):
     (acc_c, tc, esc_c), (acc_g, tg, esc_g) = runs
     assert acc_c == acc_g and esc_c == esc_g == 0
     assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
-    after = (scatter_matmul.deposit_counts.launches,
+    after = (scatter_matmul.deposit_pair.launches,
              select4.select4_sq.launches, edt_pallas.edt2d.launches)
     assert all(a > b for a, b in zip(after, before))
 
@@ -209,15 +211,35 @@ def test_edt_kernel_at_tile_edges(cuda, shape, r):
 
 
 def test_edt_kernel_refuses_radius(cuda):
-    """Radius 64, the largest halo the tile takes, is served; 65 and 255
-    (R + 1 > 255 for the uint8 |dy|) are refused."""
+    """Radius 64, the largest halo the tile takes, is served by the tile;
+    65 and 255 (R + 1 > 255 for the uint8 |dy|) by the two-launch kernel;
+    only a negative radius is refused."""
     g = torch.Generator(device=cuda).manual_seed(12)
     m = torch.rand((100, 130), generator=g, device=cuda) < 0.001
-    assert torch.equal(edt_pallas.edt2d(m, 65 * 65, 64),
-                       edt_pallas.edt2d_plain(m, 65 * 65, 64))
-    for r in (65, 255):
-        with pytest.raises(ValueError):
-            edt_pallas.edt2d(m, 100, r)
+    for r in (64, 65, 255):
+        assert torch.equal(edt_pallas.edt2d(m, 65 * 65, r),
+                           edt_pallas.edt2d_plain(m, 65 * 65, r)), r
+    with pytest.raises(ValueError):
+        edt_pallas.edt2d(m, 100, -1)
+
+
+@pytest.mark.parametrize("r", [65, 100, 254])
+@pytest.mark.parametrize("shape", [(448, 448), (61, 203), (3, 300, 301)])
+def test_edt_kernel_large_radius(cuda, shape, r):
+    """Radii beyond the tile's 64 (up to R + 1 = 255 and past the grid's
+    size) on random, border-only and empty masks, P = 1 and 3: bit-equal
+    to the plain version, one launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(r)
+    cap = min((r + 1) ** 2 - 1, 32767)
+    border = torch.zeros(shape, dtype=torch.bool, device=cuda)
+    border[..., 0, :] = torch.rand(shape[-1], generator=g, device=cuda) < 0.3
+    border[..., :, -1] = torch.rand(shape[-2], generator=g, device=cuda) < 0.3
+    for m in (torch.rand(shape, generator=g, device=cuda) < 0.002, border,
+              torch.zeros(shape, dtype=torch.bool, device=cuda)):
+        before = edt_pallas.edt2d.launches
+        got = edt_pallas.edt2d(m, cap, r)
+        assert edt_pallas.edt2d.launches == before + 1
+        assert torch.equal(got, edt_pallas.edt2d_plain(m, cap, r)), shape
 
 
 def test_batched_edt_kernel_bit_exact(cuda):
@@ -294,9 +316,81 @@ def test_gn_solve_kernel_at_edges(cuda, b, hw, per_particle, p, staged):
 
 
 def test_gn_solve_kernel_refuses_beams(cuda):
+    """2049 beams, one past those held in registers, are served (bit-equal
+    to the plain version); a mask that does not match the scan is
+    refused."""
     args, kw = _pf_solve_case(cuda, p=1, b=2049)
+    got = gn_batch.solve_window_sq(*args, **kw)
+    want = gn_batch.solve_window_sq_plain(*args, **kw)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
     with pytest.raises(ValueError):
-        gn_batch.solve_window_sq(*args, **kw)
+        gn_batch.solve_window_sq(*args[:4], args[4][:2048], **kw)
+
+
+def _widened(t, dtype):
+    """An int8 squared-distance tensor as ``dtype``: the same values (an
+    exact widening)."""
+    return t.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
+@pytest.mark.parametrize("per_particle,hw", [(False, 432), (True, 576),
+                                             (False, (458, 459))])
+def test_gn_solve_kernel_widths(cuda, dtype, per_particle, hw):
+    """B4/B6 on uint8, int16 and int32 windows (staged in shared memory
+    where they fit beside the exchange buffer, else read from global
+    memory), max_iter 0, 1 and 50, with and without the likelihood:
+    bit-equal to the plain version, and, on an exact widening of an int8
+    window, to the int8 kernel; the launch counted under its width."""
+    (grids, org, st0, pts, mask), kw = _pf_solve_case("cpu", p=3, hw=hw,
+                                                      seed=21)
+    if per_particle:
+        g = torch.Generator().manual_seed(22)
+        pts = torch.stack([torch.roll(pts, q * 37, 0) for q in range(3)])
+        mask = torch.rand((3, pts.shape[1]), generator=g) < 0.9
+    args8 = [t.to(cuda).contiguous() for t in (grids, org, st0, pts, mask)]
+    args = [_widened(args8[0], dtype), *args8[1:]]
+    fn = gn_solve if per_particle else gn_batch
+    key = str(dtype).removeprefix("torch.")
+    for max_iter in (0, 1, 50):
+        for want_lik in (False, True):
+            kw.update(max_iter=max_iter, want_lik=want_lik)
+            before = fn.solve_window_sq.width_launches.get(key, 0)
+            got = fn.solve_window_sq(*args, **kw)
+            assert fn.solve_window_sq.width_launches[key] == before + 1
+            want = fn.solve_window_sq_plain(*args, **kw)
+            ref8 = fn.solve_window_sq(*args8, **kw)
+            for a, w, r in zip(got, want, ref8):
+                assert torch.equal(a, w) and torch.equal(a, r), \
+                    (max_iter, want_lik)
+
+
+@pytest.mark.parametrize("b", [2049, 3000, 4096])
+@pytest.mark.parametrize("per_particle", [False, True])
+def test_gn_solve_kernel_beyond_register_beams(cuda, b, per_particle):
+    """B4/B6 past the 2,048 beams held in registers (the further beams
+    read from global memory each evaluation), on a staged and a global
+    window, int8 and int16: bit-equal to the plain version."""
+    for hw, dtype in ((432, torch.int8), (576, torch.int16)):
+        (grids, org, st0, pts, mask), kw = _pf_solve_case(
+            "cpu", p=2, hw=hw, b=b, seed=b)
+        if per_particle:
+            g = torch.Generator().manual_seed(8)
+            pts = torch.stack([torch.roll(pts, q * 37, 0) for q in range(2)])
+            mask = torch.rand((2, b), generator=g) < 0.9
+        args = [t.to(cuda).contiguous() for t in (grids.to(dtype), org, st0,
+                                                  pts, mask)]
+        fn = gn_solve if per_particle else gn_batch
+        for max_iter in (0, 50):
+            kw.update(max_iter=max_iter)
+            got = fn.solve_window_sq(*args, **kw)
+            want = fn.solve_window_sq_plain(*args, **kw)
+            if max_iter == 50:
+                assert int(got[1].sum()) >= 2
+            for name, a, w in zip(("state", "iterations", "chi2",
+                                   "sum_d2"), got, want):
+                assert torch.equal(a, w), (hw, dtype, max_iter, name)
 
 
 @pytest.mark.parametrize("p", [1, 3])
@@ -390,12 +484,61 @@ def test_gn_eval_kernel_reads_expanded_operands(cuda):
 
 
 def test_gn_eval_kernel_refuses_beams(cuda):
+    """2049 beams, one past those held in registers, are served (bit-equal
+    to the plain version); operands of unequal length are refused."""
     grids, (loc, mu, hits, fm) = _eval_case(cuda, 1, 2049, 6)
+    ops = (loc[0, :, 1], loc[0, :, 0], mu[0, :, 0], mu[0, :, 1],
+           hits[0, :, 0], hits[0, :, 1], fm[0])
+    kw = dict(max_dist=0.5, res=0.05, scale=20.0, cauchy_c=0.15)
+    assert torch.equal(match_eval.gn_eval_sq(grids[0][0], *ops, **kw),
+                       match_eval.gn_eval_sq_plain(grids[0][0], *ops, **kw))
     with pytest.raises(ValueError):
-        match_eval.gn_eval_sq(grids[0], loc[..., 1], loc[..., 0], mu[..., 0],
-                              mu[..., 1], hits[..., 0], hits[..., 1], fm,
-                              max_dist=0.5, res=0.05, scale=20.0,
-                              cauchy_c=0.15)
+        match_eval.gn_eval_sq(grids[0][0], *ops[:6], fm[0, :2048], **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
+@pytest.mark.parametrize("p", [1, 3])
+def test_gn_eval_kernel_widths(cuda, dtype, p):
+    """B5 on uint8, int16 and int32 windows (an exact widening of an
+    int8 one, and the type's full range), strided views, unit and Cauchy
+    weights: bit-equal to the plain version and, on the widening, to the
+    int8 kernel; the launch counted under its width."""
+    grids, (loc, mu, hits, fm) = _eval_case(cuda, p, 768, 40 + p)
+    views = (loc[..., 1], loc[..., 0], mu[..., 0], mu[..., 1], hits[..., 0],
+             hits[..., 1], fm)
+    hi = torch.iinfo(dtype).max
+    g = torch.Generator().manual_seed(41)
+    full = torch.randint(0, hi, grids[0].shape, generator=g).to(dtype)
+    key = str(dtype).removeprefix("torch.")
+    for grid8, grid in ((grids[0], _widened(grids[0], dtype)),
+                        (None, full.to(cuda))):
+        for cauchy_c in (0.15, 0.0):
+            kw = dict(max_dist=0.5, res=0.05, scale=20.0, cauchy_c=cauchy_c)
+            args = (grid, *views) if p > 1 else \
+                (grid[0], *(t[0] for t in views))
+            before = match_eval.gn_eval_sq.width_launches.get(key, 0)
+            got = match_eval.gn_eval_sq(*args, **kw)
+            assert match_eval.gn_eval_sq.width_launches[key] == before + 1
+            assert torch.equal(got, match_eval.gn_eval_sq_plain(*args, **kw))
+            if grid8 is not None:
+                a8 = (grid8, *args[1:]) if p > 1 else (grid8[0], *args[1:])
+                assert torch.equal(got, match_eval.gn_eval_sq(*a8, **kw))
+
+
+@pytest.mark.parametrize("b", [2049, 3000, 4096])
+@pytest.mark.parametrize("p", [1, 3])
+def test_gn_eval_kernel_beyond_register_beams(cuda, b, p):
+    """B5 past the 2,048 beams held in registers, int8 and int32, strided
+    views and contiguous operands: bit-equal to the plain version."""
+    grids, (loc, mu, hits, fm) = _eval_case(cuda, p, b, b + p)
+    views = (loc[..., 1], loc[..., 0], mu[..., 0], mu[..., 1], hits[..., 0],
+             hits[..., 1], fm)
+    kw = dict(max_dist=0.5, res=0.05, scale=20.0, cauchy_c=0.15)
+    for grid in (grids[0], _widened(grids[0], torch.int32)):
+        for ops in (views, [v.contiguous() for v in views]):
+            args = (grid, *ops) if p > 1 else (grid[0], *(t[0] for t in ops))
+            assert torch.equal(match_eval.gn_eval_sq(*args, **kw),
+                               match_eval.gn_eval_sq_plain(*args, **kw))
 
 
 @pytest.mark.parametrize("w", [488, 489, 490, 491])    # w % 4: 0, 1, 2, 3
@@ -426,6 +569,86 @@ def test_select4_kernel_at_edges(cuda, w):
             assert select4.select4_sq.launches == before + 1
             want = select4.select4_sq_plain(grid, iy, ix)
             assert torch.equal(got, want), (off, iy.stride())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
+def test_select4_kernel_widths(cuda, dtype):
+    """B2 on uint8, int16 and int32 grids over the type's whole range
+    (uint8 read unsigned, the others signed), cells around every edge,
+    contiguous and strided indices: bit-equal to the plain version."""
+    g = torch.Generator().manual_seed(30)
+    info = torch.iinfo(dtype)
+    h, w, b = 489, 491, 777
+    grid = torch.randint(info.min, info.max, (h, w), generator=g,
+                         dtype=torch.int64).to(dtype).to(cuda)
+    cells = torch.stack([torch.randint(-3, w + 3, (b,), generator=g),
+                         torch.randint(-3, h + 3, (b,), generator=g)],
+                        -1).to(torch.int32).to(cuda)
+    key = str(dtype).removeprefix("torch.")
+    for ly, lx in ((cells[:, 1], cells[:, 0]),
+                   (cells[:, 1].contiguous(), cells[:, 0].contiguous())):
+        before = select4.select4_sq.width_launches.get(key, 0)
+        got = select4.select4_sq(grid, ly, lx)
+        assert select4.select4_sq.width_launches[key] == before + 1
+        assert torch.equal(got, select4.select4_sq_plain(grid, ly, lx))
+
+
+@pytest.mark.parametrize("rays,steps", [(768, 202), (100, 203), (33, 1)])
+@pytest.mark.parametrize("p", [1, 3])
+def test_deposit_kernel_ragged_streams(cuda, rays, steps, p):
+    """B1 on raycast-like streams (neighbouring rays share cells near the
+    sensor) of a whole number of the kernel's 512-element blocks (Slam2D's
+    768 x 202) and of ragged lengths, beam-major, shuffled and with
+    sentinels, one particle and three: bit-equal to the plain version, one
+    launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(rays + steps + p)
+    h = w = 448
+    t = torch.arange(steps, device=cuda)
+    ang = torch.rand((p, rays, 1), generator=g, device=cuda) * 0.3
+    y = (200 + torch.sin(ang) * t).to(torch.int32)     # rays fan out
+    x = (224 + torch.cos(ang) * t * 1.7 - 150).to(torch.int32)
+    ly, lx = y.reshape(p, -1), x.reshape(p, -1)
+    n = rays * steps
+    perm = torch.randperm(n, device=cuda)
+    sent = torch.rand((p, n), generator=g, device=cuda) < 0.3
+    for cly, clx in ((ly, lx),
+                     (ly[:, perm].contiguous(), lx[:, perm].contiguous()),
+                     (torch.where(sent, h, ly).contiguous(), lx)):
+        a, b = (cly[0], clx[0]) if p == 1 else (cly, clx)
+        before = scatter_matmul.deposit_counts.launches
+        got = scatter_matmul.deposit_counts(a, b, h, w)
+        assert scatter_matmul.deposit_counts.launches == before + 1
+        assert torch.equal(got, scatter_matmul.deposit_counts_plain(a, b, h,
+                                                                    w))
+
+
+@pytest.mark.parametrize("rays,steps", [(768, 202), (100, 203)])
+@pytest.mark.parametrize("p", [1, 3, 30])
+def test_deposit_pair_kernel(cuda, rays, steps, p):
+    """The pair (hits into occ and vis, free cells into vis, one memset
+    and one launch) on random streams with out-of-grid elements, ragged
+    lengths, one to 30 particles: bit-equal to two plain deposits and an
+    add; particles of mismatched streams are refused."""
+    g = torch.Generator(device=cuda).manual_seed(p + steps)
+    h = w = 448
+
+    def stream(n):
+        ly = torch.randint(-4, h + 4, (p, n), generator=g, device=cuda,
+                           dtype=torch.int32)
+        lx = torch.randint(100, 140, (p, n), generator=g, device=cuda,
+                           dtype=torch.int32)
+        return (ly[0], lx[0]) if p == 1 else (ly, lx)
+
+    hit, free = stream(rays), stream(rays * steps)
+    before = scatter_matmul.deposit_pair.launches
+    got = scatter_matmul.deposit_pair(*hit, *free, h, w)
+    assert scatter_matmul.deposit_pair.launches == before + 1
+    want = scatter_matmul.deposit_pair_plain(*hit, *free, h, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if p > 1:
+        with pytest.raises(ValueError):
+            scatter_matmul.deposit_pair(*hit, free[0][:1].contiguous(),
+                                        free[1][:1].contiguous(), h, w)
 
 
 def test_value_scatters_match_plain(cuda):
@@ -501,7 +724,7 @@ def test_pf_on_card_matches_cpu(cuda):
                            meas_sigma_gain=1.0, resident_extra_patches=2,
                            host_reorg_slack=0.5)
     padded = [pad_scan(c, beam_bucket(120)) for c in data.clouds[:11]]
-    fns = (scatter_matmul.deposit_counts, edt_pallas.edt2d,
+    fns = (scatter_matmul.deposit_pair, edt_pallas.edt2d,
            gn_batch.solve_window_sq)
     before = [f.launches for f in fns]
     runs = []

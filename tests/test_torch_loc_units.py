@@ -108,7 +108,9 @@ def _b4_case(name):
     if name == "want_lik":                  # test_kernel_likelihood_sum
         grid, pts, mask = _world(np.random.default_rng(2), 150)
         return grid[None], pts, mask, _states((0.1, 0.05, 0.0)), True
-    if name in ("b257", "b1"):    # the edges of the kernel's 256 threads
+    if name in ("b257", "b1", "b2049", "b4096"):
+        # the edges of the kernel's 256 threads and of the 2048 beams it
+        # holds in registers
         grid, pts, mask = _world(np.random.default_rng(6), int(name[1:]))
         if name == "b1":
             mask[:] = True
@@ -122,7 +124,8 @@ def _b4_case(name):
 
 
 @pytest.mark.parametrize("case", ["seed0", "seed3", "vmapped", "want_lik",
-                                  "per_particle_scans", "b257", "b1"])
+                                  "per_particle_scans", "b257", "b1",
+                                  "b2049", "b4096"])
 def test_gn_solve_plain_matches_jax_kernel(case):
     grids, pts, mask, states, want_lik = _b4_case(case)
     p = grids.shape[0]
@@ -251,10 +254,11 @@ def _jax_eval(args, kw):
 
 @pytest.mark.parametrize("weights", ["cauchy", "unit"])
 @pytest.mark.parametrize("p", [1, 3])
-@pytest.mark.parametrize("b", [1, 255, 257, 1100, 2048])
+@pytest.mark.parametrize("b", [1, 255, 257, 1100, 2048, 2049, 4096])
 def test_gn_eval_plain_matches_jax_at_edges(b, p, weights):
-    """B5's plain version at the edges of the kernel's design — 1 to 2048
-    beams (one to eight a summation lane), one window or three, unit and
+    """B5's plain version at the edges of the kernel's design — 1 to 4096
+    beams (one to eight a summation lane in registers, then the further
+    beams read again), one window or three, unit and
     Cauchy weights, cells off the window on every side — against the JAX
     fused evaluation in interpret mode: rtol 1e-5, plus atol 1e-6 times
     the beam count (the ten sums are reduced in another order, and a sum

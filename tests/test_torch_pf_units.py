@@ -187,6 +187,34 @@ def test_batched_deposit_bit_exact(case, impl):
                                h, w).numpy(), got[q].numpy())
 
 
+@pytest.mark.parametrize("p", [1, 3])
+def test_deposit_pair_plain_matches_jax(p):
+    """B1's pair (the hit counts, and the hit plus free-space counts) on
+    raycast streams of ``p`` particles against two JAX
+    ``scatter_counts_2d`` calls (Pallas interpret, vmapped over the
+    particles) and an add: bit-exact."""
+    hit_ly, hit_lx, h, w = (a[:p] if isinstance(a, np.ndarray) else a
+                            for a in _batched_streams("sentinels", n=200))
+    free_ly, free_lx = (a[:p] for a in _batched_streams(
+        "duplicates", n=200 * 17)[:2])
+
+    def jcounts(ly, lx):
+        return np.asarray(jax.vmap(lambda a, b: jsm.scatter_counts_2d(
+            a, b, h, w, impl="interpret_i8"))(jnp.asarray(ly),
+                                              jnp.asarray(lx)))
+
+    occ_w = jcounts(hit_ly, hit_lx)
+    vis_w = occ_w + jcounts(free_ly, free_lx)
+    t = [torch.as_tensor(a) for a in (hit_ly, hit_lx, free_ly, free_lx)]
+    if p == 1:
+        t = [a[0] for a in t]
+        occ_w, vis_w = occ_w[0], vis_w[0]
+    occ, vis = tsm.deposit_pair(*t, h, w)
+    assert occ.dtype == vis.dtype == torch.int32
+    np.testing.assert_array_equal(occ.numpy(), occ_w)
+    np.testing.assert_array_equal(vis.numpy(), vis_w)
+
+
 @pytest.mark.parametrize("cap,r", [(100, 10), (25, 5)])
 def test_batched_edt_bit_exact(cap, r):
     rng = np.random.default_rng(r)

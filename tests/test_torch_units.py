@@ -403,13 +403,26 @@ def test_edt_plain_at_ragged_shapes(shape, r, border_only):
 
 
 @pytest.mark.parametrize("r,match", [(65, "beyond 64"), (255, "uint8"),
-                                     (-1, "uint8")])
+                                     (-1, "radius >= 0")])
 def test_edt_refuses_radius(r, match):
-    """The kernel's shared-memory tile takes a halo of at most 64 cells and
-    keeps the capped |dy| as uint8: the wrapper refuses other radii on
-    every device."""
-    with pytest.raises(ValueError, match=match):
-        tedt.edt2d(torch.zeros((8, 8), dtype=torch.bool), 25, r)
+    """Only a negative radius is refused, on every device. The radii the
+    shared-memory tile does not take — beyond its 64-cell halo, and R + 1 =
+    256 past its uint8 |dy| — are served, equal to the JAX package's
+    ``distance.edt2d`` (on a grid large enough for the JAX shifts: H above
+    the largest doubling shift, W above R)."""
+    if r < 0:
+        with pytest.raises(ValueError, match=match):
+            tedt.edt2d(torch.zeros((8, 8), dtype=torch.bool), 25, r)
+        return
+    rng = np.random.default_rng(r)
+    shape = (140, 300) if r > 128 else (70, 90)
+    obst = rng.random(shape) < 0.002
+    obst[0, rng.integers(0, shape[1], 3)] = True
+    cap = min((r + 1) ** 2 - 1, 32767)
+    want = jax.jit(jdist.edt2d, static_argnums=(1, 2))(jnp.asarray(obst),
+                                                       cap, r)
+    np.testing.assert_array_equal(N(tedt.edt2d(T(obst), cap, r)),
+                                  np.asarray(want))
 
 
 # ---------------------------------------------------------------------------
