@@ -95,7 +95,41 @@ Phases, one JSON line each:
    and on the card, launch counts set to 0 just before the card's run and
    read just after: the same accepted scans, resample decisions and best
    particle, poses within 1 mm / 1e-3 rad, and B2 (Slam2D) or B6 (PF)
-   launched at that width.
+   launched at that width;
+13. lo_kernels — LidarOdometry2D's kernels on the bench_lidar.py workload's
+   first scan and window (720 beams padded to 768, 5 cm cells, a 640 x 640
+   window, 1 m rays of 22 steps, l2_max 1 m): B1's pair into [2, 640, 640]
+   and B3 at R = 20, cap 400 (on the scan's obstacles and on random masks),
+   each bit-equal to its plain version, with times, bounds and launch
+   floors as in phase 3;
+14. lo_prefix — the first 60 scans of that workload on the CPU (plain
+   versions) and on the card (kernels): poses within 1 mm / 1e-3 rad, the
+   same refresh decisions and patch counts, and the maps through the dense
+   window around the last pose (visits and meters equal, log-odds within
+   4e-6, but for at most 0.1% of the cells: ulp-different poses, as in
+   phase 4); then one map update from the card's state at its last pose on
+   both devices: pool tables, visits and meters equal, log-odds within
+   4e-6;
+15. lo_main_path — the bench_lidar.py workload (SimConfig(n_steps=1600,
+   seed=3, smooth=4), LidarOdometry2DOptions(resolution=0.05,
+   max_range=10.0, capacity=4096)) through LidarOdometry2D.update_prepadded
+   from device-staged scans: a 100-scan warm-up, then 3 reps of the 1,600
+   scans (bench_lidar.py runs 5), each rep's first scan moved by rep·1e-4
+   m as there, launch counts set to 0 just before the reps and read just
+   after: scans/s (median rep), drift m/100 m per rep and the median (< 8,
+   bench_lidar.py's bound on a device), diverged reps (> 3x the median),
+   the final error, launches and host reads per scan, refreshes, the
+   pool's peak patch count and overflow (0), peak memory; then device
+   activities and device time a scan over 100 scans of a profiled pass
+   (lo_profiled);
+16. slam2d_transient, slam2d_pool — the phase 5 workload with
+   ``transient_map=True`` and with ``resident_window=False``: the first 60
+   scans on the CPU and on the card compared as in phase 4 (the maps
+   through the dense window around the last pose), then one full pass on
+   the card: scans/s, ATE (the pool path < 12 mm; the transient map
+   within 1 mm of the JAX package's 18.71 mm on this workload,
+   ref_slam2d_options.py: it forgets what the loop would close on), zero
+   escapes, and B1, B2 and B3 launched.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -126,6 +160,18 @@ LOC_PROFILED = 41              # Loc2D scans of the profiled pass
 WIDTHS = ("uint8", "int16", "int32")   # squared-distance widths past int8
 FINE_SCANS = 40                # Slam2D scans at 4 and 3 cm, CPU vs card
 FINE_PF = 6                    # PF updates at 4 cm, CPU vs card
+LO_SCANS = 1600                # bench_lidar.py's scans a rep
+LO_WARMUP = 100                # LidarOdometry2D warm-up scans
+LO_REPS = 3                    # LidarOdometry2D reps (bench_lidar.py: 5)
+LO_PREFIX = 60                 # LidarOdometry2D scans, CPU vs card
+LO_PROFILED = 100              # LidarOdometry2D scans of the profiled pass
+LO_DRIFT_BOUND = 8.0           # bench_lidar.py:106, m/100 m on a device
+LO_ATOL = 4e-6                 # log-odds, CPU vs card
+# Slam2D's transient map on the phase 5 workload: the JAX package's ATE on
+# the CPU (ref_slam2d_options.py); a transient map has no loop closure, so
+# bench.py's 12 mm bound does not apply to it
+TRANSIENT_ATE_REF_M = 0.018708577
+TRANSIENT_ATE_TOL_M = 0.001
 
 
 _START = []   # main()'s start on the host clock
@@ -1639,6 +1685,363 @@ def fine_phases(torch, dev) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def lo_workload():
+    """bench_lidar.py's LidarOdometry2D workload: (data, options, scans
+    padded to 768, ground truth relative to the start pose, path
+    length)."""
+    from iris_lama_tpu_torch.algos.lidar_odometry_2d import (
+        LidarOdometry2DOptions)
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.utils import simulator
+    from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=LO_SCANS, seed=3, smooth=4,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    opts = LidarOdometry2DOptions(resolution=0.05, max_range=10.0,
+                                  capacity=4096)
+    g0 = Pose2D(*data.poses_gt[0])
+    rel_gt = np.asarray([(g0 - Pose2D(*p)).xyr() for p in data.poses_gt])
+    path_len = float(np.sum(np.linalg.norm(np.diff(rel_gt[:, :2], axis=0),
+                                           axis=1)))
+    padded = [pad_scan(c, beam_bucket(720)) for c in data.clouds]
+    return data, opts, padded, rel_gt, path_len
+
+
+def map_window(state, cfg, pose) -> tuple:
+    """(occupied, visited, dist) of the pool map ``state`` as numpy grids
+    over the ``cfg.window_patches`` window centred at ``pose``."""
+    from iris_lama_tpu_torch.sdm import window as win_mod
+    geo, wp = cfg.geometry, cfg.window_patches
+    org = win_mod.window_org(geo, geo.w2m(pose[:2]), wp)
+    keys = win_mod.window_patch_keys(geo, org, wp)
+    return tuple(
+        win_mod.gather_window(state.table, arr, keys, default)[0].cpu()
+        .numpy()
+        for arr, default in ((state.occupied, 0), (state.visited, 0),
+                             (state.dist, cfg.distance.max_dist)))
+
+
+def lo_phases(torch, dev) -> list:
+    """Phases 13-15: LidarOdometry2D's kernels at its shapes, the CPU/card
+    prefix, and the bench_lidar.py workload. Returns the kernels-line
+    entries of B1's pair and B3 at LidarOdometry2D's shapes, with their
+    launches in phase 15."""
+    from iris_lama_tpu_torch.algos.lidar_odometry_2d import LidarOdometry2D
+    from iris_lama_tpu_torch.core import lie
+    from iris_lama_tpu_torch.nlls import solver as nlls_solver
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
+    from iris_lama_tpu_torch.ops import select4
+    from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.sdm import window as win_mod
+    from iris_lama_tpu_torch.sdm.occupancy import probabilistic_saturate
+
+    data, opts, padded, rel_gt, path_len = lo_workload()
+    cfg = opts.mapping_config()
+    geo = cfg.geometry
+    w = cfg.window_cells
+    r, cap = cfg.distance.radius_cells, cfg.distance.max_sqdist
+
+    # 13. B1's pair and B3 on the first scan's window (the first map
+    # update: the identity pose)
+    pts, msk, ori = (torch.as_tensor(a, device=dev) for a in padded[0])
+    pose = lie.se2(0.0, 0.0, 0.0, device=dev)
+    org = win_mod.window_org(geo, geo.w2m(pose[:2]), cfg.window_patches)
+    idx = mapping.deposit_indices(cfg, pose, pts, msk, ori, org, w)
+    hit = (idx.hit_ly, idx.hit_lx)
+    free = (idx.free_ly, idx.free_lx)
+    n_hit, n_free = idx.hit_ly.numel(), idx.free_ly.numel()
+    got = scatter_matmul.deposit_pair(*hit, *free, w, w)
+    want = scatter_matmul.deposit_pair_plain(*hit, *free, w, w)
+    torch.cuda.synchronize()
+    pair_err = max(int((g - x).abs().max()) for g, x in zip(got, want))
+    assert all(torch.equal(g, x) for g, x in zip(got, want)), \
+        f"B1 pair at LidarOdometry2D's [2,{w},{w}]: err {pair_err}"
+    pair_library = deposit_library(torch, dev, [
+        (idx.hit_ly[None], idx.hit_lx[None], (0, 1)),
+        (idx.free_ly[None], idx.free_lx[None], (1,))], 1, w, w)
+    pb = bound((n_hit + n_free) * 8 + 2 * w * w * 4, 2 * n_hit + n_free)
+    pair = {"name": "deposit_pair_lo", "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/deposit.cu",
+            "replaces": "iris_lama_tpu/ops/scatter_matmul.py:81",
+            "n_hit": n_hit, "n_free": n_free, "ray_steps": cfg.ray_steps,
+            "hw": [w, w], "max_abs_err": pair_err,
+            "cells_in_window": int((idx.free_ly < w).sum()
+                                   + (idx.hit_ly < w).sum()),
+            "launch_floor_ms": memset_floor_ms(
+                torch, dev, 2 * w * w * 4,
+                scatter_matmul.launch_blocks(1, [n_hit, n_free]), 256),
+            **timings(torch, "", lambda: scatter_matmul.deposit_pair(
+                *hit, *free, w, w), 300),
+            **timings(torch, "plain_",
+                      lambda: scatter_matmul.deposit_pair_plain(
+                          *hit, *free, w, w), 300),
+            **timings(torch, "library_", pair_library, 20),
+            "library_call": "zeros + index_put_(accumulate=True) over both "
+                            "grids' bins",
+            "bound_ms": pb[0], "bound_by": pb[1]}
+    occ_add, vis_add = got
+    real = probabilistic_saturate(torch.zeros((w, w), device=dev), occ_add,
+                                  vis_add - occ_add) > 0.0
+    b3_err = 0
+    for m in (real, b3_mask(torch, dev, (w, w), 0.01),
+              b3_mask(torch, dev, (w, w), 0.3),
+              b3_mask(torch, dev, (w, w), 1.0)):
+        g3 = edt_pallas.edt2d(m, cap, r)
+        w3 = edt_pallas.edt2d_plain(m, cap, r)
+        torch.cuda.synchronize()
+        b3_err = max(b3_err, int((g3 - w3).abs().max()))
+        assert torch.equal(g3, w3), f"B3 at {w}^2, R={r}: err {b3_err}"
+    # squared distances up to the cap: past the 255 of a byte
+    assert cap > 255 and int(edt_pallas.edt2d(real, cap, r).max()) == cap
+    eb = bound(w * w * (1 + 4), w * w * 4 * (2 * r + 1))
+    edt = {"name": "edt2d_lo", "route": "cuda",
+           "source": "iris_lama_tpu_torch/csrc/edt.cu",
+           "replaces": "iris_lama_tpu/ops/edt_pallas.py:25",
+           "hw": [w, w], "radius": r, "cap": cap, "max_abs_err": b3_err,
+           "obstacles": int(real.sum()),
+           "launch_floor_ms": launch_floor_ms(
+               torch, dev, -(-w // 64) * -(-w // 32), 256),
+           **timings(torch, "", lambda: edt_pallas.edt2d(real, cap, r), 300),
+           **timings(torch, "plain_", lambda: edt_pallas.edt2d_plain(
+               real, cap, r), 100),
+           "library_ms": None,
+           "library_call": "none: no single PyTorch call computes a capped EDT",
+           "bound_ms": eb[0], "bound_by": eb[1]}
+    for k in (pair, edt):
+        emit({"phase": "lo_kernels", **k})
+
+    # 14. prefix: CPU plain versions vs the card
+    def prefix(device):
+        lo = LidarOdometry2D(opts, device=device)
+        flags, patches = [], []
+        t0 = time.perf_counter()
+        for p in padded[:LO_PREFIX]:
+            lo.update_prepadded(*(torch.as_tensor(a, device=device)
+                                  for a in p))
+            flags.append(lo.last_refresh)
+            patches.append(int(lo.map.table.num_patches()))
+        return lo, flags, patches, time.perf_counter() - t0
+
+    cpu, flags_c, patches_c, s_c = prefix("cpu")
+    gpu, flags_g, patches_g, s_g = prefix(dev)
+    tc, tg = cpu.trajectory(), gpu.trajectory()
+    dxy = float(np.abs(tc[:, :2] - tg[:, :2]).max())
+    dth = float(np.abs(np.angle(np.exp(1j * (tc[:, 2] - tg[:, 2])))).max())
+    last = gpu._pose_dev.cpu()
+    wc = map_window(cpu.map, cfg, last)
+    wg = map_window(gpu.map, cfg, last.to(dev))
+    occ_d = float(np.abs(wc[0] - wg[0]).max())
+    emit({"phase": "lo_prefix", "scans": LO_PREFIX, "cpu_s": s_c,
+          "card_s": s_g, "max_dxy_m": dxy, "max_dtheta_rad": dth,
+          "refreshes": sum(flags_g), "same_refreshes": flags_c == flags_g,
+          "patches": [patches_c[-1], patches_g[-1]],
+          "window": list(wc[0].shape),
+          "differing_cells": {"visited": int(np.sum(wc[1] != wg[1])),
+                              "dist": int(np.sum(wc[2] != wg[2])),
+                              "log_odds_beyond_tol": int(np.sum(
+                                  np.abs(wc[0] - wg[0]) > LO_ATOL))},
+          "max_log_odds_diff": occ_d})
+    assert dxy <= 1e-3 and dth <= 1e-3, "lo_prefix: trajectories diverge"
+    assert flags_c == flags_g, "lo_prefix: refresh decisions differ"
+    assert patches_c == patches_g, "lo_prefix: patch counts differ"
+    # as in phase 4: the card's and the CPU's matched poses differ by ulps,
+    # so a ray may end in the neighbouring cell; a few cells may differ
+    diff = (np.sum(wc[1] != wg[1]) + np.sum(wc[2] != wg[2])
+            + np.sum(np.abs(wc[0] - wg[0]) > LO_ATOL))
+    assert diff <= 1e-3 * wc[0].size, f"lo_prefix: {diff} cells differ"
+    # one map update from one state at one pose on both: exact
+    from iris_lama_tpu_torch.utils import state as state_mod
+    d = state_mod.lo_to_numpy(gpu)
+    scan = padded[LO_PREFIX]
+    after = []
+    for device in ("cpu", dev):
+        st, _ = mapping.update_maps(
+            state_mod.map_from_numpy(d, device), cfg,
+            torch.as_tensor(d["pose"], device=device),
+            *(torch.as_tensor(a, device=device) for a in scan))
+        after.append(state_mod.map_to_numpy(st))
+    same = {k: bool(np.array_equal(after[0][k], after[1][k]))
+            for k in after[0] if k != "occupied"}
+    occ_one = float(np.abs(after[0]["occupied"]
+                           - after[1]["occupied"]).max())
+    emit({"phase": "lo_prefix_update", "equal": same,
+          "max_log_odds_diff": occ_one,
+          "num_patches": cfg.capacity - int(after[1]["table_n_free"])})
+    assert all(same.values()) and occ_one <= LO_ATOL, \
+        f"lo_prefix: one update from one state differs {same} {occ_one}"
+    del cpu, gpu
+
+    # 15. the bench_lidar.py workload on the card
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded]
+
+    def one_pass(rep, scans=LO_SCANS):
+        lo = LidarOdometry2D(opts, device=dev)
+        p0, m0, o0 = staged[0]
+        lo.update_prepadded(p0 + rep * 1e-4, m0, o0)
+        peak = lo.map.table.num_patches().clone()
+        refreshes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(1, scans):
+            lo.update_prepadded(*staged[k])
+            if lo.last_refresh:
+                refreshes += 1
+                peak = torch.maximum(peak, lo.map.table.num_patches())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        est = lo.trajectory()
+        err = np.linalg.norm(est[:, :2] - rel_gt[:len(est), :2], axis=1)
+        return {"scans_per_s": (scans - 1) / dt, "seconds": dt,
+                "drift_m_per_100m": float(err[-1]) / path_len * 100.0,
+                "final_err_m": float(err[-1]), "refreshes": refreshes,
+                "peak_patches": int(peak),
+                "overflow": int(lo.map.table.overflow)}
+
+    one_pass(9, LO_WARMUP)            # warm-up: discarded
+    fns = {"deposit_pair": scatter_matmul.deposit_pair,
+           "deposit_counts": scatter_matmul.deposit_counts,
+           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launches(*fns.values())
+    reads0 = nlls_solver.host_read.count
+    reps = [one_pass(rep) for rep in range(LO_REPS)]
+    launches = {n: fn.launches for n, fn in fns.items()}
+    scans = LO_REPS * (LO_SCANS - 1)
+    rates = sorted(p["scans_per_s"] for p in reps)
+    drifts = sorted(p["drift_m_per_100m"] for p in reps)
+    med = drifts[len(drifts) // 2]
+    med_rep = sorted(reps, key=lambda p: p["drift_m_per_100m"])[
+        len(reps) // 2]
+    emit({"phase": "lo_main_path", "reps": reps, "scans": LO_SCANS,
+          "reps_cut": f"{LO_REPS} reps (bench_lidar.py runs 5 on an "
+                      "accelerator)",
+          "median_scans_per_s": rates[len(rates) // 2],
+          "drift_m_per_100m": med, "drifts": drifts,
+          "diverged_reps": [d for d in drifts if d > 3.0 * max(med, 1e-9)],
+          "final_err_m": med_rep["final_err_m"], "path_len_m": path_len,
+          "launches": launches,
+          "launches_per_scan": {k: v / scans for k, v in launches.items()},
+          "host_reads_per_scan": (nlls_solver.host_read.count - reads0)
+          / scans,
+          "refreshes_per_rep": [p["refreshes"] for p in reps],
+          "peak_patches": max(p["peak_patches"] for p in reps),
+          "overflow": max(p["overflow"] for p in reps),
+          "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20})
+    emit({"phase": "lo_profiled", **lo_profile(torch, dev, opts, staged)})
+    assert med < LO_DRIFT_BOUND, f"LidarOdometry2D drift {med} m/100 m"
+    assert all(p["overflow"] == 0 for p in reps), "pool overflow"
+    assert launches["deposit_pair"] > 0 and launches["edt2d"] > 0, launches
+    pair["launches"] = launches["deposit_pair"]
+    edt["launches"] = launches["edt2d"]
+    return [pair, edt]
+
+
+def lo_profile(torch, dev, opts, staged) -> dict:
+    """Device activities and device time a scan over ``LO_PROFILED`` scans
+    of a fresh LidarOdometry2D pass (after its first 100), from
+    torch.profiler; ``busy_share`` is the device time over the profiled
+    wall time (the profiler slows the host, so it reads high)."""
+    from torch.profiler import ProfilerActivity, profile
+    from iris_lama_tpu_torch.algos.lidar_odometry_2d import LidarOdometry2D
+    lo = LidarOdometry2D(opts, device=dev)
+    for k in range(101):
+        lo.update_prepadded(*staged[k])
+    torch.cuda.synchronize()
+    scans = range(101, 101 + LO_PROFILED)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        refreshes = 0
+        for k in scans:
+            lo.update_prepadded(*staged[k])
+            refreshes += lo.last_refresh
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in events)
+    n = len(scans)
+    return {"scans": n, "refreshes": refreshes,
+            "ms_per_scan_profiled": wall * 1e3 / n,
+            "device_ms_per_scan": dev_us / 1e3 / n,
+            "activities_per_scan": sum(e.count for e in events) / n,
+            "busy_share": dev_us / 1e6 / wall}
+
+
+def slam_option_phases(torch, dev) -> None:
+    """Phase 16: Slam2D with ``transient_map=True`` and with
+    ``resident_window=False`` on the phase 5 workload: the first
+    ``PREFIX_SCANS`` scans on the CPU and on the card (accepted scans,
+    poses within 1 mm / 1e-3 rad, the map through a dense window around the
+    last pose), then one full pass on the card with every kernel's launch
+    count set to 0 just before and read just after."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos.slam2d import Slam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
+    from iris_lama_tpu_torch.ops import select4
+
+    data, opts, padded = slam_workload()
+    fns = {"deposit_pair": scatter_matmul.deposit_pair,
+           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+    for name, kw in (("slam2d_transient", dict(transient_map=True)),
+                     ("slam2d_pool", dict(resident_window=False))):
+        o = dataclasses.replace(opts, **kw)
+        cfg = o.mapping_config()
+        runs = []
+        for device in ("cpu", dev):
+            slam = Slam2D(o, device=device)
+            slam.set_prior(Pose2D(*data.poses_gt[0]))
+            staged = [tuple(torch.as_tensor(a, device=device) for a in p)
+                      for p in padded[:PREFIX_SCANS]]
+            t0 = time.perf_counter()
+            acc = slam.update_many_prepadded(staged,
+                                             data.odometry[:PREFIX_SCANS])
+            runs.append((slam, acc, time.perf_counter() - t0))
+        (sc, acc_c, s_c), (sg, acc_g, s_g) = runs
+        tc, tg = sc.trajectory(), sg.trajectory()
+        dxy = float(np.abs(tc[:, :2] - tg[:, :2]).max())
+        dth = float(np.abs(np.angle(np.exp(1j * (tc[:, 2] - tg[:, 2]))))
+                    .max())
+        last = sg._pose_dev.cpu()
+        wc = map_window(sc.map, cfg, last)
+        wg = map_window(sg.map, cfg, last.to(dev))
+        diff = {k: int(np.sum(a != b))
+                for k, a, b in zip(("occ", "vis", "dist"), wc, wg)}
+        staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+                  for p in padded]
+        torch.cuda.synchronize()
+        _cuda.reset_launches(*fns.values())
+        main = slam_pass(torch, dev, data, o, staged, 0)
+        launches = {n: fn.launches for n, fn in fns.items()}
+        emit({"phase": name, "prefix_scans": PREFIX_SCANS,
+              "accepted": len(acc_g), "cpu_s": s_c, "card_s": s_g,
+              "max_dxy_m": dxy, "max_dtheta_rad": dth,
+              "differing_cells": diff, "cells": int(wc[0].size),
+              "patches": [int(sc.map.table.num_patches()),
+                          int(sg.map.table.num_patches())],
+              "main_pass": main, "launches": launches,
+              "launches_per_scan": {k: v / main["updates"]
+                                    for k, v in launches.items()}})
+        assert acc_c == acc_g, f"{name}: accepted scans differ"
+        assert dxy <= 1e-3 and dth <= 1e-3, f"{name}: trajectories diverge"
+        # as in phase 4: ulp-different matched poses may move a few cells
+        assert sum(diff.values()) <= 1e-3 * wc[0].size, f"{name}: {diff}"
+        if kw.get("transient_map"):
+            assert abs(main["ate_m"] - TRANSIENT_ATE_REF_M) \
+                <= TRANSIENT_ATE_TOL_M, f"{name}: ATE {main['ate_m']}"
+        else:
+            assert main["ate_m"] < ATE_BOUND_M, f"{name}: ATE {main['ate_m']}"
+        assert main["escaped"] == 0, f"{name}: escapes"
+        assert all(v > 0 for v in launches.values()), f"{name}: {launches}"
+        del sc, sg
+
+
 def main() -> int:
     _START.append(time.perf_counter())
     import torch
@@ -1959,6 +2362,11 @@ def main() -> int:
     for k in kernels:
         if k["name"] in fine:
             k["launches"] = fine[k["name"]]
+    # 13-15. LidarOdometry2D: B1's pair and B3 at its shapes, the CPU/card
+    # prefix, the bench_lidar.py workload
+    kernels += lo_phases(torch, dev)
+    # 16. Slam2D's transient map and pool-per-scan path
+    slam_option_phases(torch, dev)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

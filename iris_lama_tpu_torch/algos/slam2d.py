@@ -1,4 +1,4 @@
-"""Online scan-to-map SLAM (the reference's Slam2D), resident-window path.
+"""Online scan-to-map SLAM (the reference's Slam2D).
 
 reference: include/lama/slam2d.h, src/slam2d.cpp:143-198 (update loop) and
 :247-321 (map update). Per accepted scan: odometry prediction -> scan match
@@ -6,9 +6,16 @@ reference: include/lama/slam2d.h, src/slam2d.cpp:143-198 (update loop) and
 distance window -> rasterise the scan into the resident grids. The patch
 pool is exchanged with the window only on re-orgs, which the host triggers
 from odometry travel between scans (a full flush + regather, or a band
-"scroll" when the shift fits); each step counts the poses that left the
-window's safe zone (``escaped_count``) and the re-org trigger tightens on
-escapes, down to a per-scan safe-zone check.
+"scroll" when the shift fits; transient maps take the full flush); each
+step counts the poses that left the window's safe zone (``escaped_count``)
+and the re-org trigger tightens on escapes, down to a per-scan safe-zone
+check. A transient map (slam2d.cpp:323-373) resets the window patches and
+deletes the pool patches outside the scan's expanded box after every scan.
+
+``resident_window=False`` takes the pool-per-scan path instead (the JAX
+package's ``_make_step``): each scan gathers an f32 distance window from
+the pool, matches on its squared-distance form and applies the scan with
+``mapping.update_maps``.
 
 The driver runs on the CUDA device unless constructed with
 ``device="cpu"``; the pose, trajectory and map stay on the device and the
@@ -30,7 +37,7 @@ from ..core.pose import Pose2D
 from ..match import match_surface_2d as match
 from ..nlls.robust import CAUCHY_SCAN
 from ..nlls.solver import SolverOptions
-from ..sdm import mapping
+from ..sdm import mapping, window as win_mod
 from ..sdm.geometry import MapGeometry
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
 
@@ -39,9 +46,8 @@ from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
 class Slam2DOptions:
     """reference: Slam2D::Options (slam2d.h:91-125) + sizing knobs.
 
-    ``transient_map``, ``use_compression``, ``detailed_summary``,
-    ``create_summary`` and ``resident_window=False`` are not ported:
-    :class:`Slam2D` raises NotImplementedError for them.
+    ``use_compression``, ``detailed_summary`` and ``create_summary`` are
+    not ported: :class:`Slam2D` raises NotImplementedError for them.
     """
 
     trans_thresh: float = 0.5
@@ -82,6 +88,8 @@ class Slam2DOptions:
             max_range=self.max_range,
             pose_slack=self.pose_slack,
             capacity=self.capacity,
+            transient=self.transient_map,
+            transient_expand=2.0,       # slam2d.cpp:335-340
             resident_extra_patches=self.resident_extra_patches,
         )
 
@@ -113,14 +121,10 @@ class Slam2D:
 
     def __init__(self, options: Slam2DOptions = Slam2DOptions(),
                  device=None):
-        for name in ("transient_map", "use_compression", "detailed_summary",
-                     "create_summary"):
+        for name in ("use_compression", "detailed_summary", "create_summary"):
             if getattr(options, name):
                 raise NotImplementedError(f"Slam2DOptions.{name} is not "
                                           "ported")
-        if not options.resident_window:
-            raise NotImplementedError("the pool-backed per-scan path "
-                                      "(resident_window=False) is not ported")
         self.device = resolve_device(device)
         self.options = options
         self.cfg = options.mapping_config()
@@ -130,6 +134,7 @@ class Slam2D:
         self.has_first_scan = False
         self._max_beams = options.max_beams
         self._built = False
+        self._resident = options.resident_window
         self._res_org = None
         self._res_occ = self._res_vis = self._res_dist = None
         self._res_dirty = False
@@ -259,10 +264,12 @@ class Slam2D:
 
     def _build_programs(self) -> None:
         self._built = True
-        self._host_reorg = (self.options.host_reorg
+        self._host_reorg = (self._resident and self.options.host_reorg
                             and self._reorg_trigger_m >= 0.5)
         self._scroll_kp = 0
-        if self._host_reorg and self.options.scroll_reorg:
+        # transient pruning needs the full flush: no band scrolls
+        if (self._host_reorg and self.options.scroll_reorg
+                and not self.options.transient_map):
             patch_m = (self.cfg.geometry.patch_length
                        * self.cfg.geometry.resolution)
             kp = self.options.scroll_kp or (int(np.ceil(
@@ -273,22 +280,41 @@ class Slam2D:
 
     def _do_first(self, points, mask, origin) -> None:
         cfg = self.cfg
-        w = cfg.resident_window_cells
-        geo = cfg.geometry
-        self._res_org = mapping.resident_org(cfg, geo.w2m(self._pose_dev[:2]))
-        self._res_occ = torch.zeros((w, w), dtype=mapping.COUNT_DTYPE,
-                                    device=self.device)
-        self._res_vis = torch.zeros_like(self._res_occ)
-        self._res_dist = torch.full((w, w), cfg.distance.max_sqdist,
-                                    dtype=cfg.sq_dtype, device=self.device)
-        mapping.resident_update(cfg, self._res_org, self._res_occ,
-                                self._res_vis, self._res_dist,
-                                self._pose_dev, points, mask, origin)
-        self._res_dirty = True
+        if self._resident:
+            w = cfg.resident_window_cells
+            geo = cfg.geometry
+            self._res_org = mapping.resident_org(cfg,
+                                                 geo.w2m(self._pose_dev[:2]))
+            self._res_occ = torch.zeros((w, w), dtype=mapping.COUNT_DTYPE,
+                                        device=self.device)
+            self._res_vis = torch.zeros_like(self._res_occ)
+            self._res_dist = torch.full((w, w), cfg.distance.max_sqdist,
+                                        dtype=cfg.sq_dtype,
+                                        device=self.device)
+            mapping.resident_update(cfg, self._res_org, self._res_occ,
+                                    self._res_vis, self._res_dist,
+                                    self._pose_dev, points, mask, origin)
+            if cfg.transient:
+                self._transient_reset(self._pose_dev, points, mask, origin)
+            self._res_dirty = True
+        else:
+            self._map, _ = mapping.update_maps(self._map, cfg,
+                                               self._pose_dev, points, mask,
+                                               origin)
         self._traj[0] = self._pose_dev
         self._n_updates = 1
         self.has_first_scan = True
         self._odom_reorg = self.odom_   # host-gated re-org anchor
+
+    def _transient_reset(self, pose, points, mask, origin):
+        """Reset the resident patches outside the scan's keep box; returns
+        the box (centre, half extent)."""
+        cfg = self.cfg
+        g = mapping.beam_geometry(cfg, pose, points, mask, origin)
+        box = mapping.transient_keep_aabb(cfg, pose, g)
+        mapping.resident_transient_reset(cfg, self._res_org, self._res_occ,
+                                         self._res_vis, self._res_dist, *box)
+        return box
 
     def _reorg_full(self, anchor_cell) -> None:
         """Flush + re-centre at ``anchor_cell`` + regather."""
@@ -369,12 +395,38 @@ class Slam2D:
             self._host_reorg = False
 
     def _do_step(self, od, points, mask, origin) -> None:
-        """Predict, (fallback only: re-org if unsafe), match, map update
-        (``nopool_step`` of the JAX package)."""
+        """Predict, match, map update: ``nopool_step`` of the JAX package
+        on the resident path (fallback only: re-org if unsafe), its
+        ``_make_step`` on the pool path."""
+        pose0 = lie.se2_compose(self._pose_dev, od)
+        step = self._resident_step if self._resident else self._pool_step
+        pose = step(pose0, points, mask, origin)
+        k = min(self._n_updates, self.TRAJ_CAP - 1)
+        self._traj[k] = pose
+        self._pose_dev = pose
+        self._pose_host = None
+        self._n_updates += 1
+
+    def _pool_step(self, pose0, points, mask, origin):
+        cfg, geo = self.cfg, self.cfg.geometry
+        wp = cfg.window_patches
+        org = win_mod.window_org(geo, geo.w2m(pose0[:2]), wp)
+        keys = win_mod.window_patch_keys(geo, org, wp)
+        grid, slots = win_mod.gather_window(self._map.table, self._map.dist,
+                                            keys, cfg.distance.max_dist)
+        res = match.solve_window(cfg.dist_to_sq(grid), org, geo,
+                                 cfg.distance.max_dist, points[:, :2], mask,
+                                 pose0, self.sopts)
+        self._map, _ = mapping.update_maps(self._map, cfg, res.state, points,
+                                           mask, origin, org,
+                                           window=(slots, grid))
+        self.last_iterations = res.iterations
+        return res.state
+
+    def _resident_step(self, pose0, points, mask, origin):
         cfg, geo = self.cfg, self.cfg.geometry
         w_res = cfg.resident_window_cells
         ws_m = cfg.match_window_cells
-        pose0 = lie.se2_compose(self._pose_dev, od)
         p0cell = geo.w2m(pose0[:2])
         safe = mapping.resident_safe(cfg, self._res_org, p0cell)
         if self._host_reorg:
@@ -392,13 +444,12 @@ class Slam2D:
                                  points[:, :2], mask, pose0, self.sopts)
         mapping.resident_update(cfg, org, self._res_occ, self._res_vis,
                                 dist, res.state, points, mask, origin)
-        k = min(self._n_updates, self.TRAJ_CAP - 1)
-        self._traj[k] = res.state
-        self._pose_dev = res.state
-        self._pose_host = None
+        if cfg.transient:
+            box = self._transient_reset(res.state, points, mask, origin)
+            self._map = mapping.prune_transient_pool(self._map, cfg, *box)
         self._res_dirty = True
         self.last_iterations = res.iterations
-        self._n_updates += 1
+        return res.state
 
     # -- map state across processes ----------------------------------------
     def state_dict(self) -> dict:

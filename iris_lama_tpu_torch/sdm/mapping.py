@@ -1,4 +1,4 @@
-"""Fused SLAM map: frequency occupancy + obstacle mask + distance field.
+"""Fused SLAM map: occupancy + obstacle mask + distance field.
 
 The (occupancy map, dynamic distance map) pair of LaMa's SLAM
 (src/slam2d.cpp:247-321 ``updateMaps``) as one patch table shared by all
@@ -8,13 +8,22 @@ cell arrays. Per scan, on a dense window:
 2. closed-form raycast (sdm/raycast.py);
 3. hit and visit counts deposited into the window (kernel B1, both in one
    launch);
-4. frequency end state: occupied/visited += counts, obstacle iff
+4. occupancy end state: the frequency model adds the counts, obstacle iff
    ``4*occ > vis`` (LaMa's prob > 0.25, frequency_occupancy_map.cpp:38-44);
+   the probabilistic model updates f32 log-odds with per-visit clamping
+   (``occupancy.probabilistic_saturate``), obstacle iff log-odds > 0;
 5. exact capped EDT of the window (kernel B3), merged on the interior.
 
-The resident sliding window keeps dense (occ, vis, dist) grids as the
-primary map state and exchanges them with the pool only on re-orgs
-(:func:`resident_flush`, :func:`resident_gather`, :func:`resident_scroll`).
+Two ways to hold the map between scans. :func:`update_maps` gathers a
+window from the pool per scan, applies the scan and writes back only the
+patches that changed, allocating patches that gained content (the
+pool-per-scan path). The resident sliding window keeps dense (occ, vis,
+dist) grids as the primary map state and exchanges them with the pool only
+on re-orgs (:func:`resident_flush`, :func:`resident_gather`,
+:func:`resident_scroll`). A transient map (slam2d.cpp:323-373) drops, every
+scan, the patches whose box misses the scan's expanded bounding box:
+:func:`prune_transient_pool` deletes pool patches,
+:func:`resident_transient_reset` resets resident-window patches.
 
 Count dtype: the reference's cells hold uint16 hit/visit counts. PyTorch's
 uint16 lacks the arithmetic and ``index_put`` this code needs, so the
@@ -22,9 +31,9 @@ port holds every count (pool and resident grids) in int32, clipped at
 65535 exactly where the JAX package clips; values equal the JAX uint16
 counts and :mod:`..utils.state` converts at the boundary.
 
-In-place updates: :func:`resident_update` writes the resident grids and
-the re-org functions write the pool cell arrays in place (no copy of the
-pool per re-org); the table tensors are rebuilt.
+In-place updates: :func:`resident_update`, :func:`update_maps` and the
+re-org and pruning functions write the grids and pool cell arrays in place
+(no copy of the pool per scan); the table tensors are rebuilt.
 """
 
 from __future__ import annotations
@@ -39,8 +48,9 @@ from ..core import lie
 from ..ops import scatter_matmul
 from . import pool as pool_mod
 from . import window as win_mod
+from .occupancy import probabilistic_saturate
 from .distance import DistanceConfig, edt2d
-from .geometry import MapGeometry, PKEY_BITS
+from .geometry import MapGeometry, PKEY_BITS, f32
 from .raycast import ray_cells
 
 COUNT_DTYPE = torch.int32   # uint16 counts held in int32 (module docstring)
@@ -60,8 +70,10 @@ class MappingConfig:
     pose_slack: float = 2.0     # window margin for match-vs-predict motion
     capacity: int = 4096        # patch pool capacity
     resident_extra_patches: int = 0   # extra patch rings of wander headroom
-    occ_model: str = "frequency"
-    transient: bool = False
+    occ_model: str = "frequency"   # "frequency" | "probabilistic"
+    transient: bool = False     # prune patches outside the scan AABB
+    transient_expand: float = 2.0  # slam2d.cpp:335-340; lidar odometry 1x
+    max_removals: int = 160     # per-scan prune budget (rest removed later)
 
     @property
     def distance(self) -> DistanceConfig:
@@ -140,27 +152,35 @@ class MappingConfig:
 
 
 class SlamMapState(NamedTuple):
-    """Shared-table fused map: int32 counts (uint16 values), f32 meters."""
+    """Shared-table fused map: int32 counts (uint16 values), f32 meters.
+
+    ``occupied`` holds hit counts for ``occ_model="frequency"`` and f32
+    log-odds for ``"probabilistic"`` (``visited`` still counts visits, the
+    unknown test of probabilistic_occupancy_map.cpp:38-59).
+    """
 
     table: pool_mod.PatchTable
-    occupied: torch.Tensor   # int32 [P+1, L, L]
+    occupied: torch.Tensor   # int32 counts | f32 log-odds [P+1, L, L]
     visited: torch.Tensor    # int32 [P+1, L, L]
     dist: torch.Tensor       # f32 [P+1, L, L] meters
 
 
-def _require_frequency(cfg: MappingConfig) -> None:
-    if cfg.occ_model != "frequency" or cfg.transient:
-        raise NotImplementedError("only the non-transient frequency "
-                                  "occupancy model is ported")
+def occ_dtype(cfg: MappingConfig):
+    """dtype of ``occupied``: int32 counts or f32 log-odds."""
+    if cfg.occ_model == "frequency":
+        return COUNT_DTYPE
+    if cfg.occ_model == "probabilistic":
+        return torch.float32
+    raise ValueError(f"occ_model {cfg.occ_model!r}: expected 'frequency' "
+                     "or 'probabilistic'")
 
 
 def slam_map_init(cfg: MappingConfig, device=None) -> SlamMapState:
-    _require_frequency(cfg)
     length = cfg.geometry.patch_length
     p1 = cfg.capacity + 1
     return SlamMapState(
         table=pool_mod.table_init(cfg.capacity, device=device),
-        occupied=torch.zeros((p1, length, length), dtype=COUNT_DTYPE,
+        occupied=torch.zeros((p1, length, length), dtype=occ_dtype(cfg),
                              device=device),
         visited=torch.zeros((p1, length, length), dtype=COUNT_DTYPE,
                             device=device),
@@ -254,9 +274,9 @@ def deposit_indices(cfg: MappingConfig, pose, points, mask, origin,
 class WindowScan(NamedTuple):
     """Result of applying one scan to a dense window."""
 
-    occ_new: torch.Tensor      # int32 [W, W]
+    occ_new: torch.Tensor      # int32 counts | f32 log-odds [W, W]
     vis_new: torch.Tensor      # int32 [W, W]
-    dist_merged: torch.Tensor  # squared-distance dtype [W, W]
+    dist_merged: torch.Tensor  # dist_old's dtype [W, W]
     occ_add: torch.Tensor      # int32 [W, W]
     vis_add: torch.Tensor      # int32 [W, W]
     d2: torch.Tensor           # int32 [W, W] fresh capped sqdist
@@ -269,11 +289,9 @@ def scan_window_compute(cfg: MappingConfig, pose, points, mask, origin,
     """Window math of one scan: raycast -> counts -> occupancy end state ->
     exact windowed EDT -> interior merge, on dense [W, W] grids holding the
     map at ``org_cell``. ``dist_old`` is a squared-distance grid
-    (cfg.sq_dtype); ``dist_merged`` keeps its dtype. Poses [P, 4], origins
-    [P, 2] and grids [P, W, W] apply the scan once per particle."""
-    _require_frequency(cfg)
-    if dist_old.dtype.is_floating_point:
-        raise NotImplementedError("only squared-distance windows are ported")
+    (cfg.sq_dtype, the resident path) or f32 meters (the pool-per-scan
+    path); ``dist_merged`` keeps its domain. Poses [P, 4], origins [P, 2]
+    and grids [P, W, W] apply the scan once per particle."""
     dcfg = cfg.distance
     radius = dcfg.radius_cells
     w = dist_old.shape[-1]
@@ -281,17 +299,182 @@ def scan_window_compute(cfg: MappingConfig, pose, points, mask, origin,
     occ_add, vis_add = scatter_matmul.deposit_pair(
         idx.hit_ly, idx.hit_lx, idx.free_ly, idx.free_lx, w, w)
     vis_new = torch.clamp(vis_w.to(torch.int32) + vis_add, max=COUNT_MAX)
-    occ_new = torch.clamp(occ_w.to(torch.int32) + occ_add, max=COUNT_MAX)
-    # prob > 0.25  <=>  4*occ > vis (frequency_occupancy_map.cpp:40-44)
-    obst_new = (4 * occ_new) > vis_new
+    if cfg.occ_model == "frequency":
+        occ_new = torch.clamp(occ_w.to(torch.int32) + occ_add, max=COUNT_MAX)
+        # prob > 0.25  <=>  4*occ > vis (frequency_occupancy_map.cpp:40-44)
+        obst_new = (4 * occ_new) > vis_new
+    else:
+        # log-odds with per-visit clamping (probabilistic_occupancy_map.cpp:
+        # 51-59, 82-107); occ_thresh_ = 0 log-odds (:60)
+        occ_new = probabilistic_saturate(occ_w, occ_add, vis_add - occ_add)
+        obst_new = occ_new > 0.0
     d2 = edt2d(obst_new, dcfg.max_sqdist, radius)
     ar = torch.arange(w, device=d2.device)
     inner = (ar >= radius) & (ar < w - radius)
     interior = inner[:, None] & inner[None, :]
-    dist_merged = torch.where(interior, d2.to(dist_old.dtype), dist_old)
+    if dist_old.dtype.is_floating_point:
+        dist_new = (torch.sqrt(d2.to(torch.float32))
+                    * f32(cfg.geometry.resolution))
+    else:
+        dist_new = d2.to(dist_old.dtype)
+    dist_merged = torch.where(interior, dist_new, dist_old)
     n_cells = ((idx.free_ly < w).sum(-1) + (idx.hit_ly < w).sum(-1))
     return WindowScan(occ_new, vis_new, dist_merged, occ_add, vis_add, d2,
                       interior, n_cells)
+
+
+def update_maps(state: SlamMapState, cfg: MappingConfig, pose, points, mask,
+                origin, org_cell=None, window=None):
+    """Apply one scan to the pool (the pool-per-scan path). Returns
+    (state, info): ``processed_cells``, ``num_patches`` and ``overflow``
+    as device tensors.
+
+    One table probe and three window gathers at ``org_cell`` (default: the
+    ``cfg.window_patches`` window centred at the pose), or the matcher's
+    ``window=(slots, f32 dist grid)`` gathered there already; the scan
+    applied to the window; patches that gained content allocated in the
+    table (content: counts, or an interior distance below the cap); then
+    only the patches whose counts (occupancy, visits) or distances changed
+    are written back, in place. A transient map then prunes the pool
+    (:func:`transient_keep_aabb`, :func:`prune_transient_pool`).
+    """
+    geo = cfg.geometry
+    length = geo.patch_length
+    wp = cfg.window_patches
+    dcfg = cfg.distance
+    if org_cell is None:
+        org_cell = win_mod.window_org(geo, geo.w2m(pose[:2]), wp)
+    keys = win_mod.window_patch_keys(geo, org_cell, wp)
+    if window is None:
+        slots = pool_mod.table_lookup(state.table, keys)
+        dist_old = None
+    else:
+        slots, dist_old = window
+    occ_w, _ = win_mod.gather_window(state.table, state.occupied, keys, 0,
+                                     slots=slots)
+    vis_w, _ = win_mod.gather_window(state.table, state.visited, keys, 0,
+                                     slots=slots)
+    if dist_old is None:
+        dist_old, _ = win_mod.gather_window(state.table, state.dist, keys,
+                                            dcfg.max_dist, slots=slots)
+    sc = scan_window_compute(cfg, pose, points, mask, origin, org_cell,
+                             occ_w, vis_w, dist_old)
+
+    counts_changed = (sc.occ_add + sc.vis_add) > 0
+    content = counts_changed | (sc.interior & (sc.d2 < dcfg.max_sqdist))
+    content_patch = content.reshape(wp, length, wp, length).any(3).any(1)
+    need_new = content_patch & (slots < 0)
+    cand = torch.where(need_new, keys, -1).reshape(-1)
+    table, new_slots = pool_mod.table_insert_unique(state.table, cand)
+    slots = torch.where(need_new, new_slots.reshape(wp, wp), slots)
+
+    win_mod.scatter_window(state.occupied, slots, sc.occ_new,
+                           write_mask=counts_changed)
+    win_mod.scatter_window(state.visited, slots, sc.vis_new,
+                           write_mask=counts_changed)
+    win_mod.scatter_window(state.dist, slots, sc.dist_merged,
+                           write_mask=sc.dist_merged != dist_old)
+    state = SlamMapState(table, state.occupied, state.visited, state.dist)
+    if cfg.transient:
+        g = beam_geometry(cfg, pose, points, mask, origin)
+        state = prune_transient_pool(state, cfg,
+                                     *transient_keep_aabb(cfg, pose, g))
+    info = {"processed_cells": sc.n_cells,
+            "num_patches": state.table.num_patches(),
+            "overflow": state.table.overflow}
+    return state, info
+
+
+# ---------------------------------------------------------------------------
+# Transient maps
+# ---------------------------------------------------------------------------
+
+def transient_keep_aabb(cfg: MappingConfig, pose, g: ScanGeometry):
+    """The box a transient map keeps (slam2d.cpp:329-343): the valid
+    endpoints' bounds made symmetric about the pose, scaled by
+    ``cfg.transient_expand`` (2 for Slam2D, 1 for LidarOdometry2D), grown
+    by twice the distance range. Returns (centre [2], half extent [2]),
+    world coordinates."""
+    big = 1e30
+    m = g.valid[:, None]
+    mn = torch.where(m, g.hit_xy, big).amin(0)
+    mx = torch.where(m, g.hit_xy, -big).amax(0)
+    c = pose[:2]
+    half = torch.maximum(c - mn, mx - c) * cfg.transient_expand
+    return c, half + 2.0 * cfg.distance.max_dist
+
+
+def _separated(a_center, a_half, b_center, b_half):
+    """bool [...]: boxes (b_center [..., 2], b_half [2]) that miss the
+    keep box (a_center, a_half) on some axis."""
+    sep = torch.abs(a_center - b_center)
+    return ~torch.all(sep <= a_half + b_half, dim=-1)
+
+
+def _patch_boxes(geo: MapGeometry, anchors):
+    """World (centre [..., 2], half extent [..., 2]) of the patches anchored
+    at cells ``anchors`` [..., 2]."""
+    ws = geo.m2w(anchors)
+    we = geo.m2w(anchors + geo.patch_length)
+    return 0.5 * (ws + we), 0.5 * (we - ws)
+
+
+def prune_transient_pool(state: SlamMapState, cfg: MappingConfig,
+                         a_center, a_half) -> SlamMapState:
+    """Delete the pool patches whose box misses the keep box
+    (slam2d.cpp:345-371), at most ``cfg.max_removals`` a call: the
+    candidates of the lowest slots, the rest left for later calls. Freed
+    slots get the default content (0, 0, max distance) in place. No host
+    read: the fixed-size candidate list is the ``max_removals`` smallest
+    of ``where(remove, slot, P)``."""
+    keys, active = pool_mod.active_keys(state.table)
+    b_center, b_half = _patch_boxes(cfg.geometry,
+                                    cfg.geometry.p2anchor(keys))
+    remove = active & _separated(a_center, a_half, b_center, b_half)
+    p = remove.shape[0]
+    slot = torch.arange(p, dtype=torch.int32, device=remove.device)
+    cand = torch.sort(torch.where(remove, slot, p)).values
+    k = cfg.max_removals
+    if k > p:
+        cand = torch.cat([cand, cand.new_full((k - p,), p)])
+    cand = cand[:k]
+    rm_keys = torch.where(cand < p, keys[torch.clamp(cand, max=p - 1).long()],
+                          pool_mod.EMPTY)
+    table, freed = pool_mod.table_remove_vec(state.table, rm_keys)
+    trash = state.dist.shape[0] - 1
+    ok = (freed >= 0)[:, None, None]
+    target = torch.where(freed >= 0, freed, trash).long()
+    for arr, default in ((state.occupied, 0), (state.visited, 0),
+                         (state.dist, cfg.distance.max_dist)):
+        arr[target] = torch.where(ok, torch.as_tensor(default,
+                                                      dtype=arr.dtype,
+                                                      device=arr.device),
+                                  arr[trash])
+    return SlamMapState(table, state.occupied, state.visited, state.dist)
+
+
+def resident_transient_reset(cfg: MappingConfig, org, occ, vis, dist,
+                             a_center, a_half):
+    """Transient pruning of resident grids, IN PLACE: the window patches
+    whose box misses the keep box get the default content (0, 0, the
+    capped distance), the resident form of the pool path's deletion
+    (slam2d.cpp:345-371). Returns (occ, vis, dist)."""
+    geo = cfg.geometry
+    length = geo.patch_length
+    wp = occ.shape[-1] // length
+    ar = torch.arange(wp, dtype=torch.int32, device=occ.device) * length
+    anchors = torch.stack([(org[0] + ar)[None, :].expand(wp, wp),
+                           (org[1] + ar)[:, None].expand(wp, wp)], -1)
+    drop = _separated(a_center, a_half, *_patch_boxes(geo, anchors))
+    drop = drop.repeat_interleave(length, 0).repeat_interleave(length, 1)
+    if dist.dtype.is_floating_point:
+        default = cfg.distance.max_dist
+    else:
+        default = cfg.distance.max_sqdist
+    occ.masked_fill_(drop, 0)
+    vis.masked_fill_(drop, 0)
+    dist.masked_fill_(drop, default)
+    return occ, vis, dist
 
 
 # ---------------------------------------------------------------------------
@@ -372,18 +555,24 @@ def resident_flush(state: SlamMapState, cfg: MappingConfig, org,
 def _flush_grids(state: SlamMapState, cfg: MappingConfig, keys,
                  occ, vis, dist) -> SlamMapState:
     """Write dense grids covering patch grid ``keys`` [a, b] (cell grids
-    [a*L, b*L], squared-distance ``dist``) back into the pool."""
-    _require_frequency(cfg)
+    [a*L, b*L], squared-distance ``dist``) back into the pool. A
+    transient map deletes the pool patches whose window block holds only
+    default content (the blocks a transient reset cleared): their slots
+    are freed and the write resets the freed rows."""
     length = cfg.geometry.patch_length
     a, b = keys.shape
     slots = pool_mod.table_lookup(state.table, keys)
     has_dist = dist != cfg.distance.max_sqdist
-    content = (occ > 0) | (vis > 0) | has_dist
+    content = (occ != 0) | (vis > 0) | has_dist
     content_patch = content.reshape(a, length, b, length).any(3).any(1)
     need_new = content_patch & (slots < 0)
     cand = torch.where(need_new, keys, -1).reshape(-1)
     table, new_slots = pool_mod.table_insert_unique(state.table, cand)
     slots = torch.where(need_new, new_slots.reshape(a, b), slots)
+    if cfg.transient:
+        stale = (slots >= 0) & ~content_patch
+        table, _ = pool_mod.table_remove_vec(
+            table, torch.where(stale, keys, -1).reshape(-1))
     win_mod.scatter_window(state.occupied, slots, occ)
     win_mod.scatter_window(state.visited, slots, vis)
     win_mod.scatter_window(state.dist, slots, cfg.sq_to_dist(dist))

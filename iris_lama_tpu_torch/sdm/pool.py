@@ -195,3 +195,129 @@ def active_keys(table: PatchTable):
     slot_keys.scatter_reduce_(0, safe_slot, contrib, "amax")
     mask = active_slot_mask(table)
     return torch.where(mask, slot_keys, EMPTY), mask
+
+
+def _probe(tkeys, keys):
+    """(base int64[K], probe offsets, probed keys [K, PROBE_WINDOW]) of
+    ``keys`` in the hash-key array ``tkeys``."""
+    hsize = tkeys.shape[0]
+    base = _hash(keys, hsize)
+    offs = torch.arange(PROBE_WINDOW, device=keys.device)
+    return base, offs, tkeys[(base[..., None] + offs) % hsize]
+
+
+def table_insert(table: PatchTable, keys):
+    """Sequential insert of ``keys`` (int32[K]; negative entries skipped).
+
+    Returns (table, slots int32[K]): existing or newly allocated slots,
+    -1 where the pool is full or the probe window overflows (the sticky
+    ``overflow`` counter counts those). Each key sees the writes of the
+    keys before it (first free entry of its probe, slot popped off the
+    free stack). The JAX package skips the loop when no key is missing;
+    the loop changes nothing then, so it always runs here. Every index is
+    a one-element tensor: nothing reads back to the host.
+    """
+    keys = keys.to(torch.int32).reshape(-1)
+    out = table_lookup(table, keys).clone()
+    tkeys, tslots = table.keys.clone(), table.slots.clone()
+    free = table.free_slots
+    n_free, ovf = table.n_free.reshape(1), table.overflow.reshape(1)
+    hsize = table.table_size
+    base, offs, _ = _probe(tkeys, keys)
+    for i in range(keys.shape[0]):
+        key = keys[i:i + 1]
+        probed = tkeys[(base[i] + offs) % hsize]
+        first_match = _first(probed == key)
+        first_free = _first((probed == EMPTY) | (probed == TOMBSTONE))
+        need = (key >= 0) & (out[i:i + 1] == EMPTY)
+        already = first_match < PROBE_WINDOW
+        pos_match = _entry(base[i], first_match, hsize)
+        can_place = (need & ~already & (first_free < PROBE_WINDOW)
+                     & (n_free > 0))
+        pos_place = _entry(base[i], first_free, hsize)
+        new_slot = free[torch.clamp(n_free - 1, min=0).long()]
+        tkeys[pos_place] = torch.where(can_place, key, tkeys[pos_place])
+        tslots[pos_place] = torch.where(can_place, new_slot, tslots[pos_place])
+        n_free = n_free - can_place.to(torch.int32)
+        ovf = ovf + (need & ~already & ~can_place).to(torch.int32)
+        out[i:i + 1] = torch.where(need & already, tslots[pos_match],
+                                   torch.where(can_place, new_slot,
+                                               out[i:i + 1]))
+    return PatchTable(tkeys, tslots, free, n_free.reshape(()),
+                      ovf.reshape(())), out
+
+
+def _first(hit):
+    """[1] int64: the first probe offset where ``hit`` [W] holds,
+    PROBE_WINDOW if none."""
+    offs = torch.arange(PROBE_WINDOW, device=hit.device)
+    return torch.where(hit, offs, PROBE_WINDOW).amin().reshape(1)
+
+
+def _entry(base, first, hsize: int):
+    """[1] int64 hash entry at probe offset ``first`` (clamped into the
+    window) from ``base``."""
+    return (base + torch.clamp(first, max=PROBE_WINDOW - 1)) % hsize
+
+
+def table_remove(table: PatchTable, keys):
+    """Sequential removal of ``keys`` (int32[K]; negative entries skipped):
+    each present key's hash entry becomes a TOMBSTONE and its slot is
+    pushed on the free stack. Returns (table, freed slots int32[K], -1
+    where the key was absent). reference analogue: map.cpp:465
+    ``deletePatchAt``, used by transient maps (slam2d.cpp:323-373). No
+    host read, as in :func:`table_insert`."""
+    keys = keys.to(torch.int32).reshape(-1)
+    tkeys, tslots = table.keys.clone(), table.slots.clone()
+    free, n_free = table.free_slots.clone(), table.n_free.reshape(1)
+    hsize = table.table_size
+    cap = table.capacity
+    base, offs, _ = _probe(tkeys, keys)
+    freed = torch.full_like(keys, EMPTY)
+    for i in range(keys.shape[0]):
+        key = keys[i:i + 1]
+        probed = tkeys[(base[i] + offs) % hsize]
+        first = _first((probed == key) & (key >= 0))
+        present = first < PROBE_WINDOW
+        pos = _entry(base[i], first, hsize)
+        slot = tslots[pos]
+        tkeys[pos] = torch.where(present, TOMBSTONE, tkeys[pos])
+        tslots[pos] = torch.where(present, EMPTY, tslots[pos])
+        push_at = torch.clamp(n_free, max=cap - 1).long()
+        free[push_at] = torch.where(present, slot, free[push_at])
+        n_free = n_free + present.to(torch.int32)
+        freed[i:i + 1] = torch.where(present, slot, EMPTY)
+    return table._replace(keys=tkeys, slots=tslots, free_slots=free,
+                          n_free=n_free.reshape(())), freed
+
+
+def table_remove_vec(table: PatchTable, keys):
+    """:func:`table_remove` for keys UNIQUE among their non-negative
+    entries, vectorised: one probe and three scatters. Distinct present
+    keys sit at distinct hash entries, so the scatters commute; the free
+    stack takes the freed slots in key order (prefix-sum ranks), as the
+    sequential pushes do. Writes that the JAX package drops out of range
+    go to one padding entry here, trimmed off."""
+    keys = keys.to(torch.int32).reshape(-1)
+    hsize = table.table_size
+    base, offs, probed = _probe(table.keys, keys)
+    big = torch.full_like(probed, PROBE_WINDOW, dtype=torch.int64)
+    hit = (probed == keys[:, None]) & (keys[:, None] >= 0)
+    first = torch.where(hit, offs, big).amin(-1)
+    present = first < PROBE_WINDOW
+    pos = (base + torch.clamp(first, max=PROBE_WINDOW - 1)) % hsize
+    slot = table.slots[pos]
+    target = torch.where(present, pos, hsize)
+    tkeys = torch.cat([table.keys, table.keys.new_full((1,), EMPTY)])
+    tslots = torch.cat([table.slots, table.slots.new_full((1,), EMPTY)])
+    tkeys[target] = TOMBSTONE
+    tslots[target] = EMPTY
+    cap = table.capacity
+    rank = torch.cumsum(present.to(torch.int32), 0, dtype=torch.int32) - 1
+    push_at = torch.where(present, table.n_free + rank, cap).long()
+    free = torch.cat([table.free_slots, table.free_slots.new_zeros(1)])
+    free[push_at] = torch.where(present, slot, 0)
+    freed = torch.where(present, slot, EMPTY)
+    n_free = table.n_free + present.sum(dtype=torch.int32)
+    return table._replace(keys=tkeys[:hsize], slots=tslots[:hsize],
+                          free_slots=free[:cap], n_free=n_free), freed

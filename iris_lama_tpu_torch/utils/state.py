@@ -5,7 +5,8 @@ A state dict holds plain numpy arrays, in the JAX package's dtypes:
 * ``table_keys``, ``table_slots``, ``table_free_slots``, ``table_n_free``,
   ``table_overflow`` — the pool table (int32);
 * ``occupied``, ``visited`` (uint16) and ``dist`` (float32 meters) — the
-  pool cell arrays ``[P+1, L, L]``;
+  pool cell arrays ``[P+1, L, L]``; a probabilistic map's ``occupied``
+  holds float32 log-odds;
 * ``res_org`` (int32[2]), ``res_occ``, ``res_vis`` (uint16) and
   ``res_dist`` (squared-distance dtype) — the resident window;
 * ``pose`` — float32 (tx, ty, cos, sin);
@@ -23,6 +24,11 @@ draw generator's state, so that a reloaded filter continues the random
 stream it was saved in), the re-org trigger ``trigger_m`` and ``scroll_m``
 (float64), ``host_reorg`` (bool), the escape ladder's counters and the
 escape and re-org counts (int64).
+
+A LidarOdometry2D state dict (:func:`lo_to_numpy`) holds its map (the
+pool arrays above), ``pose``, ``map_odom`` and ``prev_delta`` (float32
+(tx, ty, cos, sin)), ``traj`` (float32 [n, 4], the poses so far) and
+``n_updates``.
 
 Loc2D's fixed maps carry across as their own dict
 (:func:`locmaps_to_numpy`), so that the port and the JAX package localise
@@ -50,7 +56,13 @@ def _np(t) -> np.ndarray:
 
 
 def _counts_np(t) -> np.ndarray:
-    return _np(t).astype(np.uint16)
+    """uint16 counts, or float32 log-odds as they are."""
+    return _np(t) if t.dtype.is_floating_point else _np(t).astype(np.uint16)
+
+
+def _counts_dtype(a) -> torch.dtype:
+    return (torch.float32 if np.asarray(a).dtype.kind == "f"
+            else mapping.COUNT_DTYPE)
 
 
 def map_to_numpy(state: mapping.SlamMapState) -> dict:
@@ -74,7 +86,7 @@ def map_from_numpy(d: dict, device) -> mapping.SlamMapState:
     table = PatchTable(*(t(d[f"table_{f}"], torch.int32)
                          for f in TABLE_FIELDS))
     return mapping.SlamMapState(table,
-                                t(d["occupied"], mapping.COUNT_DTYPE),
+                                t(d["occupied"], _counts_dtype(d["occupied"])),
                                 t(d["visited"], mapping.COUNT_DTYPE),
                                 t(d["dist"], torch.float32))
 
@@ -141,11 +153,12 @@ def slam_from_numpy(slam, d: dict) -> None:
     dev = slam.device
     slam._map = map_from_numpy(d, dev)
     cfg = slam.cfg
-    slam._res_org = _tensor(d["res_org"], torch.int32, dev)
-    slam._res_occ = _tensor(d["res_occ"], mapping.COUNT_DTYPE, dev)
-    slam._res_vis = _tensor(d["res_vis"], mapping.COUNT_DTYPE, dev)
-    slam._res_dist = _tensor(d["res_dist"], cfg.sq_dtype, dev)
-    slam._res_dirty = True
+    if "res_org" in d:
+        slam._res_org = _tensor(d["res_org"], torch.int32, dev)
+        slam._res_occ = _tensor(d["res_occ"], mapping.COUNT_DTYPE, dev)
+        slam._res_vis = _tensor(d["res_vis"], mapping.COUNT_DTYPE, dev)
+        slam._res_dist = _tensor(d["res_dist"], cfg.sq_dtype, dev)
+        slam._res_dirty = True
     slam._pose_dev = _tensor(d["pose"], torch.float32, dev)
     slam._pose_host = None
     if not slam._built:
@@ -160,6 +173,34 @@ def slam_from_numpy(slam, d: dict) -> None:
     slam._traj[min(n, slam.TRAJ_CAP) - 1] = slam._pose_dev
     slam._esc_dev.fill_(int(d.get("escaped", 0)))
     slam._esc_seen = int(d.get("escaped", 0))
+
+
+LO_POSES = ("pose", "map_odom", "prev_delta")
+
+
+def lo_to_numpy(lo) -> dict:
+    """Snapshot of a port ``LidarOdometry2D`` after its first scan."""
+    d = map_to_numpy(lo.map)
+    d.update(pose=_np(lo._pose_dev), map_odom=_np(lo._map_odom_dev),
+             prev_delta=_np(lo._delta_dev),
+             traj=_np(lo._traj[:min(lo._n_updates, lo.TRAJ_CAP)]),
+             n_updates=np.int64(lo._n_updates))
+    return d
+
+
+def lo_from_numpy(lo, d: dict) -> None:
+    """Load a state dict into a port ``LidarOdometry2D`` so that it
+    continues from that map and pose (a scan already went into the map)."""
+    dev = lo.device
+    lo.map = map_from_numpy(d, dev)
+    lo._pose_dev, lo._map_odom_dev, lo._delta_dev = (
+        _tensor(d[k], torch.float32, dev) for k in LO_POSES)
+    lo._pose_host = None
+    traj = np.asarray(d["traj"], np.float32)
+    lo._traj.zero_()
+    lo._traj[:len(traj)] = _tensor(traj, torch.float32, dev)
+    lo._n_updates = int(d["n_updates"])
+    lo.has_first_scan = True
 
 
 PF_FLOATS = ("pose", "weight", "weight_sum", "normalized")

@@ -11,8 +11,10 @@ its own, in the order given — list them as parent, change, change, parent
 to compare two commits on one card. Each run replays chip_smoke.py's
 phase 5 and phase 8 passes (its ``slam_workload``/``slam_pass`` and
 ``pf_workload``/``pf_pass``, taken from the chip_smoke.py beside this
-script whatever the root), three fresh drivers each, and prints one JSON
-line: scans/s and updates/s per pass, with their accuracy, and before them
+script whatever the root), three fresh drivers each, and phase 11's
+Loc2D pass in the ``generic`` and ``solve`` modes (a warm-up and three
+passes each), and prints one JSON line: scans/s and updates/s per pass,
+with the accuracy of the first two, and before them
 the device µs per call (torch.profiler) of B3 at P = 1 (448 x 448) and
 P = 30, B6 (30 x 432 x 432) and B4 at P = 1 (576 x 576) and P = 8 (a scan
 each), on the inputs of chip_smoke.py's phases 3, 6 and 9 (its
@@ -25,6 +27,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -87,6 +90,32 @@ def run_one(root: str) -> dict:
         out[f"{key}_{rate}"] = [p[rate] for p in passes]
         out[f"{key}_{acc}"] = [p[acc] for p in passes]
         del staged
+    out.update(loc_rates(torch, dev, cs))
+    return out
+
+
+def loc_rates(torch, dev, cs) -> dict:
+    """Loc2D updates/s in the ``generic`` and ``solve`` match modes:
+    phase 11's pass (bench_loc.py's log on the map its Slam2D builds), a
+    warm-up pass, then three fresh passes each."""
+    from iris_lama_tpu_torch.algos import loc2d
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    lw = cs.loc_setup(torch, dev)
+    data, odoms, staged = lw["data"], lw["odoms"], lw["staged"]
+    out = {}
+    for mode in ("generic", "solve"):
+        rates = []
+        for rep in (9, 0, 1, 2):
+            lc = loc2d.Loc2D(lw["opts"], maps=lw["maps"], device=dev,
+                             match=mode)
+            lc.set_prior(Pose2D(data.poses_gt[0][0] + rep * 1e-4,
+                                data.poses_gt[0][1], data.poses_gt[0][2]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            acc = lc.update_many_prepadded(staged, odoms)
+            torch.cuda.synchronize()
+            rates.append(len(acc) / (time.perf_counter() - t0))
+        out[f"loc_{mode}_updates_per_s"] = rates[1:]   # the warm-up dropped
     return out
 
 

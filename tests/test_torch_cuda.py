@@ -745,3 +745,137 @@ def test_pf_on_card_matches_cpu(cuda):
     assert np.abs(dth).max() <= 1e-3
     assert np.array_equal(lc, lg)
     assert all(f.launches > b for f, b in zip(fns, before))
+
+
+# ---------------------------------------------------------------------------
+# LidarOdometry2D and Slam2D's transient and pool-per-scan maps
+# ---------------------------------------------------------------------------
+
+def _lo_scan_streams(dev):
+    """LidarOdometry2D's deposit streams of a real 720-beam 5 cm scan into
+    its 640 x 640 window (1 m rays: 22 steps)."""
+    from iris_lama_tpu_torch.algos.lidar_odometry_2d import (
+        LidarOdometry2DOptions)
+    from iris_lama_tpu_torch.core import lie
+    from iris_lama_tpu_torch.sdm import mapping, window
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=200, seed=3, smooth=4,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    cfg = LidarOdometry2DOptions(capacity=64).mapping_config()
+    pts, msk, ori = (torch.as_tensor(a, device=dev)
+                     for a in pad_scan(data.clouds[0], beam_bucket(720)))
+    pose = lie.se2(0.0, 0.0, 0.0, device=dev)
+    org = window.window_org(cfg.geometry, cfg.geometry.w2m(pose[:2]),
+                            cfg.window_patches)
+    return cfg, mapping.deposit_indices(cfg, pose, pts, msk, ori, org,
+                                        cfg.window_cells)
+
+
+def test_lo_deposit_pair_and_edt_kernels(cuda):
+    """B1's pair at [2, 640, 640] with 22-step rays and B3 at 640^2, R =
+    20, cap 400 (squared distances past a byte) on a real scan's window:
+    bit-equal to the plain versions."""
+    from iris_lama_tpu_torch.sdm.occupancy import probabilistic_saturate
+    cfg, idx = _lo_scan_streams(cuda)
+    w = cfg.window_cells
+    assert (w, cfg.ray_steps, cfg.distance.radius_cells) == (640, 22, 20)
+    args = (idx.hit_ly, idx.hit_lx, idx.free_ly, idx.free_lx, w, w)
+    got = scatter_matmul.deposit_pair(*args)
+    want = scatter_matmul.deposit_pair_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    obst = probabilistic_saturate(torch.zeros((w, w), device=cuda), got[0],
+                                  got[1] - got[0]) > 0.0
+    cap, r = cfg.distance.max_sqdist, cfg.distance.radius_cells
+    g = torch.Generator(device=cuda).manual_seed(20)
+    for m in (obst, torch.rand((w, w), generator=g, device=cuda) < 0.01):
+        d = edt_pallas.edt2d(m, cap, r)
+        assert torch.equal(d, edt_pallas.edt2d_plain(m, cap, r))
+    assert int(edt_pallas.edt2d(obst, cap, r).max()) == cap == 400
+
+
+def test_lidar_odometry_on_card_matches_cpu(cuda):
+    """20 scans of the CPU tests' config on the card and on the CPU: poses
+    within 1 mm / 1e-3 rad, the same refresh decisions and patch counts,
+    B1 and B3 launched on the card."""
+    from iris_lama_tpu_torch.algos.lidar_odometry_2d import (
+        LidarOdometry2D, LidarOdometry2DOptions)
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=200, seed=13,
+        laser=simulator.LaserSpec(n_beams=120, max_range=6.0)))
+    opts = LidarOdometry2DOptions(resolution=0.1, patch_size=16,
+                                  max_range=6.0, capacity=2048)
+    padded = [pad_scan(c, beam_bucket(120)) for c in data.clouds[:20]]
+    before = (scatter_matmul.deposit_pair.launches,
+              edt_pallas.edt2d.launches)
+    runs = []
+    for dev in ("cpu", cuda):
+        lo = LidarOdometry2D(opts, device=dev)
+        flags, patches = [], []
+        for p in padded:
+            lo.update_prepadded(*(torch.as_tensor(a, device=dev) for a in p))
+            flags.append(lo.last_refresh)
+            patches.append(int(lo.map.table.num_patches()))
+        runs.append((lo.trajectory(), flags, patches))
+    (tc, fc, pc), (tg, fg, pg) = runs
+    assert fc == fg and pc == pg
+    assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
+    assert np.abs(np.angle(np.exp(1j * (tc[:, 2] - tg[:, 2])))).max() <= 1e-3
+    after = (scatter_matmul.deposit_pair.launches, edt_pallas.edt2d.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("kw", [dict(transient_map=True),
+                                dict(resident_window=False)],
+                         ids=["transient", "pool"])
+def test_slam2d_options_on_card_match_cpu(cuda, kw, monkeypatch):
+    """Slam2D's transient map and pool-per-scan path over the first 30
+    scans of bench.py's workload (720 beams, 5 cm) on the card and on the
+    CPU: the same accepted scans, poses within 1 mm, and B1, B2 and B3
+    launched on the card. Then the card again, its scan matches replaced
+    by the CPU run's poses: the pool (tables and cell arrays) bit-equal to
+    the CPU's. (Free-running, an ulp of pose may move a ray's cell, and
+    with it a patch in or out of a transient map; on the small 0.1 m,
+    120-beam config, whose 2.7 m steps track to 0.25 m, that grows into a
+    different trajectory.)"""
+    from iris_lama_tpu_torch.match import match_surface_2d
+    from iris_lama_tpu_torch.nlls.solver import SolveResult
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=440, seed=3,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    opts = Slam2DOptions(resolution=0.05, max_range=10.0, trans_thresh=0.05,
+                         rot_thresh=0.05, capacity=8192, max_iter=50, **kw)
+    padded = [pad_scan(c, beam_bucket(720)) for c in data.clouds[:30]]
+    before = (scatter_matmul.deposit_pair.launches,
+              select4.select4_sq.launches, edt_pallas.edt2d.launches)
+
+    def run(dev):
+        slam = Slam2D(opts, device=dev)
+        slam.set_prior(Pose2D(*data.poses_gt[0]))
+        staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+                  for p in padded]
+        acc = slam.update_many_prepadded(staged, data.odometry[:30])
+        return acc, slam
+
+    (acc_c, cpu), (acc_g, gpu) = run("cpu"), run(cuda)
+    tc, tg = cpu.trajectory(), gpu.trajectory()
+    assert acc_c == acc_g and len(acc_c) > 10
+    assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
+    after = (scatter_matmul.deposit_pair.launches,
+             select4.select4_sq.launches, edt_pallas.edt2d.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+    poses = iter(cpu._traj[1:len(acc_c)].to(cuda))
+
+    def forced(*args, **kwargs):
+        zero = torch.zeros((), device=cuda)
+        return SolveResult(next(poses), torch.zeros((), dtype=torch.int32,
+                                                    device=cuda),
+                           zero, zero, zero)
+
+    monkeypatch.setattr(match_surface_2d, "solve_window", forced)
+    acc_f, forced_run = run(cuda)
+    assert acc_f == acc_c
+    want, got = state.map_to_numpy(cpu.map), state.map_to_numpy(
+        forced_run.map)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -105,18 +105,40 @@ def test_entry_point_refuses_missing_cuda(monkeypatch):
     tslam.Slam2D(tslam.Slam2DOptions(capacity=16), device="cpu")
 
 
+def _one_scan(opts):
+    """A port Slam2D on the CPU built from ``opts`` and fed two scans."""
+    data = tsim.simulate(tsim.SimConfig(
+        n_steps=20, seed=2, laser=tsim.LaserSpec(n_beams=60, max_range=6.0)))
+    slam = tslam.Slam2D(opts, device="cpu")
+    slam.set_prior(tslam.Pose2D(*data.poses_gt[0]))
+    for k in (0, 3):
+        assert slam.update(data.clouds[k], data.odometry[k])
+    return slam
+
+
+SMALL = dict(resolution=0.1, patch_size=16, max_range=6.0, capacity=256)
+
+
 @pytest.mark.parametrize("field", ["transient_map", "use_compression",
                                    "detailed_summary", "create_summary"])
 def test_unported_options_raise(field):
+    """Options not ported yet raise; ``transient_map`` is ported: the
+    driver builds on the CPU and maps a scan."""
     opts = tslam.Slam2DOptions(capacity=16, **{field: True})
+    if field == "transient_map":
+        slam = _one_scan(tslam.Slam2DOptions(**SMALL, transient_map=True))
+        assert slam.cfg.transient and int(slam.map.table.num_patches()) > 0
+        return
     with pytest.raises(NotImplementedError):
         tslam.Slam2D(opts, device="cpu")
 
 
 def test_pool_path_option_raises():
-    with pytest.raises(NotImplementedError):
-        tslam.Slam2D(tslam.Slam2DOptions(capacity=16, resident_window=False),
-                     device="cpu")
+    """``resident_window=False`` (the pool-per-scan path) no longer raises:
+    the driver builds on the CPU and maps a scan into the pool."""
+    slam = _one_scan(tslam.Slam2DOptions(**SMALL, resident_window=False))
+    assert slam._res_org is None and slam.n_reorgs == 0
+    assert int(slam.map.table.num_patches()) > 0
 
 
 @pytest.mark.parametrize("call", ["deposit", "select4", "edt",
