@@ -129,7 +129,40 @@ Phases, one JSON line each:
    the card: scans/s, ATE (the pool path < 12 mm; the transient map
    within 1 mm of the JAX package's 18.71 mm on this workload,
    ref_slam2d_options.py: it forgets what the loop would close on), zero
-   escapes, and B1, B2 and B3 launched.
+   escapes, and B1, B2 and B3 launched;
+17. graph_kernels — GraphSlam2D's map rebuild and coarse fields on the
+   key poses of a warm-up pass of the bench_graph.py workload
+   (SimConfig(n_steps=300, seed=8), 720 beams padded to 768, 5 cm cells):
+   B1's pair over every key-pose scan into the rebuild grid (one launch of
+   millions of elements), B3 on that grid (R = 10), on the coarse
+   fallback's [4, 116, 116] fields (R = 10) and on the coarse distance
+   map's 0.1 m grid at R = 50 (cap 2,500), each ``torch.equal`` to its
+   plain version, with times, bounds and launch floors as in phase 3;
+18. graph_prefix — the first 60 scans of that workload through the
+   per-scan GraphSlam2D.update_prepadded on the CPU and on the card: the
+   same key-pose update indices, key poses within 1 mm / 1e-3 rad; then one
+   verification batch from one state (the card's, carried to both) within
+   1e-5;
+19. graph_main_path — the bench_graph.py workload through
+   GraphSlam2D.update_many_prepadded from device-staged scans: a warm-up
+   pass, then 3 reps (each rep's prior moved by rep·1e-4 m, as there),
+   launch counts set to 0 just before the reps and read just after, each
+   rep followed by generate_occupancy_map and generate_coarse_distance_map:
+   scans/s (median rep) and spread, key-pose ATE (< 0.15 m) and loop
+   closures (>= 4) of the median rep (bench_graph.py's bounds), key poses,
+   optimizes, the ``stats`` phase counters, solver host reads a sync,
+   B1/B2/B3 launches (each > 0, and each phase 17 shape's), peak memory,
+   the maps' times and patch counts, beside the JAX package's figures on
+   the same workload (ref_graph_slam2d.py, on the CPU); then device
+   activities, device time and the ``stats`` split of one more pass under
+   torch.profiler (graph_profiled);
+20. pgo — bench_pgo.py's 512-node graph with 32 loop closures: ms per
+   solve over 5 solves after one, the mean error of every 16th node (<
+   3 cm), nodes within 1e-3 of the CPU port's at the end of the
+   productive steps after a rigid SE(2) alignment (at float32's floor
+   every step is noise and an ulp of input turns this chain about its one
+   prior: the final differences are printed beside a CPU control's),
+   beside the JAX package's iterations and error.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
@@ -2042,6 +2075,489 @@ def slam_option_phases(torch, dev) -> None:
         del sc, sg
 
 
+GRAPH_STEPS = 300              # bench_graph.py's scans
+GRAPH_PREFIX = 60              # GraphSlam2D scans, CPU vs card
+GRAPH_REPS = 3                 # bench_graph.py: 3 reps after a warm-up
+GRAPH_ATE_BOUND_M = 0.15       # bench_graph.py:22
+GRAPH_MIN_LOOPS = 4            # bench_graph.py:23
+VERIFY_ATOL = 1e-5             # one verification batch, CPU vs card
+# the JAX package on bench_graph.py's workload, on the CPU
+# (ref_graph_slam2d.py, rep 0's prior)
+GRAPH_JAX_REF = {"updates": 248, "key_poses": 71, "loop_closures": 9,
+                 "optimizes": 2, "key_pose_ate_m": 0.09950922907729592}
+PGO_NODES = 512                # bench_pgo.py
+PGO_REPS = 5                   # bench_pgo.py: 5 timed solves after one
+PGO_ERR_BOUND_M = 0.03         # bench_pgo.py:63
+PGO_ATOL = 1e-3                # nodes, CPU vs card
+# the JAX package's solve of that graph on the CPU (ref_graph_slam2d.py)
+PGO_JAX_REF = {"iterations": 28, "mean_err_m": 0.005641845984653941}
+
+
+@functools.lru_cache(maxsize=None)
+def graph_workload():
+    """bench_graph.py's GraphSlam2D workload: (data, options, scans padded
+    to 768)."""
+    from iris_lama_tpu_torch.algos.graph_slam2d import GraphSlam2DOptions
+    from iris_lama_tpu_torch.algos.slam2d import Slam2DOptions
+    from iris_lama_tpu_torch.utils import simulator
+    from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=GRAPH_STEPS, seed=8,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0),
+        odom_trans_noise=0.02, odom_rot_noise=0.004))
+    opts = GraphSlam2DOptions(
+        slam=Slam2DOptions(resolution=0.05, max_range=10.0,
+                           trans_thresh=0.25, rot_thresh=0.25,
+                           capacity=4096, transient_map=True),
+        ignore_n_chain_poses=10, key_pose_head_delay=3,
+        loop_closure_scan_rmse=0.12)
+    return data, opts, [pad_scan(c, beam_bucket(720)) for c in data.clouds]
+
+
+def kernel_entry(torch, name, source_line, fn, plain, nbytes, nops,
+                 library=None, library_call="none", reps=300,
+                 library_reps=10, **extra):
+    """A kernels-line entry: device ms of ``fn`` and of its plain version,
+    the library call's where there is one, and the bytes/ops bound."""
+    src = ("iris_lama_tpu_torch/csrc/deposit.cu" if "deposit" in name
+           else "iris_lama_tpu_torch/csrc/edt.cu")
+    b = bound(nbytes, nops)
+    entry = {"name": name, "route": "cuda", "source": src,
+             "replaces": source_line, **extra,
+             **timings(torch, "", fn, reps),
+             **timings(torch, "plain_", plain, max(reps // 10, 5))}
+    if library is None:
+        entry["library_ms"] = None
+    else:
+        entry.update(timings(torch, "library_", library, library_reps))
+    entry.update(library_call=library_call, bound_ms=b[0], bound_by=b[1])
+    return entry
+
+
+def graph_kernel_phase(torch, dev, gs) -> list:
+    """Phase 17: B1's pair over every key-pose scan of one pass into the
+    rebuild grid, and B3 on that grid (R = 10), on the coarse fallback's [4,
+    116, 116] fields and on the coarse distance map's grid at R = 50, each
+    ``torch.equal`` to its plain version, with device times, bounds and
+    launch floors."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos import graph_slam2d as gmod
+    from iris_lama_tpu_torch.ops import edt_pallas, scatter_matmul
+    from iris_lama_tpu_torch.parallel import map_rebuild
+
+    kps = gs.key_poses
+    cfg = dataclasses.replace(gs.slam.cfg, capacity=4 * gs.slam.cfg.capacity)
+    poses = np.asarray([kp.pose.se2_array() for kp in kps], np.float32)
+    org, h, w = map_rebuild.grid_bounds(cfg, cfg.geometry, poses)
+    pts = torch.stack([kp.points for kp in kps])
+    msk = torch.stack([kp.mask for kp in kps])
+    ori = torch.stack([kp.origin for kp in kps])
+    (hy, hx), (fy, fx) = map_rebuild._scan_cells(
+        cfg, torch.as_tensor(poses, device=dev), pts, msk, ori,
+        torch.as_tensor(org, dtype=torch.int32, device=dev), h, w)
+    n_hit, n_free = hy.numel(), fy.numel()
+    got = scatter_matmul.deposit_pair(hy, hx, fy, fx, h, w)
+    want = scatter_matmul.deposit_pair_plain(hy, hx, fy, fx, h, w)
+    torch.cuda.synchronize()
+    err = max(int((g - x).abs().max()) for g, x in zip(got, want))
+    assert all(torch.equal(g, x) for g, x in zip(got, want)), \
+        f"B1 pair at the rebuild's [2,{h},{w}]: err {err}"
+    pair = kernel_entry(
+        torch, "deposit_pair_rebuild", "iris_lama_tpu/ops/scatter_matmul.py:81",
+        lambda: scatter_matmul.deposit_pair(hy, hx, fy, fx, h, w),
+        lambda: scatter_matmul.deposit_pair_plain(hy, hx, fy, fx, h, w),
+        (n_hit + n_free) * 8 + 2 * h * w * 4, 2 * n_hit + n_free,
+        library=deposit_library(torch, dev, [
+            (hy[None], hx[None], (0, 1)), (fy[None], fx[None], (1,))],
+            1, h, w),
+        library_call="zeros + index_put_(accumulate=True) over both grids' "
+                     "bins", reps=50, library_reps=2,
+        key_poses=len(kps), n_hit=n_hit, n_free=n_free, hw=[h, w],
+        ray_steps=cfg.ray_steps, max_abs_err=err,
+        int32_elements_ok=bool(n_free < 2 ** 31),
+        blocks=scatter_matmul.launch_blocks(1, [n_hit, n_free]),
+        cells_in_grid=int((fy < h).sum() + (hy < h).sum()),
+        launch_floor_ms=memset_floor_ms(
+            torch, dev, 2 * h * w * 4,
+            scatter_matmul.launch_blocks(1, [n_hit, n_free]), 256))
+
+    def edt_case(name, line, obst, cap, r, masks, reps=300):
+        shape = tuple(obst.shape)
+        err = 0
+        for m in (obst, *masks):
+            g3 = edt_pallas.edt2d(m, cap, r)
+            w3 = edt_pallas.edt2d_plain(m, cap, r)
+            torch.cuda.synchronize()
+            err = max(err, int((g3 - w3).abs().max()))
+            assert torch.equal(g3, w3), f"B3 {name} {shape} R={r}: err {err}"
+        cells = obst.numel()
+        hh, ww = shape[-2:]
+        p = cells // (hh * ww)
+        blocks = p * -(-ww // 64) * -(-hh // 32)
+        return kernel_entry(
+            torch, name, line, lambda: edt_pallas.edt2d(obst, cap, r),
+            lambda: edt_pallas.edt2d_plain(obst, cap, r),
+            cells * (1 + 4), cells * 4 * (2 * r + 1),
+            library_call="none: no single PyTorch call computes a capped EDT",
+            reps=reps, shape=list(shape), radius=r, cap=cap,
+            max_abs_err=err, obstacles=int(obst.sum()),
+            launch_floor_ms=launch_floor_ms(torch, dev, blocks, 256))
+
+    r, cap = cfg.distance.radius_cells, cfg.distance.max_sqdist
+    obst = (4 * got[0]) > got[1]
+    edt_rebuild = edt_case("edt2d_rebuild", "iris_lama_tpu/ops/edt_pallas.py:25",
+                           obst, cap, r, [b3_mask(torch, dev, (h, w), 0.01),
+                                          b3_mask(torch, dev, (h, w), 0.3)])
+    # the coarse fallback's fields of the last four key poses
+    last = kps[-gmod.COARSE_CHUNK:]
+    cobst, _ = gmod.coarse_obstacles(
+        torch.as_tensor(np.stack([kp.raw_pose.se2_array() for kp in last]),
+                        device=dev),
+        torch.stack([kp.points[:, :2] for kp in last]),
+        torch.stack([kp.mask for kp in last]), gmod.coarse_side(gs.slam.cfg))
+    side = cobst.shape[-1]
+    edt_coarse = edt_case("edt2d_coarse", "iris_lama_tpu/ops/edt_pallas.py:25",
+                          cobst, gmod.COARSE_R ** 2, gmod.COARSE_R,
+                          [b3_mask(torch, dev, (4, side, side), 0.05)])
+    # generate_coarse_distance_map's defaults: 0.1 m cells, 5 m: R = 50
+    dobst, _, dcfg = gs.coarse_obstacles()
+    dobst = torch.as_tensor(dobst, device=dev)
+    edt_r50 = edt_case("edt2d_r50", "iris_lama_tpu/ops/edt_pallas.py:25",
+                       dobst, dcfg.max_sqdist, dcfg.radius_cells,
+                       [b3_mask(torch, dev, tuple(dobst.shape), 0.01)],
+                       reps=100)
+    assert (dcfg.radius_cells, dcfg.max_sqdist) == (50, 2500)
+    entries = [pair, edt_rebuild, edt_coarse, edt_r50]
+    for k in entries:
+        emit({"phase": "graph_kernels", **k})
+    return entries
+
+
+def graph_phases(torch, dev) -> list:
+    """Phases 17-19: GraphSlam2D on bench_graph.py's workload. A warm-up
+    pass on the card (its key poses feed phase 17's kernels), the CPU/card
+    prefix (18), then the bench workload (19) with every launch count set
+    to 0 just before and read just after. Returns the kernels-line entries
+    of phase 17 with their launches in phase 19."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos import graph_slam2d as gmod
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.nlls import solver as nlls_solver
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
+    from iris_lama_tpu_torch.ops import select4
+    from iris_lama_tpu_torch.utils import state as state_mod
+    from iris_lama_tpu_torch.utils.evaluation import ate_rmse
+
+    data, opts, padded = graph_workload()
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded]
+    times = [float(k) for k in range(GRAPH_STEPS)]
+    g0 = data.poses_gt[0]
+    counts = {"rebuild": [0, 0], "r50": 0, "coarse": 0}
+
+    def counted_coarse(gs):
+        """Count B3's launches in the coarse fallback (its batches)."""
+        corr, gate, coarse = gs._programs()
+
+        def fn(*args):
+            before = edt_pallas.edt2d.launches
+            out = coarse(*args)
+            counts["coarse"] += edt_pallas.edt2d.launches - before
+            return out
+
+        gs._kernels = (corr, gate, fn)
+
+    def one_pass(rep, maps=False):
+        gs = gmod.GraphSlam2D(opts, device=dev)
+        counted_coarse(gs)
+        gs.set_prior(Pose2D(g0[0] + rep * 1e-4, g0[1], g0[2]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs.update_many_prepadded(staged, data.odometry, timestamps=times)
+        kps = gs.key_poses
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        est = np.asarray([kp.pose.xyr() for kp in kps])
+        gt = np.asarray([data.poses_gt[int(kp.timestamp)] for kp in kps])
+        n_upd = gs.slam._n_updates
+        out = {"scans_per_s": n_upd / dt, "seconds": dt, "updates": n_upd,
+               "key_poses": len(kps), "loop_closures": len(gs.links),
+               "optimizes": gs.stats.get("optimize_n", 0),
+               "key_pose_ate_m": ate_rmse(est, gt),
+               "escaped": gs.slam.escaped_count()}
+        if maps:
+            b1, b3 = scatter_matmul.deposit_pair.launches, \
+                edt_pallas.edt2d.launches
+            t0 = time.perf_counter()
+            state = gs.generate_occupancy_map()
+            torch.cuda.synchronize()
+            out["occupancy_map_ms"] = (time.perf_counter() - t0) * 1e3
+            out["occupancy_map_patches"] = int(state.table.num_patches())
+            counts["rebuild"][0] += scatter_matmul.deposit_pair.launches - b1
+            counts["rebuild"][1] += edt_pallas.edt2d.launches - b3
+            b3 = edt_pallas.edt2d.launches
+            t0 = time.perf_counter()
+            dstate, _ = gs.generate_coarse_distance_map()
+            torch.cuda.synchronize()
+            out["coarse_distance_map_ms"] = (time.perf_counter() - t0) * 1e3
+            out["coarse_distance_map_patches"] = int(
+                dstate.table.num_patches())
+            counts["r50"] += edt_pallas.edt2d.launches - b3
+        out["stats"] = dict(gs.stats)
+        return gs, out
+
+    # warm-up pass, discarded; its key poses feed phase 17
+    warm, _ = one_pass(9)
+    entries = graph_kernel_phase(torch, dev, warm)
+    del warm
+
+    # 18. prefix: CPU plain versions vs the card, the per-scan path
+    runs = []
+    for device in ("cpu", dev):
+        gs = gmod.GraphSlam2D(opts, device=device)
+        gs.set_prior(Pose2D(*g0))
+        t0 = time.perf_counter()
+        for k in range(GRAPH_PREFIX):
+            gs.update_prepadded(*(torch.as_tensor(a, device=device)
+                                  for a in padded[k]), data.odometry[k],
+                                times[k])
+        kps = gs.key_poses
+        runs.append((gs, kps, time.perf_counter() - t0))
+    (gc, kc, s_c), (gg, kg, s_g) = runs
+    pc = np.asarray([kp.pose.xyr() for kp in kc])
+    pg = np.asarray([kp.pose.xyr() for kp in kg])
+    same_keys = [kp.timestamp for kp in kc] == [kp.timestamp for kp in kg]
+    dxy = float(np.abs(pc[:, :2] - pg[:, :2]).max()) if same_keys else None
+    dth = (float(np.abs(np.angle(np.exp(1j * (pc[:, 2] - pg[:, 2])))).max())
+           if same_keys else None)
+    # one verification batch from one state (the card's) on both devices
+    d = state_mod.graph_to_numpy(gg)
+    both = []
+    for device in ("cpu", dev):
+        g = gmod.GraphSlam2D(opts, device=device)
+        state_mod.graph_from_numpy(g, d)
+        both.append(g)
+    # the last key pose against the five before it: candidates inside the
+    # transient map, so each row solves on map content
+    n_kp = len(kg)
+    rows = [(n_kp - 1, c) for c in range(max(n_kp - 6, 0), n_kp - 1)]
+    packed = []
+    for g in both:
+        corr, _, _ = g._programs()
+        kps = g._key_poses
+        inv = g.correction.inverse()
+        cand = np.stack([(inv + kps[c].pose).se2_array() for _, c in rows])
+        hyp = np.stack([Pose2D((inv + kps[q].pose).x(),
+                               (inv + kps[q].pose).y(),
+                               (inv + kps[c].pose).rotation()).se2_array()
+                        for q, c in rows])
+        packed.append(corr(g.slam.map, torch.as_tensor(cand, device=g.device),
+                           torch.as_tensor(hyp, device=g.device),
+                           torch.stack([kps[c].points[:, :2] for _, c in rows]),
+                           torch.stack([kps[c].mask for _, c in rows]))
+                      .cpu().numpy())
+    verify_err = float(np.abs(packed[0] - packed[1]).max())
+    emit({"phase": "graph_prefix", "scans": GRAPH_PREFIX,
+          "updates": gg.slam._n_updates, "key_poses": n_kp,
+          "same_key_updates": same_keys, "cpu_s": s_c, "card_s": s_g,
+          "max_dxy_m": dxy, "max_dtheta_rad": dth,
+          "links": [list(gc.links), list(gg.links)],
+          "verification_rows": len(rows),
+          "verification_max_abs_diff": verify_err,
+          "verification_errors": packed[1][:, 4].tolist()})
+    assert same_keys, "graph_prefix: key-pose update indices differ"
+    assert dxy <= 1e-3 and dth <= 1e-3, "graph_prefix: key poses diverge"
+    assert verify_err <= VERIFY_ATOL, f"graph_prefix: verification {verify_err}"
+    del gc, gg, both, runs
+
+    # 19. the bench_graph.py workload on the card
+    fns = {"deposit_pair": scatter_matmul.deposit_pair,
+           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launches(*fns.values())
+    counts.update(rebuild=[0, 0], r50=0, coarse=0)
+    reads0 = nlls_solver.host_read.count
+    reps = [one_pass(rep, maps=True)[1] for rep in range(GRAPH_REPS)]
+    launches = {n: fn.launches for n, fn in fns.items()}
+    reads = nlls_solver.host_read.count - reads0
+    syncs = sum(r["stats"].get("sync_n", 0) for r in reps)
+    rates = sorted(r["scans_per_s"] for r in reps)
+    med = sorted(reps, key=lambda r: r["scans_per_s"])[len(reps) // 2]
+    emit({"phase": "graph_main_path", "reps": reps,
+          "median_scans_per_s": rates[len(rates) // 2],
+          "spread": rates[-1] / max(rates[0], 1e-9),
+          "key_pose_ate_m": med["key_pose_ate_m"],
+          "loop_closures": med["loop_closures"],
+          "key_poses": med["key_poses"], "optimizes": med["optimizes"],
+          "jax_reference_cpu": GRAPH_JAX_REF,
+          "launches": launches,
+          "launches_per_update": {k: v / sum(r["updates"] for r in reps)
+                                  for k, v in launches.items()},
+          "kernel_launches": {"deposit_pair_rebuild": counts["rebuild"][0],
+                              "edt2d_rebuild": counts["rebuild"][1],
+                              "edt2d_coarse": counts["coarse"],
+                              "edt2d_r50": counts["r50"]},
+          "solver_host_reads": reads, "syncs": syncs,
+          "solver_host_reads_per_sync": reads / max(syncs, 1),
+          "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20})
+    emit({"phase": "graph_profiled",
+          **graph_profile(torch, dev, opts, staged, data, times)})
+    assert med["key_pose_ate_m"] < GRAPH_ATE_BOUND_M, \
+        f"GraphSlam2D key-pose ATE {med['key_pose_ate_m']}"
+    assert med["loop_closures"] >= GRAPH_MIN_LOOPS, \
+        f"GraphSlam2D loop closures {med['loop_closures']}"
+    assert all(v > 0 for v in launches.values()), launches
+    for k, n in zip(entries, (counts["rebuild"][0], counts["rebuild"][1],
+                              counts["coarse"], counts["r50"])):
+        k["launches"] = n
+    assert all(k["launches"] > 0 for k in entries), \
+        [(k["name"], k["launches"]) for k in entries]
+    return entries
+
+
+def graph_profile(torch, dev, opts, staged, data, times) -> dict:
+    """Device activities, device time and the ``stats`` split of one more
+    GraphSlam2D pass of the bench_graph.py workload under torch.profiler;
+    ``busy_share`` is the device time over the profiled wall time (the
+    profiler slows the host, so it reads high)."""
+    from torch.profiler import ProfilerActivity, profile
+    from iris_lama_tpu_torch.algos.graph_slam2d import GraphSlam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    gs = GraphSlam2D(opts, device=dev)
+    gs.set_prior(Pose2D(*data.poses_gt[0]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gs.update_many_prepadded(staged, data.odometry, timestamps=times)
+        n_keys = len(gs.key_poses)      # drains the verifications in flight
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in events)
+    n = gs.slam._n_updates
+    top = sorted(events, key=lambda e: -getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+    return {"updates": n, "key_poses": n_keys,
+            "ms_per_update_profiled": wall * 1e3 / n,
+            "device_ms_per_update": dev_us / 1e3 / n,
+            "activities_per_update": sum(e.count for e in events) / n,
+            "busy_share": dev_us / 1e6 / wall,
+            "top_device_us": {e.key[:60]: getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0)) for e in top[:8]},
+            "stats": dict(gs.stats)}
+
+
+def pgo_graph(n: int = PGO_NODES, seed: int = 9, loops: int = 32):
+    """bench_pgo.py's graph: a corridor chain with loop closures.
+    Returns (builder, initial nodes, active mask, true poses)."""
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.nlls import factor_graph as fg
+    rng = np.random.default_rng(seed)
+    true = [Pose2D(0, 0, 0)]
+    for k in range(n - 1):
+        true.append(true[-1] + Pose2D(1.0, 0.02 * np.sin(k / 7), 0.012))
+    b = fg.GraphBuilder()
+    b.add_prior(0, true[0].se2_array(), (0.01, 0.01, 0.01))
+    for i in range(n - 1):
+        b.add_between(i, i + 1, (true[i] - true[i + 1]).se2_array(),
+                      (0.25, 0.25, 0.15))
+    for _ in range(loops):
+        i = int(rng.integers(0, n - 60))
+        j = int(rng.integers(i + 40, n))
+        b.add_between(i, j, (true[i] - true[j]).se2_array(), (0.5, 0.5, 0.1),
+                      huber_k=0.1)
+    n_pad = fg.GraphBuilder._bucket(n)
+    nodes = np.tile(np.array([0, 0, 1, 0], np.float32), (n_pad, 1))
+    for i, p in enumerate(true):
+        nodes[i] = Pose2D(p.x() + rng.normal(0, 0.3),
+                          p.y() + rng.normal(0, 0.3),
+                          p.rotation() + rng.normal(0, 0.05)).se2_array()
+    active = np.zeros(n_pad, bool)
+    active[:n] = True
+    return b, nodes, active, true
+
+
+def pgo_phase(torch, dev) -> None:
+    """Phase 20: bench_pgo.py's 512-node graph with 32 loop closures on the
+    card: ms per solve over PGO_REPS solves after a warm-up, the mean error
+    of every 16th node (< 3 cm), and the nodes against the CPU port's.
+
+    The graph's measurements have no noise, so its optimum's chi2 is at
+    float32's floor, and the chain's orientation about node 0 is pinned
+    only by node 0's prior (sigma 0.01): there every LM step is rounding
+    noise, and an ulp of input moves the far nodes by ~1e-2 m, mostly by
+    turning the whole chain (the control: the CPU port from nodes moved by
+    1e-7 relative). So the nodes are compared within PGO_ATOL at the end
+    of the productive steps (the first iteration at which the CPU port's
+    chi2 is below 1e-5 of its start) after the rigid SE(2) alignment that
+    removes that turn; the final differences, raw and aligned, are printed
+    beside the control's."""
+    from iris_lama_tpu_torch.nlls import factor_graph as fg
+    from iris_lama_tpu_torch.nlls import solver as nlls_solver
+    from iris_lama_tpu_torch.utils.evaluation import align_se2
+
+    b, nodes, active, true = pgo_graph()
+
+    def solve(device, start=nodes, **kw):
+        res, info = fg.optimize(torch.as_tensor(start, device=device),
+                                b.finalize(device),
+                                torch.as_tensor(active, device=device),
+                                fg.PGOOptions(**kw))
+        a = res.cpu().numpy()[:PGO_NODES].astype(np.float64)
+        xyr = np.stack([a[:, 0], a[:, 1], np.arctan2(a[:, 3], a[:, 2])], -1)
+        return xyr, int(info["iterations"]), float(info["chi2"])
+
+    def diffs(x, ref):
+        return (float(np.abs(x[:, :2] - ref[:, :2]).max()),
+                float(np.abs(align_se2(x, ref) - ref[:, :2]).max()))
+
+    t0 = time.perf_counter()
+    cpu, cpu_iters, _ = solve("cpu")
+    cpu_s = time.perf_counter() - t0
+    control = diffs(solve("cpu", nodes * np.float32(1 + 1e-7))[0], cpu)
+    chi0 = float(fg._chi2_only(torch.as_tensor(nodes), b.finalize("cpu")))
+    k = next(k for k in range(1, cpu_iters + 1)
+             if solve("cpu", max_iterations=k)[2] <= 1e-5 * chi0)
+    productive = diffs(solve(dev, max_iterations=k)[0],
+                       solve("cpu", max_iterations=k)[0])
+    got, iters, _ = solve(dev)
+    final = diffs(got, cpu)
+    graph = b.finalize(dev)
+    nd = torch.as_tensor(nodes, device=dev)
+    act = torch.as_tensor(active, device=dev)
+    reads0 = nlls_solver.host_read.count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PGO_REPS):
+        fg.optimize(nd, graph, act)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / PGO_REPS * 1e3
+    reads = (nlls_solver.host_read.count - reads0) / PGO_REPS
+    err = float(np.mean([np.linalg.norm(got[i, :2] - true[i].xy())
+                         for i in range(0, PGO_NODES, 16)]))
+    emit({"phase": "pgo", "nodes": PGO_NODES, "loop_edges": 32,
+          "ms_per_solve": ms, "reps": PGO_REPS, "iterations": iters,
+          "cpu_iterations": cpu_iters, "cpu_s": cpu_s,
+          "host_reads_per_solve": reads, "mean_err_m": err,
+          "productive_iterations": k,
+          "diff_vs_cpu_productive_m": productive[0],
+          "diff_vs_cpu_productive_aligned_m": productive[1],
+          "diff_vs_cpu_final_m": final[0],
+          "diff_vs_cpu_final_aligned_m": final[1],
+          "cpu_control_final_m": control[0],
+          "cpu_control_final_aligned_m": control[1],
+          "jax_reference_cpu": PGO_JAX_REF})
+    assert err < PGO_ERR_BOUND_M, f"PGO mean error {err}"
+    assert productive[1] <= PGO_ATOL, \
+        f"PGO nodes CPU vs card after {k} iterations, aligned: {productive}"
+
+
 def main() -> int:
     _START.append(time.perf_counter())
     import torch
@@ -2367,6 +2883,11 @@ def main() -> int:
     kernels += lo_phases(torch, dev)
     # 16. Slam2D's transient map and pool-per-scan path
     slam_option_phases(torch, dev)
+    # 17-19. GraphSlam2D: the rebuild's and the coarse fallback's kernels,
+    # the CPU/card prefix, the bench_graph.py workload
+    kernels += graph_phases(torch, dev)
+    # 20. bench_pgo.py's pose graph
+    pgo_phase(torch, dev)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -184,3 +184,17 @@ class DistanceMapState(NamedTuple):
     table: pool_mod.PatchTable
     obstacle: torch.Tensor   # bool [P+1, L, L]
     dist: torch.Tensor       # f32 [P+1, L, L] meters
+
+
+def distance_map_init(cfg: DistanceConfig, capacity: int,
+                      device=None) -> DistanceMapState:
+    """An empty standalone distance map: no patches, every cell at
+    ``cfg.max_dist`` and no obstacle."""
+    length = cfg.geometry.patch_length
+    return DistanceMapState(
+        table=pool_mod.table_init(capacity, device=device),
+        obstacle=torch.zeros((capacity + 1, length, length), dtype=torch.bool,
+                             device=device),
+        dist=torch.full((capacity + 1, length, length), cfg.max_dist,
+                        dtype=torch.float32, device=device),
+    )

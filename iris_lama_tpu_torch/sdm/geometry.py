@@ -66,6 +66,12 @@ class MapGeometry:
         fl = torch.floor(mf)
         return fl.to(torch.int32) + self.cell_offset, mf - fl
 
+    def np_w2m(self, world):
+        """:meth:`w2m` on the host: float64 numpy in, int32 numpy out."""
+        mf = np.asarray(world, np.float64) * self.scale
+        return (np.floor(mf + 0.5).astype(np.int32)
+                + np.int32(self.cell_offset))
+
     def m2w(self, cells):
         """Discrete cell coords -> world coords of the cell origin."""
         rel = cells.to(torch.int32) - self.cell_offset

@@ -205,13 +205,14 @@ def beam_geometry(cfg: MappingConfig, pose, points, mask,
     pose: SE(2) [..., 4] (leading dims: particles); points f32[B, 3] in
     the base frame; origin f32[3] sensor origin in the base frame. Norms
     are 3D like the reference's. Outputs carry the pose's leading dims
-    before the beam axis.
+    before the beam axis. Scans of their own take points [S, B, 3], masks
+    [S, B] and origins [S, 3] with poses [S, 4].
     """
     pose_b = pose[..., None, :]
-    hit_xy = lie.se2_apply(pose_b, points[:, :2])
-    hit_z = points[:, 2]
-    start_xy = lie.se2_apply(pose_b, origin[:2]).expand_as(hit_xy)
-    start_z = origin[2].expand_as(hit_z)
+    hit_xy = lie.se2_apply(pose_b, points[..., :2])
+    hit_z = points[..., 2]
+    start_xy = lie.se2_apply(pose_b, origin[..., None, :2]).expand_as(hit_xy)
+    start_z = origin[..., None, 2].expand_as(hit_z)
     ab_xy = hit_xy - start_xy
     ab_z = hit_z - start_z
     ray_len = torch.sqrt(torch.sum(ab_xy * ab_xy, -1) + ab_z * ab_z)

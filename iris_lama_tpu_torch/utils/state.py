@@ -25,6 +25,21 @@ stream it was saved in), the re-org trigger ``trigger_m`` and ``scroll_m``
 (float64), ``host_reorg`` (bool), the escape ladder's counters and the
 escape and re-org counts (int64).
 
+A GraphSlam2D state dict (:func:`graph_to_numpy`) holds its front end's
+(the Slam2D keys above, plus ``traj``: float32 [n, 4], the matched poses
+so far), the key poses (``kp_pose``, ``kp_raw`` float64 x, y, theta [K,
+3]; ``kp_points`` float32 [K, B, 3], ``kp_mask`` bool [K, B],
+``kp_origin`` float32 [K, 3], ``kp_t`` float64 [K]), the loop ``links``
+(int64 [L, 2]), the builder's factors (``prior_idx``, ``bet_i``,
+``bet_j`` int64; ``prior_meas``, ``bet_meas`` float32 [., 4];
+``prior_sigmas``, ``bet_sigmas`` float32 [., 3]; ``bet_huber`` float64),
+``correction`` (float64 x, y, theta), ``accdist``, ``factordist``
+(float64), ``factor_queue``, the key gate's register ``last_key``
+(float32 (tx, ty, cos, sin), absent before the first sync) and its
+counters ``k_synced``, ``k_harvested``, ``since_sync`` (int64), ``prior``
+(float64 x, y, theta) and the scans not yet gated (``buf_idx`` int64
+[M], ``buf_points``, ``buf_mask``, ``buf_origin``, ``buf_t``).
+
 A LidarOdometry2D state dict (:func:`lo_to_numpy`) holds its map (the
 pool arrays above), ``pose``, ``map_odom`` and ``prev_delta`` (float32
 (tx, ty, cos, sin)), ``traj`` (float32 [n, 4], the poses so far) and
@@ -52,12 +67,17 @@ TABLE_FIELDS = ("keys", "slots", "free_slots", "n_free", "overflow")
 
 
 def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A tensor's values as numpy (any other array — the JAX package's —
+    as numpy reads it)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
 
 
 def _counts_np(t) -> np.ndarray:
     """uint16 counts, or float32 log-odds as they are."""
-    return _np(t) if t.dtype.is_floating_point else _np(t).astype(np.uint16)
+    a = _np(t)
+    return a if a.dtype.kind == "f" else a.astype(np.uint16)
 
 
 def _counts_dtype(a) -> torch.dtype:
@@ -130,8 +150,9 @@ def locmaps_from_numpy(d: dict, device):
 
 
 def slam_to_numpy(slam) -> dict:
-    """Snapshot of a port ``Slam2D`` (the pool as it stands, without
-    flushing the resident window into it)."""
+    """Snapshot of a ``Slam2D`` — the port's, or the JAX package's, whose
+    state has the same names — (the pool as it stands, without flushing
+    the resident window into it)."""
     d = map_to_numpy(slam._map)
     if slam._res_org is not None:
         d["res_org"] = _np(slam._res_org)
@@ -271,3 +292,104 @@ def pf_from_numpy(pf, d: dict) -> None:
         pf.options = dataclasses.replace(pf.options, host_reorg=False)
     for k, a in PF_COUNTERS.items():
         setattr(pf, a, int(d.get(k, 0)))
+
+
+def _poses_np(poses) -> np.ndarray:
+    return np.asarray([p.xyr() for p in poses], np.float64).reshape(-1, 3)
+
+
+def graph_to_numpy(gs) -> dict:
+    """Snapshot of a ``GraphSlam2D`` — the port's or the JAX package's — with
+    nothing in flight: no scan buffered for the live path, no gate replay,
+    verification or coarse job awaiting its harvest (read ``key_poses``
+    first: it drains them)."""
+    in_flight = {k: len(getattr(gs, k)) for k in (
+        "_live_pend", "_keyscan_pending", "_pending", "_coarse_jobs")}
+    if any(in_flight.values()):
+        raise ValueError(f"graph_to_numpy: work in flight {in_flight}; read "
+                         "key_poses first")
+    slam = gs.slam
+    d = slam_to_numpy(slam)
+    d["traj"] = _np(slam._traj[:min(slam._n_updates, slam.TRAJ_CAP)])
+    kps = gs._key_poses
+    d.update(kp_pose=_poses_np(kp.pose for kp in kps),
+             kp_raw=_poses_np(kp.raw_pose for kp in kps),
+             kp_t=np.asarray([kp.timestamp for kp in kps], np.float64))
+    for k in ("points", "mask", "origin"):
+        d[f"kp_{k}"] = np.stack([_np(getattr(kp, k)) for kp in kps]) \
+            if kps else np.zeros((0,))
+    d["links"] = np.asarray(gs._links, np.int64).reshape(-1, 2)
+    b = gs._builder
+    d.update(prior_idx=np.asarray([f[0] for f in b.priors], np.int64),
+             prior_meas=np.asarray([f[1] for f in b.priors],
+                                   np.float32).reshape(-1, 4),
+             prior_sigmas=np.asarray([f[2] for f in b.priors],
+                                     np.float32).reshape(-1, 3),
+             bet_i=np.asarray([f[0] for f in b.betweens], np.int64),
+             bet_j=np.asarray([f[1] for f in b.betweens], np.int64),
+             bet_meas=np.asarray([f[2] for f in b.betweens],
+                                 np.float32).reshape(-1, 4),
+             bet_sigmas=np.asarray([f[3] for f in b.betweens],
+                                   np.float32).reshape(-1, 3),
+             bet_huber=np.asarray([f[4] for f in b.betweens], np.float64))
+    d.update(correction=gs.correction.xyr(), accdist=np.float64(gs.accdist),
+             factordist=np.float64(gs.factordist),
+             factor_queue=np.int64(gs._factor_queue),
+             k_synced=np.int64(gs._k_synced),
+             k_harvested=np.int64(gs._k_harvested),
+             since_sync=np.int64(gs._since_sync), prior=gs._prior.xyr())
+    last = getattr(gs, "_last_key", getattr(gs, "_last_key_dev", None))
+    if last is not None:
+        d["last_key"] = _np(last).astype(np.float32)
+    idx = sorted(gs._scan_buf)
+    d["buf_idx"] = np.asarray(idx, np.int64)
+    for j, k in enumerate(("points", "mask", "origin")):
+        d[f"buf_{k}"] = np.stack([_np(gs._scan_buf[i][j]) for i in idx]) \
+            if idx else np.zeros((0,))
+    d["buf_t"] = np.asarray([gs._scan_buf[i][3] for i in idx], np.float64)
+    return d
+
+
+def graph_from_numpy(gs, d: dict) -> None:
+    """Load a state dict into a port ``GraphSlam2D`` so that it continues
+    from it."""
+    from ..algos.graph_slam2d import KeyPose
+    dev = gs.device
+    slam = gs.slam
+    slam_from_numpy(slam, d)
+    traj = np.asarray(d["traj"], np.float32)
+    slam._traj.zero_()
+    slam._traj[:len(traj)] = _tensor(traj, torch.float32, dev)
+
+    def scan(prefix, i):
+        return (_tensor(d[f"{prefix}points"][i], torch.float32, dev),
+                _tensor(d[f"{prefix}mask"][i], torch.bool, dev),
+                _tensor(d[f"{prefix}origin"][i], torch.float32, dev))
+
+    gs._key_poses = [
+        KeyPose(i, Pose2D.from_xyr(d["kp_pose"][i]),
+                Pose2D.from_xyr(d["kp_raw"][i]), *scan("kp_", i),
+                float(d["kp_t"][i])) for i in range(len(d["kp_pose"]))]
+    gs._links = [tuple(int(v) for v in lk) for lk in d["links"]]
+    b = type(gs._builder)()
+    for i, m, s in zip(d["prior_idx"], d["prior_meas"], d["prior_sigmas"]):
+        b.add_prior(int(i), m, s)
+    for i, j, m, s, k in zip(d["bet_i"], d["bet_j"], d["bet_meas"],
+                             d["bet_sigmas"], d["bet_huber"]):
+        b.add_between(int(i), int(j), m, s, huber_k=float(k))
+    gs._builder = b
+    gs.correction = Pose2D.from_xyr(d["correction"])
+    gs.accdist = float(d["accdist"])
+    gs.factordist = float(d["factordist"])
+    gs._factor_queue = int(d["factor_queue"])
+    gs._k_synced = int(d["k_synced"])
+    gs._k_harvested = int(d["k_harvested"])
+    gs._since_sync = int(d["since_sync"])
+    gs._prior = Pose2D.from_xyr(d["prior"])
+    gs._last_key = (torch.as_tensor(np.asarray(d["last_key"], np.float32))
+                    if "last_key" in d else None)
+    gs._scan_buf = {int(k): scan("buf_", i) + (float(d["buf_t"][i]),)
+                    for i, k in enumerate(d["buf_idx"])}
+    gs._keyscan_pending, gs._pending = [], []
+    gs._coarse_jobs, gs._live_pend = [], []
+    gs._gate_odom = slam.odom_ if slam.has_first_scan else None

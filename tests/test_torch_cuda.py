@@ -879,3 +879,133 @@ def test_slam2d_options_on_card_match_cpu(cuda, kw, monkeypatch):
         forced_run.map)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _graph_key_scans(dev, n_keys=8):
+    """Padded 720-beam scans of bench_graph.py's workload at key-pose
+    spacing, with their true poses, on ``dev``."""
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=8 * n_keys, seed=8,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    ks = range(0, 8 * n_keys, 8)
+    scans = [pad_scan(data.clouds[k], beam_bucket(720)) for k in ks]
+    g = [data.poses_gt[k] for k in ks]
+    poses = np.asarray([[p[0], p[1], np.cos(p[2]), np.sin(p[2])] for p in g],
+                       np.float32)
+    return tuple(torch.as_tensor(np.stack(a), device=dev)
+                 for a in (poses, *zip(*scans)))
+
+
+def test_rebuild_deposit_pair_kernel(cuda):
+    """B1's pair over all key-pose scans at once into the rebuild grid
+    (millions of elements, a grid that is not square): bit-equal to its
+    plain version, and the rebuild (counts, meters) equal on both
+    devices."""
+    from iris_lama_tpu_torch.parallel import map_rebuild
+    cfg = Slam2DOptions(resolution=0.05, max_range=10.0,
+                        capacity=4 * 4096).mapping_config()
+    poses, pts, msk, ori = _graph_key_scans(cuda)
+    org, h, w = map_rebuild.grid_bounds(cfg, cfg.geometry,
+                                        poses.cpu().numpy())
+    assert h != w
+    (hy, hx), (fy, fx) = map_rebuild._scan_cells(
+        cfg, poses, pts, msk, ori,
+        torch.as_tensor(org, dtype=torch.int32, device=cuda), h, w)
+    assert fy.numel() > 1_000_000
+    got = scatter_matmul.deposit_pair(hy, hx, fy, fx, h, w)
+    want = scatter_matmul.deposit_pair_plain(hy, hx, fy, fx, h, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    dense = [map_rebuild.rebuild_dense(cfg, *(t.to(dev) for t in (
+        poses, pts, msk, ori)), org, h, w) for dev in ("cpu", cuda)]
+    for f in ("occ", "vis", "dist"):
+        assert torch.equal(getattr(dense[0], f), getattr(dense[1], f).cpu())
+
+
+@pytest.mark.parametrize("shape,r", [((4, 116, 116), 10),
+                                     ((368, 464), 50), ((768, 992), 10)],
+                         ids=["coarse_p4", "r50", "rebuild"])
+def test_graph_edt_shapes(cuda, shape, r):
+    """B3 at the graph path's shapes: the coarse fallback's batch, the
+    coarse distance map's R = 50 (cap 2,500) and the rebuild grid, none a
+    multiple of the 32 x 64 tile: bit-equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(r)
+    for dens in (0.001, 0.02, 0.3):
+        m = torch.rand(shape, generator=g, device=cuda) < dens
+        assert torch.equal(edt_pallas.edt2d(m, r * r, r),
+                           edt_pallas.edt2d_plain(m, r * r, r))
+
+
+def _graph_opts():
+    from iris_lama_tpu_torch.algos.graph_slam2d import GraphSlam2DOptions
+    return GraphSlam2DOptions(
+        slam=Slam2DOptions(resolution=0.05, max_range=10.0,
+                           trans_thresh=0.25, rot_thresh=0.25,
+                           capacity=4096, transient_map=True),
+        ignore_n_chain_poses=10, key_pose_head_delay=3,
+        loop_closure_scan_rmse=0.12)
+
+
+def test_graph_slam_on_card_matches_cpu(cuda):
+    """The first 40 scans of bench_graph.py's workload through the per-scan
+    GraphSlam2D path on the card and on the CPU: the same key-pose update
+    indices, key poses within 1 mm / 1e-3 rad, B1, B2 and B3 launched."""
+    from iris_lama_tpu_torch.algos.graph_slam2d import GraphSlam2D
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=40, seed=8,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0),
+        odom_trans_noise=0.02, odom_rot_noise=0.004))
+    padded = [pad_scan(c, beam_bucket(720)) for c in data.clouds]
+    before = (scatter_matmul.deposit_pair.launches,
+              select4.select4_sq.launches, edt_pallas.edt2d.launches)
+    runs = []
+    for dev in ("cpu", cuda):
+        gs = GraphSlam2D(_graph_opts(), device=dev)
+        gs.set_prior(Pose2D(*data.poses_gt[0]))
+        for k, p in enumerate(padded):
+            gs.update_prepadded(*p, data.odometry[k], float(k))
+        runs.append(gs.key_poses)
+    kc, kg = runs
+    assert [k.timestamp for k in kc] == [k.timestamp for k in kg]
+    pc = np.asarray([k.pose.xyr() for k in kc])
+    pg = np.asarray([k.pose.xyr() for k in kg])
+    assert np.abs(pc[:, :2] - pg[:, :2]).max() <= 1e-3
+    assert np.abs(np.angle(np.exp(1j * (pc[:, 2] - pg[:, 2])))).max() <= 1e-3
+    after = (scatter_matmul.deposit_pair.launches,
+             select4.select4_sq.launches, edt_pallas.edt2d.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+def test_graph_verification_batch_on_both_devices(cuda):
+    """One verification batch (the last key pose against the five before
+    it) from one state carried to both devices: states and errors within
+    1e-5."""
+    from iris_lama_tpu_torch.algos.graph_slam2d import GraphSlam2D
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=40, seed=8,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0),
+        odom_trans_noise=0.02, odom_rot_noise=0.004))
+    gs = GraphSlam2D(_graph_opts(), device=cuda)
+    gs.set_prior(Pose2D(*data.poses_gt[0]))
+    for k, c in enumerate(data.clouds):
+        gs.update(c, data.odometry[k], float(k))
+    n = len(gs.key_poses)                     # drains the verifications
+    d = state.graph_to_numpy(gs)
+    assert n >= 6
+    rows = [(n - 1, c) for c in range(n - 6, n - 1)]
+    packed = []
+    for dev in ("cpu", cuda):
+        g = GraphSlam2D(_graph_opts(), device=dev)
+        state.graph_from_numpy(g, d)
+        corr, _, _ = g._programs()
+        kps = g._key_poses
+        cand = np.stack([kps[c].pose.se2_array() for _, c in rows])
+        hyp = np.stack([Pose2D(kps[q].pose.x(), kps[q].pose.y(),
+                               kps[c].pose.rotation()).se2_array()
+                        for q, c in rows])
+        packed.append(corr(g.slam.map, torch.as_tensor(cand, device=dev),
+                           torch.as_tensor(hyp, device=dev),
+                           torch.stack([kps[c].points[:, :2]
+                                        for _, c in rows]),
+                           torch.stack([kps[c].mask for _, c in rows]))
+                      .cpu().numpy())
+    np.testing.assert_allclose(packed[1], packed[0], atol=1e-5)
