@@ -154,17 +154,45 @@ Phases, one JSON line each:
    B1/B2/B3 launches (each > 0, and each phase 17 shape's), peak memory,
    the maps' times and patch counts, beside the JAX package's figures on
    the same workload (ref_graph_slam2d.py, on the CPU); then device
-   activities, device time and the ``stats`` split of one more pass under
-   torch.profiler (graph_profiled);
+   activities, device time and the ``stats`` split of the first 150 scans
+   of one more pass under torch.profiler (graph_profiled);
 20. pgo — bench_pgo.py's 512-node graph with 32 loop closures: ms per
    solve over 5 solves after one, the mean error of every 16th node (<
    3 cm), nodes within 1e-3 of the CPU port's at the end of the
    productive steps after a rigid SE(2) alignment (at float32's floor
    every step is noise and an ulp of input turns this chain about its one
    prior: the final differences are printed beside a CPU control's),
-   beside the JAX package's iterations and error.
+   beside the JAX package's iterations and error;
+21. occupancy_apply — the standalone frequency and probabilistic states'
+   updates (``frequency_apply_counts``, ``probabilistic_apply``) on the
+   cells of the phase 5 workload's first scan (768 endpoints + 768 x 202
+   ray cells, duplicates included) on the CPU and on the card: the states
+   ``torch.equal``; the time of an apply into an empty and into a filled
+   state (no kernel: ``index_add_`` scatter-adds);
+22. file_workflow — bench_loc.py's workload through files: Slam2D builds
+   the map on the card (B1's pair, B2, B3 at phase 3's shapes); its
+   frequency, simple and distance maps are written as .smd files and its
+   occupancy as a PNG (the same bytes as from the map moved to the CPU),
+   read back onto the card (equal to the in-memory maps on a dense probe
+   of the map's box; write -> read -> write gives the same bytes), and a
+   fresh Loc2D(match="solve") (B4 and B2 at phase 9's shapes) localises
+   the 199 updates on the loaded maps (mean error < 1 cm): write and read
+   times, file sizes, launches;
+23. pf_pool_kernel, pf_pool_prefix, pf_pool_main_path — PFSlam2D with
+   ``resident_window=False`` on the phase 8 workload: B6 on every
+   particle's pool window (``[30,512,512]``), B1's pair and B3 on one
+   particle's map-update window (512²), each bit-equal to its plain
+   version with times and bounds as in phase 3; the first ``PF_PREFIX``
+   updates on the CPU and on the card under phase 7's bounds and control
+   (every particle's pool through the resident window compared), and the
+   resident path on the card, which the pool path equals bit for bit;
+   one pass on the card with launch counts set to 0 just before and read
+   just after: updates/s, final error (< 5 cm), launches per update,
+   device activities per update, peak memory.
 
-Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
+Then the ``kernels`` line (each entry's ``launches`` from its main path's
+run; phase 22's counts under ``path_launches``) and, last, ``{"ok":
+true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before printing a
 result.
@@ -1109,7 +1137,7 @@ def loc_setup(torch, dev) -> dict:
                torch.as_tensor(m, device=dev)) for p, m, _ in padded]
     return {"data": data, "odoms": odoms, "padded": padded, "maps": maps,
             "maps_np": state.locmaps_to_numpy(maps), "map_cfg": slam.cfg,
-            "opts": opts, "staged": staged}
+            "slam_map": slam.map, "opts": opts, "staged": staged}
 
 
 def loc_kernel_inputs(torch, dev, lw) -> dict:
@@ -2078,6 +2106,7 @@ def slam_option_phases(torch, dev) -> None:
 GRAPH_STEPS = 300              # bench_graph.py's scans
 GRAPH_PREFIX = 60              # GraphSlam2D scans, CPU vs card
 GRAPH_REPS = 3                 # bench_graph.py: 3 reps after a warm-up
+GRAPH_PROFILED = 150           # GraphSlam2D scans of the profiled pass
 GRAPH_ATE_BOUND_M = 0.15       # bench_graph.py:22
 GRAPH_MIN_LOOPS = 4            # bench_graph.py:23
 VERIFY_ATOL = 1e-5             # one verification batch, CPU vs card
@@ -2418,10 +2447,12 @@ def graph_phases(torch, dev) -> list:
 
 
 def graph_profile(torch, dev, opts, staged, data, times) -> dict:
-    """Device activities, device time and the ``stats`` split of one more
-    GraphSlam2D pass of the bench_graph.py workload under torch.profiler;
-    ``busy_share`` is the device time over the profiled wall time (the
-    profiler slows the host, so it reads high)."""
+    """Device activities, device time and the ``stats`` split of the first
+    ``GRAPH_PROFILED`` scans of one more GraphSlam2D pass of the
+    bench_graph.py workload under torch.profiler (half the pass: the
+    profiler's post-processing of a whole pass took ~2 min); ``busy_share``
+    is the device time over the profiled wall time (the profiler slows the
+    host, so it reads high)."""
     from torch.profiler import ProfilerActivity, profile
     from iris_lama_tpu_torch.algos.graph_slam2d import GraphSlam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
@@ -2430,7 +2461,9 @@ def graph_profile(torch, dev, opts, staged, data, times) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gs.update_many_prepadded(staged, data.odometry, timestamps=times)
+        gs.update_many_prepadded(staged[:GRAPH_PROFILED],
+                                 data.odometry[:GRAPH_PROFILED],
+                                 timestamps=times[:GRAPH_PROFILED])
         n_keys = len(gs.key_poses)      # drains the verifications in flight
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2556,6 +2589,534 @@ def pgo_phase(torch, dev) -> None:
     assert err < PGO_ERR_BOUND_M, f"PGO mean error {err}"
     assert productive[1] <= PGO_ATOL, \
         f"PGO nodes CPU vs card after {k} iterations, aligned: {productive}"
+
+
+# ---------------------------------------------------------------------------
+# 21-23: maps on disk and the particle filter's pool path
+# ---------------------------------------------------------------------------
+
+FILE_ERR_BOUND_M = 0.01        # Loc2D on maps read from files
+
+
+def occupancy_phase(torch, dev) -> None:
+    """Phase 21: frequency_apply_counts and probabilistic_apply on the
+    cells of bench.py's first scan (its 768 beam endpoints and 768 x 202
+    ray cells, duplicates included; cells that are not hits or free
+    space carry count 0 at the robot's cell) on the CPU and on the card:
+    the states ``torch.equal``; the time of one apply into an empty state
+    (patches allocated) and of one more into the filled state, each the
+    median of 5 on the card."""
+    from iris_lama_tpu_torch.core import lie
+    from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.sdm import occupancy as occ
+    from iris_lama_tpu_torch.sdm.raycast import ray_cells
+
+    data, opts, padded = slam_workload()
+    cfg = opts.mapping_config()
+    geo = cfg.geometry
+    pts, msk, ori = (torch.as_tensor(a) for a in padded[0])
+    pose = lie.se2(*data.poses_gt[0])
+    g = mapping.beam_geometry(cfg, pose, pts, msk, ori)
+    hit, start = geo.w2m(g.hit_xy), geo.w2m(g.start_xy)
+    free, free_ok = ray_cells(start, hit, cfg.ray_steps)
+    free_ok = free_ok & g.valid[:, None]
+    free = torch.where(free_ok[..., None], free, start[:, None, :])
+    cells = torch.cat([hit, free.reshape(-1, 2)])
+    hit_ok = (g.valid & g.mark_hit).to(torch.int32)
+    fok = free_ok.reshape(-1).to(torch.int32)
+    occ_add = torch.cat([hit_ok, torch.zeros_like(fok)])
+    vis_add = torch.cat([hit_ok, fok])
+    ocfg = occ.OccupancyConfig(geo, 1024)
+
+    def apply(device, f=None, p=None):
+        c, oa, va = (t.to(device) for t in (cells, occ_add, vis_add))
+        f = occ.frequency_init(ocfg, device) if f is None else f
+        p = occ.probabilistic_init(ocfg, device) if p is None else p
+        return (occ.frequency_apply_counts(f, geo, c, oa, va),
+                occ.probabilistic_apply(p, geo, c, oa, va - oa))
+
+    def flat(states):
+        return [t.cpu() for st in states for t in (*st.table, *st[1:])]
+
+    cpu, card = apply("cpu"), apply(dev)
+    cpu2, card2 = apply("cpu", *cpu), apply(dev, *card)
+    equal = [torch.equal(a, b) for a, b in zip(flat(cpu + cpu2),
+                                               flat(card + card2))]
+
+    def median_ms(fn):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[2]
+
+    c, oa, va = (t.to(dev) for t in (cells, occ_add, vis_add))
+    f0, p0 = occ.frequency_init(ocfg, dev), occ.probabilistic_init(ocfg, dev)
+    f1, p1 = card
+    filled_device_ms, _ = device_ms(
+        torch, lambda: occ.frequency_apply_counts(f1, geo, c, oa, va), 5)
+    filled_activities = device_launches(
+        torch, lambda: occ.frequency_apply_counts(f1, geo, c, oa, va))
+    emit({"phase": "occupancy_apply", "cells": int(cells.shape[0]),
+          "hits": int(hit_ok.sum()), "free": int(fok.sum()),
+          "patches": int(card[0].table.num_patches()),
+          "capacity": ocfg.capacity, "states_equal": all(equal),
+          "frequency_empty_ms": median_ms(
+              lambda: occ.frequency_apply_counts(f0, geo, c, oa, va)),
+          "frequency_filled_ms": median_ms(
+              lambda: occ.frequency_apply_counts(f1, geo, c, oa, va)),
+          "frequency_filled_device_ms": filled_device_ms,
+          "frequency_filled_device_activities": filled_activities,
+          "probabilistic_empty_ms": median_ms(
+              lambda: occ.probabilistic_apply(p0, geo, c, oa, va - oa)),
+          "probabilistic_filled_ms": median_ms(
+              lambda: occ.probabilistic_apply(p1, geo, c, oa, va - oa)),
+          "kernels": "none: scatter-adds through index_add_"})
+    assert cells.shape[0] == 768 * (1 + cfg.ray_steps), "phase 21: cells"
+    assert all(equal), f"occupancy_apply: CPU and card differ {equal}"
+
+
+def file_workflow_phase(torch, dev, tmp: str) -> dict:
+    """Phase 22: bench_loc.py's workload through files. Slam2D builds the
+    map on the card (B1's pair, B2, B3 at phase 3's shapes); the
+    frequency, simple and distance .smd files and the occupancy PNG are
+    written from its maps, read back onto the card, written again (the
+    same bytes) and written from the map moved to the CPU (the same
+    bytes); the loaded maps equal the in-memory ones on a dense probe of
+    the world; a fresh Loc2D(match="solve") (B4, B2 at phase 9's shapes)
+    localises the 199 updates on the loaded maps, mean error < 10 mm.
+    Returns the launches of both drivers."""
+    from iris_lama_tpu_torch.algos import loc2d
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
+    from iris_lama_tpu_torch.ops import scatter_matmul, select4
+    from iris_lama_tpu_torch.sdm import distance as dist_mod
+    from iris_lama_tpu_torch.sdm import export, io as sdm_io
+    from iris_lama_tpu_torch.sdm import occupancy as occ
+    from iris_lama_tpu_torch.utils import state
+
+    slam_fns = {"deposit_pair": scatter_matmul.deposit_pair,
+                "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+    _cuda.reset_launches(*slam_fns.values())
+    lw = loc_setup(torch, dev)
+    slam_launches = {n: fn.launches for n, fn in slam_fns.items()}
+    m, maps, cfg = lw["slam_map"], lw["maps"], lw["map_cfg"]
+    geo, l2 = cfg.geometry, cfg.l2_max
+    host = state.map_from_numpy(state.map_to_numpy(m), "cpu")
+    host_maps = loc2d.maps_from_slam(host)
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    def write_all(mm, lm, tag, times=None):
+        for kind, fn in (
+                ("frequency", lambda: sdm_io.write_frequency_occupancy(
+                    mm, geo, path(f"{tag}_freq.smd"))),
+                ("simple", lambda: sdm_io.write_simple_occupancy(
+                    lm.occupancy, geo, path(f"{tag}_occ.smd"))),
+                ("distance", lambda: sdm_io.write_distance_map(
+                    lm.distance, geo, l2, path(f"{tag}_dm.smd"))),
+                ("png", lambda: export.export_to_png(
+                    export.occupancy_to_image(mm, geo),
+                    path(f"{tag}_occ.png")))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            if times is not None:
+                times[kind] = time.perf_counter() - t0
+
+    def read(name):
+        with open(path(name), "rb") as f:
+            return f.read()
+
+    write_s, read_s = {}, {}
+    write_all(m, maps, "card", write_s)
+    write_all(host, host_maps, "cpu")
+    names = ("freq.smd", "occ.smd", "dm.smd", "occ.png")
+    same_as_cpu = {n: read(f"card_{n}") == read(f"cpu_{n}") for n in names}
+    cap = int(m.table.capacity)
+    loaded = {}
+    for kind, fn in (
+            ("frequency", lambda: sdm_io.read_frequency_occupancy(
+                path("card_freq.smd"), cap, device=dev)),
+            ("simple", lambda: sdm_io.read_simple_occupancy(
+                path("card_occ.smd"), cap, device=dev)),
+            ("distance", lambda: sdm_io.read_distance_map(
+                path("card_dm.smd"), cap, device=dev))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded[kind] = fn()
+        torch.cuda.synchronize()
+        read_s[kind] = time.perf_counter() - t0
+    (freq, g_f), (simple, g_s), (dm, dcfg) = (loaded[k] for k in (
+        "frequency", "simple", "distance"))
+    sdm_io.write_frequency_occupancy(freq, g_f, path("again_freq.smd"))
+    sdm_io.write_simple_occupancy(simple, g_s, path("again_occ.smd"))
+    sdm_io.write_distance_map(dm, dcfg.geometry, l2, path("again_dm.smd"))
+    rewrite_same = {n: read(f"again_{n}") == read(f"card_{n}")
+                    for n in names[:3]}
+    png = export.read_image(path("card_occ.png"))
+    png_same = bool(np.array_equal(
+        png, export.occupancy_to_image(m, geo)[::-1]))
+
+    # a dense probe of the world: every cell of the map's bounding box
+    lo_w, hi_w = loc2d.map_bounds(m.table, geo)
+    lo_c, hi_c = geo.w2m(lo_w), geo.w2m(hi_w)
+    ys, xs = torch.meshgrid(torch.arange(int(lo_c[1]), int(hi_c[1]),
+                                         device=dev),
+                            torch.arange(int(lo_c[0]), int(hi_c[0]),
+                                         device=dev), indexing="ij")
+    cells = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.int32)
+    probe = {}
+    for name, fn in (("free", occ.simple_is_free),
+                     ("occupied", occ.simple_is_occupied),
+                     ("unknown", occ.simple_is_unknown)):
+        probe[name] = int((fn(simple, g_s, cells)
+                           != fn(maps.occupancy, geo, cells)).sum())
+    fs = occ.FrequencyOccupancyState(m.table, m.occupied, m.visited)
+    for name, fn in (("freq_occupied", occ.frequency_is_occupied),
+                     ("freq_free", occ.frequency_is_free),
+                     ("freq_prob", occ.frequency_prob)):
+        probe[name] = int((fn(freq, g_f, cells) != fn(fs, geo, cells)).sum())
+    d0 = dist_mod.cell_distance(m.table, m.dist, geo, cells,
+                                cfg.distance.max_dist)
+    d1 = dist_mod.cell_distance(dm.table, dm.dist, dcfg.geometry, cells,
+                                dcfg.max_dist)
+    probe["dist_sq"] = int((cfg.dist_to_sq(d0) != cfg.dist_to_sq(d1)).sum())
+    dist_max_abs = float((d0 - d1).abs().max())
+
+    # a fresh Loc2D on the maps read from the files
+    data, odoms, staged = lw["data"], lw["odoms"], lw["staged"]
+    loc_fns = {"gn_solve_batched": gn_solve.solve_window_sq,
+               "select4_sq_loc2d": select4.select4_sq}
+    _cuda.reset_launches(*loc_fns.values())
+    lc = loc2d.Loc2D(lw["opts"], maps=loc2d.LocMaps(simple, dm), device=dev,
+                     match="solve")
+    lc.set_prior(Pose2D(*data.poses_gt[0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = lc.update_many_prepadded(staged, odoms)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    loc_launches = {n: fn.launches for n, fn in loc_fns.items()}
+    est = lc.trajectory()[-len(acc):]
+    gt = np.asarray([data.poses_gt[i] for i in acc])
+    err = float(np.mean(np.linalg.norm(est[:, :2] - gt[:, :2], axis=1)))
+    emit({"phase": "file_workflow", "patches": int(m.table.num_patches()),
+          "capacity": cap,
+          "file_bytes": {n: os.path.getsize(path(f"card_{n}"))
+                         for n in names},
+          "write_s": write_s, "read_s": read_s,
+          "same_bytes_as_cpu_map": same_as_cpu,
+          "rewrite_same_bytes": rewrite_same, "png_decodes_equal": png_same,
+          "probe_cells": int(cells.shape[0]), "probe_differing": probe,
+          "dist_max_abs_m": dist_max_abs,
+          "loc_updates": len(acc), "loc_updates_per_s": len(acc) / dt,
+          "loc_mean_err_m": err, "slam_launches": slam_launches,
+          "loc_launches": loc_launches,
+          "loc_launches_per_update": {n: v / len(acc)
+                                      for n, v in loc_launches.items()}})
+    assert all(same_as_cpu.values()), f"file_workflow: {same_as_cpu}"
+    assert all(rewrite_same.values()), f"file_workflow: {rewrite_same}"
+    assert png_same, "file_workflow: the PNG does not decode to the image"
+    assert not any(probe.values()), f"file_workflow: probe {probe}"
+    assert dist_max_abs <= 1e-6, f"file_workflow: dist {dist_max_abs}"
+    assert len(acc) == len(odoms) - 1, f"file_workflow: {len(acc)} updates"
+    assert err < FILE_ERR_BOUND_M, f"file_workflow: mean error {err:.4f} m"
+    assert all(v > 0 for v in {**slam_launches, **loc_launches}.values()), \
+        f"file_workflow: launches {slam_launches} {loc_launches}"
+    return {"file_workflow_slam2d": slam_launches,
+            "file_workflow_loc2d": loc_launches}
+
+
+def pf_pool_phases(torch, dev) -> list:
+    """Phase 23 (PFSlam2D ``resident_window=False``, the bench_pf.py
+    workload): B6 on every particle's pool window, B1's pair and B3 on one
+    particle's map-update window, each against its plain version; the
+    first ``PF_PREFIX`` updates on the CPU and on the card under phase 7's
+    bounds and control, and the resident path on the card, bit-equal; one
+    pass on the card. Returns the kernels line's entries of this path."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
+    from iris_lama_tpu_torch.ops import scatter_matmul
+    from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.sdm import window as win_mod
+
+    data, opts0, padded = pf_workload()
+    opts = dataclasses.replace(opts0, resident_window=False)
+    cfg = opts.mapping_config()
+    geo = cfg.geometry
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded]
+
+    # kernels at the pool path's shapes, on a real particle set
+    pf = PFSlam2D(opts, device=dev)
+    pf.set_prior(Pose2D(*data.poses_gt[0]))
+    k = 0
+    while k < 6:
+        pf.update_prepadded(*staged[k], data.odometry[k])
+        k += 1
+    pf._flush_motion()
+    ps = pf.pset
+    odelta = torch.as_tensor((pf.odom_ - data.odometry[k]).se2_array(),
+                             dtype=torch.float32, device=dev)
+    eps = torch.randn((opts.particles, 3),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    poses = pf_mod.draw_from_motion(opts, eps, odelta, ps.pose).contiguous()
+    pts, msk, ori = staged[k]
+    grids, orgs = pf_mod.pool_windows(opts, ps.maps, poses)
+    sopts = opts.solver_options()
+    b6_kw = dict(max_dist=cfg.distance.max_dist, res=geo.resolution,
+                 scale=geo.scale, cell_offset=geo.cell_offset,
+                 cauchy_c=sopts.robust.param, eps1=sopts.eps1,
+                 eps2=sopts.eps2, max_iter=sopts.max_iterations,
+                 want_lik=True)
+    b6_args = (grids, orgs, poses, pts[:, :2].contiguous(), msk)
+    got = gn_batch.solve_window_sq(*b6_args, **b6_kw)
+    want = gn_batch.solve_window_sq_plain(*b6_args, **b6_kw)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got,
+                          want):
+        assert torch.equal(a, w), f"B6 pool windows: {name} differs"
+    n_p, b = grids.shape[0], pts.shape[0]
+    it = got[1]
+    evals = int(it.sum()) + 2 * n_p
+    bd = bound(grids.numel() + n_p * (8 + 16 + 32) + b * 9, 60 * b * evals)
+    b6 = {"name": "gn_batch_solve_pool", "route": "cuda",
+          "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
+          "replaces": "iris_lama_tpu/ops/gn_batch.py:108",
+          "shape": [n_p, grids.shape[1], grids.shape[2], b],
+          "dtype": str(grids.dtype).replace("torch.", ""),
+          "max_abs_err": 0.0, "iters_max": int(it.max()),
+          "iters_mean": float(it.float().mean()),
+          # B6 launches B4's kernel: B5's launch shape (gn_common.cuh)
+          "launch_floor_ms": b5_floor_ms(torch, dev, n_p, b),
+          **timings(torch, "", lambda: gn_batch.solve_window_sq(
+              *b6_args, **b6_kw), 50),
+          **timings(torch, "plain_", lambda: gn_batch.solve_window_sq_plain(
+              *b6_args, **b6_kw), 5),
+          "library_ms": None,
+          "library_call": "none: no single PyTorch call computes an IRLS "
+                          "solve",
+          "bound_ms": bd[0], "bound_by": bd[1]}
+
+    # particle 0's map update: its window at its pose, the scan's streams
+    w, wp = cfg.window_cells, cfg.window_patches
+    pool0 = pf_mod._pool(ps.maps, 0)
+    org0 = win_mod.window_org(geo, geo.w2m(poses[0, :2]), wp)
+    idx = mapping.deposit_indices(cfg, poses[0], pts, msk, ori, org0, w)
+    hit, free = (idx.hit_ly, idx.hit_lx), (idx.free_ly, idx.free_lx)
+    n_hit, n_dep = idx.hit_ly.numel(), idx.free_ly.numel()
+    got_p = scatter_matmul.deposit_pair(*hit, *free, w, w)
+    want_p = scatter_matmul.deposit_pair_plain(*hit, *free, w, w)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got_p, want_p):
+        assert torch.equal(g_, w_), "B1 pair at the pool window: differs"
+    pb = bound((n_hit + n_dep) * 8 + 2 * w * w * 4, 2 * n_hit + n_dep)
+    pair = {"name": "deposit_pair_pool", "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/deposit.cu",
+            "replaces": "iris_lama_tpu/ops/scatter_matmul.py:81",
+            "shape": [n_hit, n_dep, w, w], "max_abs_err": 0,
+            "launch_floor_ms": memset_floor_ms(
+                torch, dev, 2 * w * w * 4,
+                scatter_matmul.launch_blocks(1, [n_hit, n_dep]), 256),
+            **timings(torch, "", lambda: scatter_matmul.deposit_pair(
+                *hit, *free, w, w), 300),
+            **timings(torch, "plain_",
+                      lambda: scatter_matmul.deposit_pair_plain(
+                          *hit, *free, w, w), 50),
+            **timings(torch, "library_", deposit_library(
+                torch, dev, [(hit[0][None], hit[1][None], (0, 1)),
+                             (free[0][None], free[1][None], (1,))], 1, w,
+                w), 20),
+            "library_call": "zeros + index_put_(accumulate=True) over both "
+                            "grids' bins",
+            "bound_ms": pb[0], "bound_by": pb[1]}
+    keys = win_mod.window_patch_keys(geo, org0, wp)
+    dist_w, _ = win_mod.gather_window(pool0.table, pool0.dist, keys,
+                                      cfg.distance.max_dist)
+    r, cap = cfg.distance.radius_cells, cfg.distance.max_sqdist
+    obst = dist_w == 0.0
+    for msk_ in (obst, torch.rand(obst.shape, device=dev) < 0.3):
+        g3 = edt_pallas.edt2d(msk_, cap, r)
+        w3 = edt_pallas.edt2d_plain(msk_, cap, r)
+        torch.cuda.synchronize()
+        assert torch.equal(g3, w3), "B3 at the pool window: differs"
+    b3b = bound(obst.numel() * (1 + 4), obst.numel() * 4 * (2 * r + 1))
+    b3 = {"name": "edt2d_pool", "route": "cuda",
+          "source": "iris_lama_tpu_torch/csrc/edt.cu",
+          "replaces": "iris_lama_tpu/ops/edt_pallas.py:25",
+          "shape": list(obst.shape), "radius": r,
+          "obstacle_share": float(obst.float().mean()), "max_abs_err": 0,
+          # the tile kernel (csrc/edt.cu): a block of 256 threads per 32 x
+          # 64 output tile
+          "launch_floor_ms": launch_floor_ms(
+              torch, dev, -(-w // 64) * -(-w // 32), 256),
+          **timings(torch, "", lambda: edt_pallas.edt2d(obst, cap, r), 300),
+          **timings(torch, "plain_", lambda: edt_pallas.edt2d_plain(
+              obst, cap, r), 50),
+          "library_ms": None,
+          "library_call": "none: no single PyTorch call computes a capped "
+                          "EDT",
+          "bound_ms": b3b[0], "bound_by": b3b[1]}
+    entries = [b6, pair, b3]
+    for kern in entries:
+        emit({"phase": "pf_pool_kernel", **kern})
+    del pf, ps, grids, b6_args, got, want, got_p, want_p, dist_w, pool0
+
+    # the prefix: CPU plain versions vs the card, same draws, and the
+    # card again with the motion draws scaled by 1 + 3e-7, over phase 7's
+    # PF_PREFIX updates (so that its bounds and control apply as they
+    # stand); and the resident path on the card, which the pool path must
+    # equal bit for bit (both match on B6 over the same distances)
+    def make(o, device, scale=None):
+        draws = None
+        if scale is not None:
+            gen = torch.Generator().manual_seed(o.seed)
+
+            def draws(kind, shape):
+                if kind == "normal":
+                    return torch.randn(shape, generator=gen) * scale
+                return torch.rand(shape, generator=gen)
+        f = PFSlam2D(o, device=device, draws=draws)
+        f.set_prior(Pose2D(*data.poses_gt[0]))
+        return f
+
+    def advance(f, infos):
+        i = 0
+        while len(infos) < PF_PREFIX:
+            scan = (torch.as_tensor(a, device=f.device) for a in padded[i])
+            if f.update_prepadded(*scan, data.odometry[i]) and i:
+                infos.append((f.pset.pose.cpu().numpy(),
+                              bool(f._last_info["resampled"]),
+                              f.best_particle_idx(),
+                              f.pset.weight.cpu().numpy()))
+            i += 1
+
+    def pose_diff(a, g):
+        dth = np.angle(np.exp(1j * (np.arctan2(a[:, 3], a[:, 2])
+                                    - np.arctan2(g[:, 3], g[:, 2]))))
+        return np.abs(a[:, :2] - g[:, :2]).max(1), np.abs(dth)
+
+    def same_decisions(x, y):
+        return all(a[1] == g[1] and a[2] == g[2] for a, g in zip(x, y))
+
+    runs = {}
+    for name, o, device, scale in (("cpu", opts, "cpu", None),
+                                   ("card", opts, dev, None),
+                                   ("control", opts, dev, 1.0 + 3e-7),
+                                   ("resident", opts0, dev, None)):
+        f, infos = make(o, device, scale), []
+        t0 = time.perf_counter()
+        advance(f, infos)
+        runs[name] = (f, infos, time.perf_counter() - t0)
+        del f
+    (cpu_pf, cpu_inf, t_cpu), (gpu_pf, gpu_inf, t_gpu) = (
+        runs["cpu"], runs["card"])
+    ctl_inf, res_inf = runs["control"][1], runs["resident"][1]
+    diffs = [pose_diff(a[0], g[0]) for a, g in zip(cpu_inf, gpu_inf)]
+    ctl = [pose_diff(a[0], g[0]) for a, g in zip(ctl_inf, gpu_inf)]
+    dxy = max(float(d[0].max()) for d in diffs)
+    dth = max(float(d[1].max()) for d in diffs)
+    ctl_dxy = max(float(d[0].max()) for d in ctl)
+    ctl_dth = max(float(d[1].max()) for d in ctl)
+
+    def n_beyond(ds):
+        return sum(int(((d[0] > 1e-3) | (d[1] > 1e-3)).sum()) for d in ds)
+
+    beyond, ctl_beyond = n_beyond(diffs), n_beyond(ctl)
+    lim_xy, lim_th = max(1e-3, 2 * ctl_dxy), max(1e-3, 2 * ctl_dth)
+    resident_equal = same_decisions(res_inf, gpu_inf) and all(
+        np.array_equal(a[0], g[0]) and np.array_equal(a[3], g[3])
+        for a, g in zip(res_inf, gpu_inf))
+    # every particle's pool through the resident run's window, the grids
+    # that phase 7 compares
+    org = runs["resident"][0].pset.res_org
+    map_diff, n_cells = {"occ": 0, "vis": 0, "dist": 0}, 0
+    for i in range(opts.particles):
+        wc = mapping.resident_gather(pf_mod._pool(cpu_pf.pset.maps, i), cfg,
+                                     org.cpu())
+        wg = mapping.resident_gather(pf_mod._pool(gpu_pf.pset.maps, i), cfg,
+                                     org)
+        for k_, a, b_ in zip(("occ", "vis", "dist"), wc, wg):
+            map_diff[k_] += int((a != b_.cpu()).sum())
+        n_cells += int(wc[0].numel())
+    emit({"phase": "pf_pool_prefix", "updates": PF_PREFIX,
+          "cpu_s": t_cpu, "card_s": t_gpu, "max_dxy_m": dxy,
+          "max_dtheta_rad": dth, "limit_dxy_m": lim_xy,
+          "limit_dtheta_rad": lim_th,
+          "particle_updates_beyond_1mm": beyond,
+          "particle_updates": PF_PREFIX * opts.particles,
+          "control_max_dxy_m": ctl_dxy, "control_max_dtheta_rad": ctl_dth,
+          "control_particle_updates_beyond_1mm": ctl_beyond,
+          "decisions_equal": same_decisions(cpu_inf, gpu_inf),
+          "control_decisions_equal": same_decisions(ctl_inf, gpu_inf),
+          "card_equals_resident_path": resident_equal,
+          "resident_path_scrolls": runs["resident"][0].n_scrolls,
+          "resampled": sum(a[1] for a in gpu_inf),
+          "differing_cells": map_diff, "cells": n_cells})
+    assert resident_equal, "PF pool: the card's pool path is not the " \
+        "resident path's"
+    assert same_decisions(ctl_inf, gpu_inf), "PF pool: control decisions"
+    assert same_decisions(cpu_inf, gpu_inf), \
+        "PF pool: resample decisions or best particle differ"
+    assert beyond <= 2 * ctl_beyond, \
+        f"PF pool: {beyond} particle-updates beyond 1 mm (control " \
+        f"{ctl_beyond})"
+    assert dxy <= lim_xy and dth <= lim_th, "PF pool: particles diverge"
+    assert sum(map_diff.values()) <= 1e-3 * n_cells, \
+        f"PF pool: pools differ {map_diff}"
+    del runs, cpu_pf, gpu_pf, org
+
+    # one pass of the bench_pf.py workload on the card
+    fns = {"deposit_pair_pool": scatter_matmul.deposit_pair,
+           "edt2d_pool": edt_pallas.edt2d,
+           "gn_batch_solve_pool": gn_batch.solve_window_sq}
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launches(*fns.values())
+    main = pf_pass(torch, dev, data, opts, staged, 0)
+    launches = {n: fn.launches for n, fn in fns.items()}
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    pool_bytes = (3 * opts.particles * (opts.capacity + 1)
+                  * geo.patch_length ** 2 * 4)
+    # every device activity (kernels, copies, fills) of the first 5
+    # updates of one more filter, counted by the profiler after the
+    # launch counts were read
+    prof_pf = make(opts, dev)
+    prof_pf.update_prepadded(*staged[0], data.odometry[0])
+    n_prof = []
+
+    def five_updates():
+        i = 1
+        while len(n_prof) < 5:
+            if prof_pf.update_prepadded(*staged[i], data.odometry[i]):
+                n_prof.append(i)
+            i += 1
+
+    n_dev = device_launches(torch, five_updates)
+    del prof_pf
+    emit({"phase": "pf_pool_main_path", "main_pass": main,
+          "launches": launches,
+          "launches_per_update": {n: v / main["updates"]
+                                  for n, v in launches.items()},
+          "device_launches_per_update": n_dev / len(n_prof),
+          "pool_mb": pool_bytes / 2 ** 20, "peak_mem_mb": peak_mb,
+          "before_mem_mb": base_mem / 2 ** 20})
+    assert main["final_err_m"] < PF_ERR_BOUND_M, \
+        f"PF pool: final error {main['final_err_m']:.4f} m"
+    assert main["reorgs"] == 0 and main["escaped"] == 0, "PF pool: re-orgs"
+    assert all(v > 0 for v in launches.values()), f"launches {launches}"
+    for kern in entries:
+        kern["launches"] = launches[kern["name"]]
+    return entries
 
 
 def main() -> int:
@@ -2791,6 +3352,12 @@ def main() -> int:
               "replaces": "iris_lama_tpu/ops/edt_pallas.py:37",
               "hw": [wu, wu], "radius": rb, "radii_checked": [65, 100, 254],
               "cases": big_cases, "max_abs_err": big_err,
+              # its two launches (csrc/edt.cu): the column sweep, a block of
+              # 128 threads per 128 columns, then the row min, one per 128
+              # columns of each row
+              "launch_floor_ms": (
+                  launch_floor_ms(torch, dev, -(-wu // 128), 128)
+                  + launch_floor_ms(torch, dev, -(-wu // 128) * wu, 128)),
               **timings(torch, "", lambda: edt_pallas.edt2d(m, cap_b, rb),
                         100),
               **timings(torch, "plain_", lambda: edt_pallas.edt2d_plain(
@@ -2888,6 +3455,19 @@ def main() -> int:
     kernels += graph_phases(torch, dev)
     # 20. bench_pgo.py's pose graph
     pgo_phase(torch, dev)
+    # 21. the standalone occupancy states' updates, CPU against card
+    occupancy_phase(torch, dev)
+    # 22. bench_loc.py's workload through .smd files; its kernels run at
+    # phase 3's (Slam2D) and phase 9's (Loc2D) shapes
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path_launches = file_workflow_phase(torch, dev, tmp)
+    for k in kernels:
+        for path, counts in path_launches.items():
+            if k["name"] in counts:
+                k.setdefault("path_launches", {})[path] = counts[k["name"]]
+    # 23. the particle filter's pool path
+    kernels += pf_pool_phases(torch, dev)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -1,5 +1,4 @@
-"""Rao-Blackwellized particle-filter SLAM (the reference's PFSlam2D),
-resident-window path with host-gated re-orgs.
+"""Rao-Blackwellized particle-filter SLAM (the reference's PFSlam2D).
 
 reference: include/lama/pf_slam2d.h, src/pf_slam2d.cpp. Every particle owns
 a map. Per odometry packet every particle draws motion noise
@@ -25,8 +24,18 @@ stream. They come from a ``torch.Generator`` on the CPU seeded by
 ``options.seed`` and are moved to the device, so a CPU run and a card run of
 one seed see the same numbers; a caller may pass its own draw source.
 
+``resident_window=False`` takes the pool-per-update path instead (the
+JAX package's ``pf_update_step`` without resident grids): every particle
+owns its pool ``[N, P+1, L, L]``, gathered by the resample indices; every
+particle is scan-matched on the squared-distance form of a window
+gathered from its pool (one B6 launch for all, the same solve and
+likelihood as the resident path's, so both paths give the same particles),
+and the scan goes into every pool through ``mapping.update_maps``, one
+particle after the other.
+
 The driver runs on the CUDA device unless constructed with
-``device="cpu"``; re-orgs loop over the particles in Python (they are rare).
+``device="cpu"``; re-orgs and the pool path's map updates loop over the
+particles in Python.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from ..nlls.robust import CAUCHY_SCAN
 from ..nlls.solver import SolverOptions
 from ..ops import gn_batch
 from ..sdm import mapping
+from ..sdm import window as win_mod
 from ..sdm.geometry import MapGeometry, f32
 from ..sdm.pool import PatchTable
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
@@ -54,9 +64,9 @@ from .slam2d import resolve_device
 class PFSlam2DOptions:
     """reference: PFSlam2D::Options (pf_slam2d.h:132-185) + sizing knobs.
 
-    ``use_compression``, ``create_summary``, ``detailed_summary``,
-    ``resident_window=False`` and a ``reorg_chunk`` other than -1 are not
-    ported: :class:`PFSlam2D` raises NotImplementedError for them.
+    ``use_compression``, ``create_summary``, ``detailed_summary`` and a
+    ``reorg_chunk`` other than -1 are not ported: :class:`PFSlam2D` raises
+    NotImplementedError for them.
     """
 
     particles: int = 30
@@ -116,20 +126,22 @@ class PFSlam2DOptions:
 
 class ParticleSet(NamedTuple):
     """All particle state; every tensor has a leading [N] except
-    ``res_org``, the resident-window origin the particles share."""
+    ``res_org``, the resident-window origin the particles share. The pool
+    path (``resident_window=False``) has no resident fields (None)."""
 
     pose: torch.Tensor          # f32 [N, 4] SE(2)
     weight: torch.Tensor        # f32 [N]
     weight_sum: torch.Tensor    # f32 [N]
     normalized: torch.Tensor    # f32 [N]
     maps: mapping.SlamMapState  # pools, tensors [N, ...]
-    res_org: torch.Tensor       # i32 [2]
-    res_occ: torch.Tensor       # i32 [N, W, W] (uint16 values)
-    res_vis: torch.Tensor       # i32 [N, W, W]
-    res_dist: torch.Tensor      # sq dtype [N, W, W] capped squared distance
+    res_org: Optional[torch.Tensor] = None    # i32 [2]
+    res_occ: Optional[torch.Tensor] = None    # i32 [N, W, W] (uint16 values)
+    res_vis: Optional[torch.Tensor] = None    # i32 [N, W, W]
+    # sq dtype [N, W, W] capped squared distance
+    res_dist: Optional[torch.Tensor] = None
     # deferred lineage: particle i's pool is pool ``lineage[i]`` until the
     # next re-org settles it; i32 [N]
-    lineage: torch.Tensor
+    lineage: Optional[torch.Tensor] = None
 
 
 def particles_init(opts: PFSlam2DOptions, prior_se2,
@@ -144,16 +156,19 @@ def particles_init(opts: PFSlam2DOptions, prior_se2,
     maps = mapping.SlamMapState(PatchTable(*(rep(t) for t in one.table)),
                                 rep(one.occupied), rep(one.visited),
                                 rep(one.dist))
-    w = cfg.resident_window_cells
     prior = torch.as_tensor(np.asarray(prior_se2), dtype=torch.float32,
                             device=device)
-    occ = torch.zeros((n, w, w), dtype=mapping.COUNT_DTYPE, device=device)
-    return ParticleSet(
+    pset = ParticleSet(
         pose=prior.expand(n, 4).clone(),
         weight=torch.zeros(n, device=device),
         weight_sum=torch.zeros(n, device=device),
         normalized=torch.full((n,), 1.0 / n, device=device),
-        maps=maps,
+        maps=maps)
+    if not opts.resident_window:
+        return pset
+    w = cfg.resident_window_cells
+    occ = torch.zeros((n, w, w), dtype=mapping.COUNT_DTYPE, device=device)
+    return pset._replace(
         res_org=mapping.resident_org(cfg, cfg.geometry.w2m(prior[:2])),
         res_occ=occ,
         res_vis=torch.zeros_like(occ),
@@ -227,15 +242,41 @@ def match_windows(opts: PFSlam2DOptions, org, dist, poses):
     return grids, (org[None, :] + starts).to(torch.int32)
 
 
+def pool_windows(opts: PFSlam2DOptions, maps: mapping.SlamMapState, poses):
+    """Every particle's scan-match window gathered from its own pool (the
+    pool-per-scan window at its pose, ``MappingConfig.window_patches``
+    patches a side) in the squared-distance form B6 reads (exact: the pool
+    holds ``sqrt(k) * res`` meters). Returns (grids [N, W, W], window
+    origins i32 [N, 2])."""
+    cfg = opts.mapping_config()
+    geo, wp = cfg.geometry, cfg.window_patches
+    orgs = win_mod.window_org(geo, geo.w2m(poses[:, :2]), wp)
+    grids = []
+    for i in range(poses.shape[0]):
+        pool = _pool(maps, i)
+        keys = win_mod.window_patch_keys(geo, orgs[i], wp)
+        grid, _ = win_mod.gather_window(pool.table, pool.dist, keys,
+                                        cfg.distance.max_dist)
+        grids.append(cfg.dist_to_sq(grid))
+    return torch.stack(grids), orgs
+
+
 def match_phase(opts: PFSlam2DOptions, pset: ParticleSet, points, mask):
-    """Scan match + likelihood of every particle, one B6 launch. The
-    likelihood is ``-SSE / meas_sigma`` of the masked residuals at the
-    matched pose (the JAX package's CPU path sums ``-d^2 / meas_sigma``
-    per beam: the same value up to rounding). Returns (states [N, 4],
-    liks [N], iterations int32 [N])."""
+    """Scan match + likelihood of every particle, one B6 launch, on the
+    resident grids' sub-windows or (the pool path) on windows gathered
+    from the pools; both read the same distances at every cell the match
+    reaches, so both give the same results. The likelihood is ``-SSE /
+    meas_sigma`` of the masked residuals at the matched pose (the JAX
+    package's CPU path sums ``-d^2 / meas_sigma`` per beam: the same value
+    up to rounding). Returns (states [N, 4], liks [N], iterations int32
+    [N])."""
     cfg = opts.mapping_config()
     geo, so = cfg.geometry, opts.solver_options()
-    grids, orgs = match_windows(opts, pset.res_org, pset.res_dist, pset.pose)
+    if pset.res_org is None:
+        grids, orgs = pool_windows(opts, pset.maps, pset.pose)
+    else:
+        grids, orgs = match_windows(opts, pset.res_org, pset.res_dist,
+                                    pset.pose)
     st, it, _, sse = gn_batch.solve_window_sq(
         grids, orgs, pset.pose.contiguous(), points[:, :2].contiguous(),
         mask, max_dist=cfg.distance.max_dist, res=geo.resolution,
@@ -274,16 +315,51 @@ def update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points, mask,
     return new, info
 
 
+def pool_update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points,
+                     mask, origin):
+    """One PF update of the pool path on post-motion poses: match ->
+    weights -> resample (every pool array gathered by ``idx`` in place,
+    one temporary of one array at a time) -> ``mapping.update_maps`` into
+    every particle's pool, one particle after the other. Returns (pset,
+    info)."""
+    cfg = opts.mapping_config()
+    states, liks, iters = match_phase(opts, pset, points, mask)
+    idx, pose, weight, weight_sum, nw, neff, do_resample = \
+        weights_and_resample(opts, pset.weight, pset.weight_sum, states,
+                             liks, u)
+    maps = pset.maps
+    for a in (*maps.table, maps.occupied, maps.visited, maps.dist):
+        a.copy_(a[idx])
+    for i in range(pose.shape[0]):
+        m, _ = mapping.update_maps(_pool(maps, i), cfg, pose[i], points,
+                                   mask, origin)
+        _store_table(maps, i, m.table)
+    new = ParticleSet(pose, weight, weight_sum, nw, maps)
+    info = {"neff": neff, "resampled": do_resample,
+            "overflow": torch.max(maps.table.overflow),
+            "match_iters_max": torch.max(iters),
+            "match_iters_mean": torch.mean(iters.to(torch.float32))}
+    return new, info
+
+
 def first_step(opts: PFSlam2DOptions, pset: ParticleSet, points, mask,
                origin) -> None:
     """First scan (pf_slam2d.cpp:185-228): every particle holds the same
-    map, so particle 0's resident update is computed once and copied (the
-    grids are updated in place)."""
+    map, so particle 0's update is computed once and copied (the resident
+    grids, or on the pool path the pools, are updated in place)."""
     cfg = opts.mapping_config()
-    mapping.resident_update(cfg, pset.res_org, pset.res_occ[:1],
-                            pset.res_vis[:1], pset.res_dist[:1],
-                            pset.pose[:1], points, mask, origin)
-    for g in (pset.res_occ, pset.res_vis, pset.res_dist):
+    if pset.res_org is None:
+        m, _ = mapping.update_maps(_pool(pset.maps, 0), cfg, pset.pose[0],
+                                   points, mask, origin)
+        _store_table(pset.maps, 0, m.table)
+        grids = (*pset.maps.table, pset.maps.occupied, pset.maps.visited,
+                 pset.maps.dist)
+    else:
+        mapping.resident_update(cfg, pset.res_org, pset.res_occ[:1],
+                                pset.res_vis[:1], pset.res_dist[:1],
+                                pset.pose[:1], points, mask, origin)
+        grids = (pset.res_occ, pset.res_vis, pset.res_dist)
+    for g in grids:
         g[1:] = g[:1]
 
 
@@ -378,9 +454,6 @@ class PFSlam2D:
             if getattr(options, name):
                 raise NotImplementedError(f"PFSlam2DOptions.{name} is not "
                                           "ported")
-        if not options.resident_window:
-            raise NotImplementedError("the pool-per-update path "
-                                      "(resident_window=False) is not ported")
         if options.reorg_chunk != -1:
             raise NotImplementedError("PFSlam2DOptions.reorg_chunk is not "
                                       "ported (re-orgs go one particle at "
@@ -415,7 +488,7 @@ class PFSlam2D:
         self._esc_seen = 0        # escape events observed
         self._esc_clean = 0       # consecutive escape-free re-orgs
         self._esc_strikes = 0     # consecutive bursty re-orgs
-        if options.host_reorg:
+        if options.host_reorg and options.resident_window:
             cfg = options.mapping_config()
             cells = (cfg.resident_window_cells // 2
                      - cfg.resident_margin_cells - cfg.geometry.patch_length)
@@ -501,7 +574,7 @@ class PFSlam2D:
             return False
         self.acc_trans = 0.0
         self.acc_rot = 0.0
-        if opts.host_reorg:
+        if opts.host_reorg and opts.resident_window:
             self._pf_maybe_reorg(odometry)
         self._flush_motion()
         self._step(points, mask, origin)
@@ -533,6 +606,11 @@ class PFSlam2D:
 
     def _step(self, points, mask, origin) -> None:
         opts = self.options
+        if not opts.resident_window:
+            self.pset, self._last_info_dev = pool_update_step(
+                opts, self.pset, self._draw("uniform", ()), points, mask,
+                origin)
+            return
         if not opts.host_reorg:
             # no safe host trigger: check every particle's cell and re-org
             # before the update when any left the safe zone
@@ -652,16 +730,26 @@ class PFSlam2D:
     def particle_map(self, idx: Optional[int] = None) -> mapping.SlamMapState:
         """One particle's map (the best particle by default) —
         getOccupancyMap/getDistanceMap (pf_slam2d.h:211-225): a copy of its
-        pool with its resident grids flushed in."""
+        pool, with its resident grids flushed in on the resident path."""
         i = self.best_particle_idx() if idx is None else idx
         ps = self.pset
-        pool = _pool(ps.maps, int(ps.lineage[i]))
+        pool = _pool(ps.maps, i if ps.lineage is None else int(ps.lineage[i]))
         m = mapping.SlamMapState(PatchTable(*(t.clone() for t in pool.table)),
                                  pool.occupied.clone(), pool.visited.clone(),
                                  pool.dist.clone())
+        if ps.res_org is None:
+            return m
         return mapping.resident_flush(m, self.options.mapping_config(),
                                       ps.res_org, ps.res_occ[i],
                                       ps.res_vis[i], ps.res_dist[i])
+
+    def save_occ_image(self, path: str) -> None:
+        """saveOccImage (pf_slam2d.cpp:341-346): the best particle's
+        occupancy as a PNG."""
+        from ..sdm import export
+        img = export.occupancy_to_image(self.particle_map(),
+                                        self.options.mapping_config().geometry)
+        export.export_to_png(img, path)
 
     # -- state across processes ---------------------------------------------
     def state_dict(self) -> dict:

@@ -1,2 +1,3 @@
 """Sparse-dense maps: geometry, raycast, distance field, patch pool,
-windows, the simple occupancy map and the fused SLAM map update."""
+windows, the standalone occupancy maps, the fused SLAM map update, and
+maps on disk (.smd files, image and mesh export)."""

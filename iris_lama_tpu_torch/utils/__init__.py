@@ -1,2 +1,2 @@
-"""Host-side scan utilities, the synthetic world, evaluation and the
-map-state converter."""
+"""Host-side scan utilities, the synthetic world, evaluation, the
+map-state converter, the buffer codec and checkpoints."""

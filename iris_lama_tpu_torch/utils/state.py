@@ -16,9 +16,11 @@ A state dict holds plain numpy arrays, in the JAX package's dtypes:
 A particle filter's state dict (:func:`pf_to_numpy`) holds the same pool and
 resident arrays with a leading particle axis ``[N, ...]`` (``res_org`` is
 shared), plus ``pose`` [N, 4], ``weight``, ``weight_sum``, ``normalized``
-(float32 [N]) and ``lineage`` (int32 [N]); its bookkeeping is ``odom``,
-``odom_reorg``, ``acc_trans``, ``acc_rot`` and ``odelta_queue`` (float32
-[J, 4], the motion packets not applied yet), and the port's own driver
+(float32 [N]) and ``lineage`` (int32 [N]) — the pool path
+(``resident_window=False``) has no resident arrays and no lineage; its
+bookkeeping is ``odom``, ``odom_reorg``, ``acc_trans``, ``acc_rot`` and
+``odelta_queue`` (float32 [J, 4], the motion packets not applied yet),
+and the port's own driver
 state (:data:`PF_DRIVER`, optional on load): ``draw_state`` (uint8, the
 draw generator's state, so that a reloaded filter continues the random
 stream it was saved in), the re-org trigger ``trigger_m`` and ``scroll_m``
@@ -239,9 +241,11 @@ def pf_to_numpy(pf) -> dict:
     ps = pf.pset
     d = map_to_numpy(ps.maps)
     d.update({k: _np(getattr(ps, k)) for k in PF_FLOATS})
-    d.update(res_org=_np(ps.res_org), res_occ=_counts_np(ps.res_occ),
-             res_vis=_counts_np(ps.res_vis), res_dist=_np(ps.res_dist),
-             lineage=_np(ps.lineage), odom=pf.odom_.xyr(),
+    if ps.res_org is not None:   # the pool path has no resident grids
+        d.update(res_org=_np(ps.res_org), res_occ=_counts_np(ps.res_occ),
+                 res_vis=_counts_np(ps.res_vis), res_dist=_np(ps.res_dist),
+                 lineage=_np(ps.lineage))
+    d.update(odom=pf.odom_.xyr(),
              odom_reorg=pf._odom_reorg.xyr(),
              acc_trans=np.float64(pf.acc_trans),
              acc_rot=np.float64(pf.acc_rot),
@@ -267,12 +271,15 @@ def pf_from_numpy(pf, d: dict) -> None:
     def t(k, dtype):
         return _tensor(d[k], dtype, dev)
 
-    pf.pset = ParticleSet(
-        *(t(k, torch.float32) for k in PF_FLOATS),
-        maps=map_from_numpy(d, dev), res_org=t("res_org", torch.int32),
-        res_occ=t("res_occ", mapping.COUNT_DTYPE),
-        res_vis=t("res_vis", mapping.COUNT_DTYPE),
-        res_dist=t("res_dist", cfg.sq_dtype), lineage=t("lineage", torch.int32))
+    pf.pset = ParticleSet(*(t(k, torch.float32) for k in PF_FLOATS),
+                          maps=map_from_numpy(d, dev))
+    if "res_org" in d:
+        pf.pset = pf.pset._replace(
+            res_org=t("res_org", torch.int32),
+            res_occ=t("res_occ", mapping.COUNT_DTYPE),
+            res_vis=t("res_vis", mapping.COUNT_DTYPE),
+            res_dist=t("res_dist", cfg.sq_dtype),
+            lineage=t("lineage", torch.int32))
     pf.has_first_scan = True
     pf.odom_ = Pose2D.from_xyr(d["odom"])
     pf._odom_reorg = Pose2D.from_xyr(d.get("odom_reorg", d["odom"]))

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and its paths on the card against the CPU.
 
 Marked ``gpu``: every test skips without a CUDA device. This file imports
 no JAX, so it also runs where only PyTorch is installed:
@@ -1009,3 +1010,124 @@ def test_graph_verification_batch_on_both_devices(cuda):
                            torch.stack([kps[c].mask for _, c in rows]))
                       .cpu().numpy())
     np.testing.assert_allclose(packed[1], packed[0], atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Maps on disk and the PF pool path
+# ---------------------------------------------------------------------------
+
+def _scan_cells(dev, seed):
+    """A 720-beam 5 cm scan's hit and free cells (duplicates included) and
+    their counts, as the map update derives them."""
+    from iris_lama_tpu_torch.core import lie
+    from iris_lama_tpu_torch.sdm import mapping
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=4, seed=seed,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    cfg = Slam2DOptions(capacity=256).mapping_config()
+    pts, msk, ori = (torch.as_tensor(a, device=dev)
+                     for a in pad_scan(data.clouds[0], beam_bucket(720)))
+    pose = lie.se2(*data.poses_gt[0], device=dev)
+    idx = mapping.deposit_indices(cfg, pose, pts, msk, ori,
+                                  torch.zeros(2, dtype=torch.int32,
+                                              device=dev), 1 << 20)
+    hit = torch.stack([idx.hit_lx, idx.hit_ly], -1)
+    free = torch.stack([idx.free_lx, idx.free_ly], -1)
+    cells = torch.cat([hit, free])
+    ok = cells[:, 1] < (1 << 20)
+    cells = cells[ok]
+    n_hit = int(ok[:hit.shape[0]].sum())
+    hits = (torch.arange(cells.shape[0], device=dev) < n_hit).to(torch.int32)
+    return cfg.geometry, cells, hits
+
+
+def test_occupancy_apply_on_card_equals_cpu(cuda):
+    """frequency_apply_counts and probabilistic_apply on a scan's cells:
+    the card's states equal the CPU's."""
+    from iris_lama_tpu_torch.sdm import occupancy as occ
+    geo, cells, hits = _scan_cells(cuda, 3)
+    out = []
+    for dev in ("cpu", cuda):
+        cfg = occ.OccupancyConfig(geo, 256)
+        c, h = cells.to(dev), hits.to(dev)
+        f = occ.frequency_apply_counts(occ.frequency_init(cfg, dev), geo, c,
+                                       h, torch.ones_like(h))
+        p = occ.probabilistic_apply(occ.probabilistic_init(cfg, dev), geo, c,
+                                    h, 1 - h)
+        out.append([t.cpu() for t in (*f.table, f.occupied, f.visited,
+                                      *p.table, p.logodds, p.touched)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_smd_round_trip_on_card(cuda, tmp_path):
+    """A Slam2D map built on the card written as .smd, read back onto the
+    card and written again: the same bytes, and the same bytes as written
+    from the map moved to the CPU."""
+    from iris_lama_tpu_torch.sdm import io as sdm_io
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=30, seed=4, laser=simulator.LaserSpec(n_beams=120,
+                                                      max_range=8.0)))
+    slam = Slam2D(Slam2DOptions(resolution=0.1, patch_size=16,
+                                max_range=8.0, capacity=1024), device=cuda)
+    slam.set_prior(Pose2D(*data.poses_gt[0]))
+    for k in range(30):
+        slam.update(data.clouds[k], data.odometry[k])
+    m = slam.map
+    host = state.map_from_numpy(state.map_to_numpy(m), "cpu")
+    geo, l2 = slam.cfg.geometry, slam.cfg.l2_max
+    for kind, mm in (("f", m), ("fc", host)):
+        sdm_io.write_frequency_occupancy(mm, geo, str(tmp_path / f"{kind}"))
+        sdm_io.write_distance_map(mm, geo, l2, str(tmp_path / f"{kind}.d"))
+    assert (tmp_path / "f").read_bytes() == (tmp_path / "fc").read_bytes()
+    assert (tmp_path / "f.d").read_bytes() == (tmp_path / "fc.d").read_bytes()
+    freq, g2 = sdm_io.read_frequency_occupancy(str(tmp_path / "f"), 1024,
+                                               device=cuda)
+    dm, dcfg = sdm_io.read_distance_map(str(tmp_path / "f.d"), 1024,
+                                        device=cuda)
+    assert freq.occupied.is_cuda and dm.dist.is_cuda
+    sdm_io.write_frequency_occupancy(freq, g2, str(tmp_path / "f2"))
+    sdm_io.write_distance_map(dm, dcfg.geometry, l2, str(tmp_path / "f2.d"))
+    assert (tmp_path / "f2").read_bytes() == (tmp_path / "f").read_bytes()
+    assert (tmp_path / "f2.d").read_bytes() == (tmp_path / "f.d").read_bytes()
+
+
+def test_pf_pool_path_on_card_matches_cpu(cuda):
+    """The PF pool path (``resident_window=False``) on the card and on the
+    CPU with the same seed, on test_pf_on_card_matches_cpu's run: the same
+    accepted scans and resample decisions, poses within 1 mm / 1e-3 rad;
+    on the card it equals the resident path bit for bit (as on the CPU),
+    and B1's pair, B3 and B6 launched."""
+    import dataclasses
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=60, seed=2,
+        laser=simulator.LaserSpec(n_beams=120, max_range=8.0),
+        odom_trans_noise=0.02, odom_rot_noise=0.004))
+    opts = PFSlam2DOptions(particles=8, resolution=0.1, patch_size=16,
+                           max_range=8.0, capacity=1024, trans_thresh=0.3,
+                           rot_thresh=0.3, max_iter=30, seed=3,
+                           meas_sigma_gain=1.0, resident_extra_patches=2,
+                           host_reorg_slack=0.5)
+    fns = (scatter_matmul.deposit_pair, edt_pallas.edt2d,
+           gn_batch.solve_window_sq)
+    before = [f.launches for f in fns]
+    runs = []
+    for dev, resident in (("cpu", False), (cuda, False), (cuda, True)):
+        pf = PFSlam2D(dataclasses.replace(opts, resident_window=resident),
+                      device=dev)
+        pf.set_prior(Pose2D(*data.poses_gt[0]))
+        flags, poses = [], []
+        for k in range(11):
+            if pf.update(data.clouds[k], data.odometry[k]) and k:
+                flags.append(pf._last_info["resampled"])
+                poses.append(pf.pset.pose.cpu().clone())
+        runs.append((flags, torch.stack(poses), pf.pset.weight.cpu()))
+    (fc, pc, _), (fg, pg, wg), (fr, pr, wr) = runs
+    assert fc == fg == fr and len(fc) >= 8 and any(fc)
+    assert torch.equal(pg, pr) and torch.equal(wg, wr)
+    pc, pg = pc[-1].numpy(), pg[-1].numpy()
+    assert np.abs(pc[:, :2] - pg[:, :2]).max() <= 1e-3
+    dth = np.angle(np.exp(1j * (np.arctan2(pc[:, 3], pc[:, 2])
+                                - np.arctan2(pg[:, 3], pg[:, 2]))))
+    assert np.abs(dth).max() <= 1e-3
+    assert all(f.launches > b for f, b in zip(fns, before))

@@ -439,7 +439,23 @@ def test_escape_persistent_bursts_fall_back_to_safe_check(data):
     ("detailed_summary", True), ("resident_window", False),
     ("reorg_chunk", 4), ("reorg_chunk", 0)])
 def test_pf_unported_options_raise(field, value):
+    """Options not ported yet raise; ``resident_window=False`` is ported
+    (the pool-per-update path): the filter builds on the CPU, maps a
+    first scan into every particle's pool and carries no resident grids."""
     opts = tpf.PFSlam2DOptions(capacity=16, **{field: value})
+    if field == "resident_window":
+        sim = jsim.simulate(jsim.SimConfig(
+            n_steps=2, seed=2, laser=jsim.LaserSpec(n_beams=60,
+                                                    max_range=4.0)))
+        f = tpf.PFSlam2D(dataclasses.replace(
+            opts, particles=3, resolution=0.1, patch_size=16,
+            max_range=4.0, capacity=256), device="cpu")
+        assert f.update(sim.clouds[0], sim.odometry[0])
+        assert f.pset.res_org is None and f.pset.lineage is None
+        patches = f.pset.maps.table.num_patches()
+        assert int(patches[0]) > 0 and torch.equal(patches, patches[:1]
+                                                   .expand(3))
+        return
     with pytest.raises(NotImplementedError):
         tpf.PFSlam2D(opts, device="cpu")
 
