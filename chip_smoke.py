@@ -190,8 +190,37 @@ Phases, one JSON line each:
    just after: updates/s, final error (< 5 cm), launches per update,
    device activities per update, peak memory.
 
+24. slam_spill — Slam2D with the host spill tier (``use_compression``,
+   capacity SPILL_CAPACITY) over the first SPILL_SCANS scans of the
+   corridor world's figure-8 route (SimConfig(n_steps=1200, seed=4,
+   world="corridor"), 720 beams to 10 m, examples/run_long_world.py's
+   odometry noise and Slam2D options), against the unbounded pool path
+   (capacity SPILL_REF_CAPACITY) on the card: trajectories and
+   ``full_map()`` against the unbounded map key by key ``torch.equal``,
+   the unbounded run above the bound, no overflow, spills, refills and
+   cache hits fired, ``full_map()`` through a .smd file with more patches
+   than the live pool; patches, store bytes, each spill's and refill's
+   ms, host reads per update, scans/s of both runs, ATE, launches;
+25. pf_spill — PFSlam2D with the per-particle spill tier over the first
+   PF_SPILL_SCANS scans of tests/test_pf_spill.py's corridor route
+   (n_steps=400) at 720 beams and 5 cm, bench_pf.py's options (30
+   particles) at capacity PF_SPILL_CAPACITY, against capacity
+   PF_SPILL_REF_CAPACITY without the tier: poses, weights and resident
+   distance grids ``torch.equal``, the same best particle, its merged map
+   equal to the unbounded particle map key by key, pools at or below high
+   water at the end, no overflow, spills and refills fired; updates/s,
+   re-orgs, store bytes (shared blobs once), memory, launches;
+26. summary_slam2d, summary_pf — bench.py's first SUMMARY_SCANS scans and
+   bench_pf.py's first 60 updates with ``create_summary`` and
+   ``detailed_summary``, the trajectories (particles) ``torch.equal`` to
+   the same scans without them; both reports, beside the card's name and
+   power limit.
+
 Then the ``kernels`` line (each entry's ``launches`` from its main path's
-run; phase 22's counts under ``path_launches``) and, last, ``{"ok":
+run; phases 22, 24 and 25's counts under ``path_launches``, each with the
+shape that path sent the kernel, which may differ from the shape the
+entry's times were measured at) and, last,
+``{"ok":
 true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA device, or without
 the package beside this script, it exits non-zero before printing a
@@ -261,22 +290,28 @@ def cuda_time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.lru_cache(maxsize=None)
+def devprof():
+    """The port's ``utils/devprof.py`` beside this script, loaded by path:
+    the A/B scripts import this file with an older checkout's package on
+    the path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "iris_lama_tpu_torch", "utils", "devprof.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_devprof", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def device_ms(torch, fn, reps: int) -> tuple:
     """(device ms per call, timing source): the device time of everything
     ``fn`` launches, from torch.profiler over ``reps`` calls; where the
     profiler reports no device time, the CUDA-event time per call of
     back-to-back calls (which then includes the host's enqueue time)."""
-    from torch.profiler import ProfilerActivity, profile
+    dp = devprof()
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA"))
+    us = dp.device_us(dp.cuda_rows(dp.profile_calls(fn, reps)))
     if us > 0:
         return us / 1e3 / reps, "profiler"
     return cuda_time_ms(torch, fn, reps), "events"
@@ -584,16 +619,18 @@ def select4_edges(torch, dev) -> int:
     return n
 
 
+def path_counts(launches: dict, shapes: dict) -> dict:
+    """A path's launches for the kernels line: per kernel, its count and
+    the shape of the grids the path sent it."""
+    return {n: {"launches": c, "shape": list(shapes[n])}
+            for n, c in launches.items()}
+
+
 def device_launches(torch, fn) -> int:
     """The device activities (kernels, copies, fills) that ``fn``
     launches, counted by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA"))
+    dp = devprof()
+    return dp.launch_count(dp.cuda_rows(dp.profile_calls(fn)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -2006,31 +2043,29 @@ def lo_profile(torch, dev, opts, staged) -> dict:
     of a fresh LidarOdometry2D pass (after its first 100), from
     torch.profiler; ``busy_share`` is the device time over the profiled
     wall time (the profiler slows the host, so it reads high)."""
-    from torch.profiler import ProfilerActivity, profile
     from iris_lama_tpu_torch.algos.lidar_odometry_2d import LidarOdometry2D
+    dp = devprof()
     lo = LidarOdometry2D(opts, device=dev)
     for k in range(101):
         lo.update_prepadded(*staged[k])
-    torch.cuda.synchronize()
     scans = range(101, 101 + LO_PROFILED)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    run = {"refreshes": 0}
+
+    def profiled():
         t0 = time.perf_counter()
-        refreshes = 0
         for k in scans:
             lo.update_prepadded(*staged[k])
-            refreshes += lo.last_refresh
+            run["refreshes"] += lo.last_refresh
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in events)
-    n = len(scans)
-    return {"scans": n, "refreshes": refreshes,
+        run["wall"] = time.perf_counter() - t0
+
+    events = dp.cuda_rows(dp.profile_calls(profiled))
+    dev_us = dp.device_us(events)
+    n, wall = len(scans), run["wall"]
+    return {"scans": n, "refreshes": run["refreshes"],
             "ms_per_scan_profiled": wall * 1e3 / n,
             "device_ms_per_scan": dev_us / 1e3 / n,
-            "activities_per_scan": sum(e.count for e in events) / n,
+            "activities_per_scan": dp.launch_count(events) / n,
             "busy_share": dev_us / 1e6 / wall}
 
 
@@ -2453,36 +2488,32 @@ def graph_profile(torch, dev, opts, staged, data, times) -> dict:
     profiler's post-processing of a whole pass took ~2 min); ``busy_share``
     is the device time over the profiled wall time (the profiler slows the
     host, so it reads high)."""
-    from torch.profiler import ProfilerActivity, profile
     from iris_lama_tpu_torch.algos.graph_slam2d import GraphSlam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
+    dp = devprof()
     gs = GraphSlam2D(opts, device=dev)
     gs.set_prior(Pose2D(*data.poses_gt[0]))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    run = {}
+
+    def profiled():
         t0 = time.perf_counter()
         gs.update_many_prepadded(staged[:GRAPH_PROFILED],
                                  data.odometry[:GRAPH_PROFILED],
                                  timestamps=times[:GRAPH_PROFILED])
-        n_keys = len(gs.key_poses)      # drains the verifications in flight
+        run["keys"] = len(gs.key_poses)  # drains the verifications in flight
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in events)
-    n = gs.slam._n_updates
-    top = sorted(events, key=lambda e: -getattr(
-        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
-    return {"updates": n, "key_poses": n_keys,
+        run["wall"] = time.perf_counter() - t0
+
+    events = dp.cuda_rows(dp.profile_calls(profiled))
+    dev_us = dp.device_us(events)
+    n, wall = gs.slam._n_updates, run["wall"]
+    top = sorted(events, key=lambda e: -dp.event_us(e))
+    return {"updates": n, "key_poses": run["keys"],
             "ms_per_update_profiled": wall * 1e3 / n,
             "device_ms_per_update": dev_us / 1e3 / n,
-            "activities_per_update": sum(e.count for e in events) / n,
+            "activities_per_update": dp.launch_count(events) / n,
             "busy_share": dev_us / 1e6 / wall,
-            "top_device_us": {e.key[:60]: getattr(
-                e, "self_device_time_total",
-                getattr(e, "self_cuda_time_total", 0)) for e in top[:8]},
+            "top_device_us": {e.key[:60]: dp.event_us(e) for e in top[:8]},
             "stats": dict(gs.stats)}
 
 
@@ -2828,8 +2859,14 @@ def file_workflow_phase(torch, dev, tmp: str) -> dict:
     assert err < FILE_ERR_BOUND_M, f"file_workflow: mean error {err:.4f} m"
     assert all(v > 0 for v in {**slam_launches, **loc_launches}.values()), \
         f"file_workflow: launches {slam_launches} {loc_launches}"
-    return {"file_workflow_slam2d": slam_launches,
-            "file_workflow_loc2d": loc_launches}
+    ru, mw = cfg.resident_update_cells, cfg.match_window_cells
+    hs = ws = lc._ws                              # the match window's side
+    return {"file_workflow_slam2d": path_counts(slam_launches, {
+                "deposit_pair": [2, ru, ru], "select4_sq": [mw, mw],
+                "edt2d": [ru, ru]}),
+            "file_workflow_loc2d": path_counts(loc_launches, {
+                "gn_solve_batched": [1, hs, ws],
+                "select4_sq_loc2d": [hs, ws]})}
 
 
 def pf_pool_phases(torch, dev) -> list:
@@ -3117,6 +3154,403 @@ def pf_pool_phases(torch, dev) -> list:
     for kern in entries:
         kern["launches"] = launches[kern["name"]]
     return entries
+
+
+SPILL_STEPS = 1200             # phase 24: the corridor route's scans
+# the first scans of that route replayed: the smallest multiple of 100 at
+# which spills, refills and cache hits had all fired in the CPU rehearsal
+SPILL_SCANS = 600
+SPILL_CAPACITY = 512
+SPILL_REF_CAPACITY = 2048
+PF_SPILL_STEPS = 400           # phase 25: tests/test_pf_spill.py's route
+PF_SPILL_SCANS = 260
+# in the CPU rehearsal (4 particles) capacity 768 spills once in 260 scans
+# and never refills, 704 refills once, 640 spills twice and refills 15
+# times: the phase needs both events
+PF_SPILL_CAPACITY = 640
+PF_SPILL_REF_CAPACITY = 4096
+SUMMARY_SCANS = 120            # phase 26: bench.py's first scans
+SUMMARY_PF_SCANS = 61          # ... and bench_pf.py's first 60 updates
+
+
+def corridor_data(n_steps: int, beams: int, trans_noise: float,
+                  rot_noise: float):
+    """The corridor world's figure-8 route with ``beams`` beams to 10 m:
+    (data, scans padded to the beam bucket)."""
+    from iris_lama_tpu_torch.utils import simulator
+    from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=n_steps, seed=4, world="corridor",
+        laser=simulator.LaserSpec(n_beams=beams, max_range=10.0),
+        odom_trans_noise=trans_noise, odom_rot_noise=rot_noise))
+    return data, [pad_scan(c, beam_bucket(beams)) for c in data.clouds]
+
+
+def pool_content(torch, state, skip_default=None) -> dict:
+    """{patch key: slot} of a pool's active patches (with
+    ``skip_default`` = max_dist, only those whose cells are not all at
+    their initial values)."""
+    from iris_lama_tpu_torch.sdm import pool
+
+    keys, mask = pool.active_keys(state.table)
+    keys = keys[mask]
+    slots = pool.table_lookup(state.table, keys).long()
+    if skip_default is not None:
+        live = ((state.occupied[slots] != 0).flatten(1).any(1)
+                | (state.visited[slots] != 0).flatten(1).any(1)
+                | (state.dist[slots] != skip_default).flatten(1).any(1))
+        keys, slots = keys[live], slots[live]
+    return dict(zip(keys.tolist(), slots.tolist()))
+
+
+def pools_equal(torch, a, b, skip_default=None) -> tuple:
+    """(same key set, every common key's blocks equal) of two pools."""
+    ca = pool_content(torch, a, skip_default)
+    cb = pool_content(torch, b, skip_default)
+    if set(ca) != set(cb):
+        return False, False
+    ks = sorted(ca)
+    sa = torch.as_tensor([ca[k] for k in ks], device=a.dist.device)
+    sb = torch.as_tensor([cb[k] for k in ks], device=b.dist.device)
+    return True, all(torch.equal(x[sa], y[sb]) for x, y in (
+        (a.occupied, b.occupied), (a.visited, b.visited), (a.dist, b.dist)))
+
+
+def refill_xy(store, stored: set, poses) -> np.ndarray:
+    """The route pose (every 10th of ``poses``) whose refill window holds
+    the fewest ``stored`` keys but one at least: a refill of the size the
+    run's own refills have (a margin's row as the robot comes back)."""
+    counts = [(len(stored.intersection(
+        int(k) for k in store.window_keys_np(np.asarray(p[:2])))), i)
+        for i, p in enumerate(poses[::10])]
+    _, i = min((c, i) for c, i in counts if c > 0)
+    return np.asarray(poses[::10][i][:2], np.float64)
+
+
+def tier_events(torch, store, spill, refill) -> dict:
+    """Device activities and ms of one spill and one refill, forced after
+    a run: ``spill()`` and ``refill()`` run one event each on the driver's
+    state."""
+    out = {}
+    for name, fn in (("spill", spill), ("refill", refill)):
+        n_ev = store.spills + store.refills
+        hits = store.cache_hit
+        launches = device_launches(torch, fn)
+        out[name] = {"device_activities": launches,
+                     "fired": store.spills + store.refills > n_ev,
+                     "keys_refilled": store.cache_hit - hits,
+                     "ms": store.event_ms[name][-1]
+                     if store.spills + store.refills > n_ev else None}
+    return out
+
+
+def slam_spill_phase(torch, dev, tmp: str) -> dict:
+    """Phase 24: Slam2D with the spill tier over the corridor world at full
+    width, against the unbounded pool path on the card. Returns the
+    launches of the spill run."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.nlls import solver as nlls_solver
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
+    from iris_lama_tpu_torch.ops import select4
+    from iris_lama_tpu_torch.sdm import io as sdm_io
+    from iris_lama_tpu_torch.utils.evaluation import ate_rmse
+
+    t0 = time.perf_counter()
+    data, padded = corridor_data(SPILL_STEPS, 720, 0.01, 0.002)
+    sim_s = time.perf_counter() - t0
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded[:SPILL_SCANS]]
+    odoms = data.odometry[:SPILL_SCANS]
+    # examples/run_long_world.py's Slam2D options, the pool bounded
+    opts = Slam2DOptions(resolution=0.05, max_range=10.0, trans_thresh=0.25,
+                         rot_thresh=0.25, capacity=SPILL_CAPACITY,
+                         use_compression=True)
+    ref_opts = dataclasses.replace(opts, use_compression=False,
+                                   resident_window=False,
+                                   capacity=SPILL_REF_CAPACITY)
+    fns = {"deposit_pair": scatter_matmul.deposit_pair,
+           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+    runs = {}
+    for name, o in (("reference", ref_opts), ("spill", opts)):
+        slam = Slam2D(o, device=dev)
+        slam.set_prior(Pose2D(*data.poses_gt[0]))
+        torch.cuda.synchronize()
+        _cuda.reset_launches(*fns.values())
+        solver_reads = nlls_solver.host_read.count
+        reads_at = []
+        t0 = time.perf_counter()
+        acc = []
+        for k in range(SPILL_SCANS):
+            r0 = slam._spill.host_reads if slam._spill else 0
+            if slam.update_prepadded(*staged[k], odoms[k]):
+                acc.append(k)
+            if slam._spill and slam._spill.host_reads > r0:
+                reads_at.append(k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[name] = dict(slam=slam, acc=acc, seconds=dt, reads_at=reads_at,
+                          launches={n: fn.launches for n, fn in fns.items()},
+                          solver_reads=(nlls_solver.host_read.count
+                                        - solver_reads))
+    ref, sp_run = runs["reference"], runs["spill"]
+    slam, big = sp_run["slam"], ref["slam"]
+    sp = slam._spill
+    n = slam._n_updates
+    traj_equal = bool(torch.equal(slam._traj[:n], big._traj[:n]))
+    t0 = time.perf_counter()
+    full = slam.full_map()
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    same_keys, same_blocks = pools_equal(torch, full, big.map)
+    path = os.path.join(tmp, "spill_full.smd")
+    sdm_io.write_distance_map(full, slam.cfg.geometry, slam.cfg.l2_max, path)
+    back, _ = sdm_io.read_distance_map(path, capacity=4096, device=dev)
+    gt = np.asarray([data.poses_gt[k] for k in sp_run["acc"]])
+    patches = {"reference": int(big.map.table.num_patches()),
+               "live": int(slam.map.table.num_patches()),
+               "stored": len(sp.store),
+               "merged": int(full.table.num_patches()),
+               "smd_read_back": int(back.table.num_patches())}
+    overflow = {"live": int(slam.map.table.overflow),
+                "merged": int(full.table.overflow),
+                "reference": int(big.map.table.overflow)}
+    tier = {"store_bytes": sp.memory_usage(),
+            "memory_usage_bytes": slam.memory_usage(),
+            "spills": sp.spills, "refills": sp.refills,
+            "cache_hits": sp.cache_hit, "cache_misses": sp.cache_miss,
+            "spill_ms": list(sp.event_ms["spill"]),
+            "refill_ms": list(sp.event_ms["refill"]),
+            "tier_host_reads": sp.host_reads,
+            "tier_host_reads_per_update": (sp.host_reads
+                                           / len(sp_run["acc"])),
+            "updates_with_tier_reads": len(sp_run["reads_at"])}
+    # one more spill (low water at half the live patches) and one refill,
+    # counted by the profiler after the comparisons
+    sp.low = patches["live"] // 2
+    events = tier_events(
+        torch, sp,
+        lambda: setattr(slam, "_map", sp.spill(slam._map,
+                                               slam.pose().xy())),
+        lambda: setattr(slam, "_map", sp.refill(slam._map, refill_xy(
+            sp, set(sp.store), data.poses_gt[:SPILL_SCANS]))))
+    emit({"phase": "slam_spill", "scans": SPILL_SCANS,
+          "route_steps": SPILL_STEPS, "simulate_s": sim_s,
+          "capacity": SPILL_CAPACITY,
+          "reference_capacity": SPILL_REF_CAPACITY,
+          "updates": len(sp_run["acc"]), "patches": patches,
+          "overflow": overflow, **tier, "merge_s": merge_s,
+          "forced_events": events,
+          "solver_host_reads_per_update": {
+              k: r["solver_reads"] / len(r["acc"]) for k, r in runs.items()},
+          "scans_per_s": {k: len(r["acc"]) / r["seconds"]
+                          for k, r in runs.items()},
+          "ate_m": ate_rmse(slam.trajectory()[:len(gt)], gt),
+          "launches": {k: r["launches"] for k, r in runs.items()},
+          "trajectories_equal": traj_equal,
+          "full_map_same_keys": same_keys,
+          "full_map_blocks_equal": same_blocks})
+    assert sp_run["acc"] == ref["acc"], "slam_spill: accepted scans differ"
+    assert traj_equal, "slam_spill: the bounded run's trajectory differs"
+    assert same_keys and same_blocks, "slam_spill: full_map differs"
+    assert patches["reference"] > SPILL_CAPACITY, \
+        f"slam_spill: the unbounded run holds {patches['reference']} patches"
+    assert not any(overflow.values()), f"slam_spill: overflow {overflow}"
+    assert tier["spills"] > 0 and tier["refills"] > 0 \
+        and tier["cache_hits"] > 0, \
+        "slam_spill: spills, refills and cache hits must all fire"
+    assert patches["smd_read_back"] == patches["merged"] > patches["live"], \
+        f"slam_spill: the .smd file {patches}"
+    assert all(v > 0 for v in sp_run["launches"].values()), \
+        f"slam_spill: launches {sp_run['launches']}"
+    w = opts.mapping_config().window_cells    # the pool-per-scan window
+    return {"slam_spill": path_counts(sp_run["launches"], {
+        "deposit_pair": [2, w, w], "select4_sq": [w, w], "edt2d": [w, w]})}
+
+
+def pf_spill_phase(torch, dev) -> dict:
+    """Phase 25: PFSlam2D with the per-particle spill tier over
+    tests/test_pf_spill.py's corridor route at full width, against the
+    unbounded run on the card. Returns the launches of the spill run."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
+    from iris_lama_tpu_torch.ops import scatter_matmul
+
+    t0 = time.perf_counter()
+    data, padded = corridor_data(PF_SPILL_STEPS, 720, 0.005, 0.001)
+    sim_s = time.perf_counter() - t0
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded[:PF_SPILL_SCANS]]
+    _, bench_opts, _ = pf_workload()
+    opts = dataclasses.replace(bench_opts, capacity=PF_SPILL_CAPACITY,
+                               use_compression=True)
+    # the tier takes full re-orgs only (no band scrolls): so does the
+    # reference, so that both move their windows alike
+    ref_opts = dataclasses.replace(bench_opts, capacity=PF_SPILL_REF_CAPACITY,
+                                   scroll_reorg=False)
+    fns = {"deposit_pair_batched": scatter_matmul.deposit_pair,
+           "edt2d_batched": edt_pallas.edt2d,
+           "gn_batch_solve": gn_batch.solve_window_sq}
+    runs = {}
+    for name, o in (("reference", ref_opts), ("spill", opts)):
+        f = PFSlam2D(o, device=dev)
+        f.set_prior(Pose2D(*data.poses_gt[0]))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _cuda.reset_launches(*fns.values())
+        t0 = time.perf_counter()
+        n_up = sum(bool(f.update_prepadded(*staged[k], data.odometry[k]))
+                   for k in range(PF_SPILL_SCANS))
+        f._flush_motion()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        m = f.pset.maps
+        runs[name] = dict(
+            f=f, updates=n_up, seconds=dt,
+            launches={n: fn.launches for n, fn in fns.items()},
+            peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+            before_mem_mb=base / 2 ** 20,
+            pool_mb=sum(a.numel() * a.element_size() for a in
+                        (m.occupied, m.visited, m.dist)) / 2 ** 20)
+        if name == "reference":
+            ref_f = f
+        del f
+    f, sp_run = runs["spill"]["f"], runs["spill"]
+    sp = f._pf_spill
+    equal = {k: bool(torch.equal(getattr(f.pset, k),
+                                 getattr(ref_f.pset, k)))
+             for k in ("pose", "weight", "res_dist")}
+    best = (f.best_particle_idx(), ref_f.best_particle_idx())
+    max_dist = float(np.float32(opts.mapping_config().distance.max_dist))
+    t0 = time.perf_counter()
+    merged, _ = f.full_particle_map(best[0])
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    same_keys, same_blocks = pools_equal(
+        torch, merged, ref_f.particle_map(best[1]), max_dist)
+    counts = f.pset.maps.table.num_patches()
+    overflow = int(f.pset.maps.table.overflow.max())
+    tier = {"spills": sp.spills, "refills": sp.refills,
+            "cache_hits": sp.cache_hit,
+            "spill_ms": list(sp.event_ms["spill"]),
+            "refill_ms": list(sp.event_ms["refill"]),
+            "tier_host_reads": sp.host_reads,
+            "store_bytes_shared_once": sp.memory_usage(),
+            "store_entries": sum(len(st) for st in sp.stores)}
+
+    def spill_event():
+        f._pf_settle_stores()
+        maps, _ = sp.spill_batch(f.pset.maps, f.pose().xy())
+        f.pset = f.pset._replace(maps=maps)
+
+    def refill_event():
+        f._pf_settle_stores()
+        f.pset = f.pset._replace(maps=sp.refill_batch(f.pset.maps, refill_xy(
+            sp, set().union(*sp.stores), data.poses_gt[:PF_SPILL_SCANS])))
+
+    # one more spill (low water at half the fullest pool) and one refill,
+    # counted by the profiler after the comparisons
+    sp.low = int(counts.max()) // 2
+    events = tier_events(torch, sp, spill_event, refill_event)
+    emit({"phase": "pf_spill", "scans": PF_SPILL_SCANS,
+          "route_steps": PF_SPILL_STEPS, "simulate_s": sim_s,
+          "particles": opts.particles, "capacity": PF_SPILL_CAPACITY,
+          "reference_capacity": PF_SPILL_REF_CAPACITY,
+          "updates": sp_run["updates"],
+          "updates_per_s": {k: r["updates"] / r["seconds"]
+                            for k, r in runs.items()},
+          "reorgs": [f.n_reorgs, ref_f.n_reorgs],
+          "scrolls": [f.n_scrolls, ref_f.n_scrolls],
+          "escaped": [f.escaped_count(), ref_f.escaped_count()],
+          **tier, "merge_s": merge_s, "forced_events": events,
+          "high_water": sp.high, "live_patches_max": int(counts.max()),
+          "overflow": overflow, "best_particle": list(best), "equal": equal,
+          "merged_same_keys": same_keys, "merged_blocks_equal": same_blocks,
+          "memory_mb": {k: {"pool_mb": r["pool_mb"],
+                            "peak_above_before_mb": (r["peak_mem_mb"]
+                                                     - r["before_mem_mb"])}
+                        for k, r in runs.items()},
+          "launches": {k: r["launches"] for k, r in runs.items()}})
+    assert all(equal.values()), f"pf_spill: {equal}"
+    assert best[0] == best[1], f"pf_spill: best particle {best}"
+    assert same_keys and same_blocks, "pf_spill: the merged map differs"
+    assert int(counts.max()) <= sp.high, "pf_spill: above high water"
+    assert overflow == 0, "pf_spill: overflow"
+    assert tier["spills"] > 0 and tier["refills"] > 0, \
+        "pf_spill: spills and refills"
+    assert f.n_scrolls == 0, "pf_spill: band scrolls under the tier"
+    assert all(v > 0 for v in sp_run["launches"].values()), \
+        f"pf_spill: launches {sp_run['launches']}"
+    c, n_p = opts.mapping_config(), opts.particles
+    ru, mw = c.resident_update_cells, c.match_window_cells
+    return {"pf_spill": path_counts(sp_run["launches"], {
+        "deposit_pair_batched": [2, n_p, ru, ru],
+        "edt2d_batched": [n_p, ru, ru],
+        "gn_batch_solve": [n_p, mw, mw]})}
+
+
+def summary_phase(torch, dev) -> None:
+    """Phase 26: bench.py's Slam2D workload (first SUMMARY_SCANS scans)
+    and bench_pf.py's (first 60 updates) with create_summary and
+    detailed_summary on the card, against the same scans without them:
+    the trajectories and particles torch.equal; both reports printed
+    with the card's name and power limit."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
+    from iris_lama_tpu_torch.algos.slam2d import Slam2D
+    from iris_lama_tpu_torch.core.pose import Pose2D
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    out = {}
+    for kind, (data, opts0, padded), n, cls in (
+            ("slam2d", slam_workload(), SUMMARY_SCANS, Slam2D),
+            ("pf", pf_workload(), SUMMARY_PF_SCANS, PFSlam2D)):
+        staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+                  for p in padded[:n]]
+        drivers = []
+        for kw in ({}, dict(create_summary=True, detailed_summary=True)):
+            d = cls(dataclasses.replace(opts0, **kw), device=dev)
+            d.set_prior(Pose2D(*data.poses_gt[0]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(n):
+                d.update_prepadded(*staged[k], data.odometry[k],
+                                   data.timestamps[k])
+            torch.cuda.synchronize()
+            drivers.append((d, time.perf_counter() - t0))
+        (plain, t_plain), (det, t_det) = drivers
+        if kind == "slam2d":
+            k = plain._n_updates
+            equal = bool(torch.equal(plain._traj[:k], det._traj[:k]))
+        else:
+            plain._flush_motion()
+            det._flush_motion()
+            equal = all(torch.equal(getattr(plain.pset, a),
+                                    getattr(det.pset, a))
+                        for a in ("pose", "weight", "res_dist"))
+        s = det.summary
+        phases = {p: float(np.mean(getattr(s, f"time_{p}")[1:])) * 1e3
+                  for p in ("total", "solving", "normalizing",
+                            "resampling", "mapping")}
+        out[kind] = equal
+        emit({"phase": f"summary_{kind}", "nvidia_smi": smi.splitlines(),
+              "scans": n, "updates": len(s.time_total),
+              "trajectory_equal": equal, "seconds_plain": t_plain,
+              "seconds_detailed": t_det, "mean_phase_ms": phases,
+              "report": s.report().splitlines()})
+        print(f"{smi.splitlines()[0]} — {kind} summary:\n{s.report()}",
+              flush=True)
+        assert len(s.time_total) > 1 and sum(s.time_solving[1:]) > 0 \
+            and sum(s.time_mapping[1:]) > 0, f"summary_{kind}: no phases"
+        del drivers, plain, det
+    assert all(out.values()), f"summaries change the results: {out}"
 
 
 def main() -> int:
@@ -3462,12 +3896,17 @@ def main() -> int:
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         path_launches = file_workflow_phase(torch, dev, tmp)
+        # 23. the particle filter's pool path
+        kernels += pf_pool_phases(torch, dev)
+        # 24-25. Slam2D's and the particle filter's spill tier
+        path_launches.update(slam_spill_phase(torch, dev, tmp))
+        path_launches.update(pf_spill_phase(torch, dev))
+    # 26. the drivers' summaries
+    summary_phase(torch, dev)
     for k in kernels:
         for path, counts in path_launches.items():
             if k["name"] in counts:
                 k.setdefault("path_launches", {})[path] = counts[k["name"]]
-    # 23. the particle filter's pool path
-    kernels += pf_pool_phases(torch, dev)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -33,6 +33,17 @@ likelihood as the resident path's, so both paths give the same particles),
 and the scan goes into every pool through ``mapping.update_maps``, one
 particle after the other.
 
+``use_compression`` (resident path) bounds every particle's pool with the
+host spill tier (``sdm/spill.py:PFSpillStore``): before each accepted
+update the driver refills the stored patches the resident window could
+touch and spills far patches when a host-side upper bound passes high
+water. The stores follow the resamples through ``spill_lineage``, which
+the re-orgs leave alone; the driver applies it to the stores and resets it
+right before it settles the pools. Band scrolls are off under the tier.
+``create_summary`` probes every accepted update into :attr:`summary`;
+``detailed_summary`` times solving, normalizing, resampling and mapping
+apart on the resident path, synchronising at each phase boundary.
+
 The driver runs on the CUDA device unless constructed with
 ``device="cpu"``; re-orgs and the pool path's map updates loop over the
 particles in Python.
@@ -58,15 +69,18 @@ from ..sdm import window as win_mod
 from ..sdm.geometry import MapGeometry, f32
 from ..sdm.pool import PatchTable
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
+from ..utils.summary import PhaseClock, Summary, device_sync
 from .slam2d import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class PFSlam2DOptions:
     """reference: PFSlam2D::Options (pf_slam2d.h:132-185) + sizing knobs.
 
-    ``use_compression``, ``create_summary``, ``detailed_summary`` and a
-    ``reorg_chunk`` other than -1 are not ported: :class:`PFSlam2D` raises
-    NotImplementedError for them.
+    ``use_compression`` turns the per-particle spill tier on (resident
+    path; ``cache_size`` is kept for parity, ``calgorithm`` names the
+    codec); ``create_summary`` and ``detailed_summary`` fill
+    :attr:`PFSlam2D.summary`. A ``reorg_chunk`` other than -1 is not
+    ported: :class:`PFSlam2D` raises NotImplementedError for it.
     """
 
     particles: int = 30
@@ -89,6 +103,8 @@ class PFSlam2DOptions:
     create_summary: bool = False
     detailed_summary: bool = False
     use_compression: bool = False
+    cache_size: int = 100
+    calgorithm: str = "lz4"
     max_range: float = 10.0
     max_beams: int = 0          # 0 = bucket from the first scan
     capacity: int = 2048        # patch-pool capacity per particle
@@ -142,6 +158,10 @@ class ParticleSet(NamedTuple):
     # deferred lineage: particle i's pool is pool ``lineage[i]`` until the
     # next re-org settles it; i32 [N]
     lineage: Optional[torch.Tensor] = None
+    # the spill tier's lineage: particle i's host store is store
+    # ``spill_lineage[i]``; re-orgs keep it, the driver resets it when it
+    # permutes the stores (use_compression only); i32 [N]
+    spill_lineage: Optional[torch.Tensor] = None
 
 
 def particles_init(opts: PFSlam2DOptions, prior_se2,
@@ -168,6 +188,9 @@ def particles_init(opts: PFSlam2DOptions, prior_se2,
         return pset
     w = cfg.resident_window_cells
     occ = torch.zeros((n, w, w), dtype=mapping.COUNT_DTYPE, device=device)
+    if opts.use_compression:
+        pset = pset._replace(spill_lineage=torch.arange(
+            n, dtype=torch.int32, device=device))
     return pset._replace(
         res_org=mapping.resident_org(cfg, cfg.geometry.w2m(prior[:2])),
         res_occ=occ,
@@ -287,32 +310,44 @@ def match_phase(opts: PFSlam2DOptions, pset: ParticleSet, points, mask):
 
 
 def update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points, mask,
-                origin):
+                origin, clock=None):
     """One resident PF update on post-motion poses: match -> weights ->
-    resample (lineage composed, resident grids gathered by ``idx``) -> map
+    resample (lineages composed, resident grids gathered by ``idx``) -> map
     update of every particle. The resident grids are updated IN PLACE.
     The caller has checked the safe zone (or triggers re-orgs from
-    odometry). Returns (pset, info)."""
+    odometry). ``clock`` (a ``utils.summary.PhaseClock``) times solving,
+    normalizing, resampling and mapping apart. Returns (pset, info)."""
     cfg = opts.mapping_config()
     states, liks, iters = match_phase(opts, pset, points, mask)
+    _mark(clock, "solving")
     idx, pose, weight, weight_sum, nw, neff, do_resample = \
         weights_and_resample(opts, pset.weight, pset.weight_sum, states,
                              liks, u)
+    _mark(clock, "normalizing")
     occ, vis, dist = pset.res_occ, pset.res_vis, pset.res_dist
     for g in (occ, vis, dist):    # in place: one grid's temporary at a time
         g.copy_(g[idx])
+    spill_lineage = (None if pset.spill_lineage is None
+                     else pset.spill_lineage[idx])
+    _mark(clock, "resampling")
     org = pset.res_org
     mapping.resident_update(cfg, org, occ, vis, dist, pose, points, mask,
                             origin)
+    _mark(clock, "mapping")
     escaped = torch.sum(~mapping.resident_safe(
         cfg, org, cfg.geometry.w2m(pose[:, :2])))
     new = ParticleSet(pose, weight, weight_sum, nw, pset.maps, org, occ,
-                      vis, dist, pset.lineage[idx])
+                      vis, dist, pset.lineage[idx], spill_lineage)
     info = {"neff": neff, "resampled": do_resample, "escaped": escaped,
             "overflow": torch.max(pset.maps.table.overflow),
             "match_iters_max": torch.max(iters),
             "match_iters_mean": torch.mean(iters.to(torch.float32))}
     return new, info
+
+
+def _mark(clock, name: str) -> None:
+    if clock is not None:
+        clock.mark(name)
 
 
 def pool_update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points,
@@ -378,7 +413,8 @@ def _store_table(maps: mapping.SlamMapState, i: int, table) -> None:
 def settle(pset: ParticleSet) -> ParticleSet:
     """Realise the deferred pool lineage IN PLACE (each particle's pool
     becomes its own; one temporary of one pool array at a time) and reset
-    it to the identity."""
+    it to the identity. ``spill_lineage`` is left as it is: only the
+    driver resets it, when it permutes the host stores."""
     for a in (*pset.maps.table, pset.maps.occupied, pset.maps.visited,
               pset.maps.dist):
         a.copy_(a[pset.lineage.long()])
@@ -449,11 +485,6 @@ class PFSlam2D:
 
     def __init__(self, options: PFSlam2DOptions = PFSlam2DOptions(),
                  device=None, draws: Optional[DrawSource] = None):
-        for name in ("use_compression", "create_summary",
-                     "detailed_summary"):
-            if getattr(options, name):
-                raise NotImplementedError(f"PFSlam2DOptions.{name} is not "
-                                          "ported")
         if options.reorg_chunk != -1:
             raise NotImplementedError("PFSlam2DOptions.reorg_chunk is not "
                                       "ported (re-orgs go one particle at "
@@ -468,10 +499,13 @@ class PFSlam2D:
         # once rather than at the next cycle collection)
         self.pose_prior = Pose2D()
         self.odom_ = Pose2D()
+        self._odom_motion = Pose2D()   # the odometry the poses are at
         self.has_first_scan = False
         self.acc_trans = 0.0
         self.acc_rot = 0.0
         self.pset: Optional[ParticleSet] = None
+        self.summary: Optional[Summary] = (
+            Summary() if options.create_summary else None)
         self._max_beams = options.max_beams
         self._odelta_queue = []   # motion packets not applied yet
         self._last_info_dev = {}
@@ -498,9 +532,10 @@ class PFSlam2D:
             if self._pf_trigger_m < 0.5:
                 self.options = options = dataclasses.replace(
                     options, host_reorg=False)
-            elif options.scroll_reorg:
+            elif options.scroll_reorg and not options.use_compression:
                 # scrolls fire at the same deadline as full re-orgs; the
-                # band must cover the allowance shift plus slack
+                # band must cover the allowance shift plus slack (the spill
+                # tier takes full re-orgs only)
                 patch_m = cfg.geometry.patch_length * cfg.geometry.resolution
                 kp_need = int(np.ceil((self._pf_trigger_m
                                        + options.host_reorg_slack)
@@ -511,6 +546,19 @@ class PFSlam2D:
                         options, scroll_kp=kp_need)
                 if 0 < options.scroll_kp < wp // 2:
                     self._pf_scroll_m = self._pf_trigger_m
+        # per-particle spill tier (use_compression: the reference wires the
+        # compressor into every particle's maps, src/pf_slam2d.cpp:201-204)
+        self._pf_spill = None
+        if options.use_compression and options.resident_window:
+            from ..sdm.spill import PFSpillStore
+            cfg = options.mapping_config()
+            self._pf_spill = PFSpillStore(cfg, cfg.geometry,
+                                          options.particles,
+                                          codec=options.calgorithm)
+            self._sync_pose: Optional[Pose2D] = None
+            self._sync_odom: Optional[Pose2D] = None
+            self._potential: set = set()
+            self._check_at = int(0.85 * options.capacity)
 
     def _generator_draw(self, kind: str, shape: tuple):
         if kind == "normal":
@@ -544,6 +592,7 @@ class PFSlam2D:
                          timestamp: float = 0.0) -> bool:
         """Update from a pre-padded scan: points f32[B, 3], mask bool[B],
         origin f32[3] (tensors on the driver's device, or arrays)."""
+        t0 = time.perf_counter()
         points = torch.as_tensor(points, dtype=torch.float32,
                                  device=self.device)
         mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
@@ -554,12 +603,17 @@ class PFSlam2D:
             self._max_beams = points.shape[0]
         if not self.has_first_scan:
             self.odom_ = odometry
+            self._odom_motion = odometry
             self._odom_reorg = odometry
             self.pset = particles_init(opts, self.pose_prior.se2_array(),
                                        self.device)
             first_step(opts, self.pset, points, mask, origin)
             self._reset_escapes()
             self.has_first_scan = True
+            if self.summary is not None:
+                dt = self._elapsed(t0)
+                self.summary.probe(timestamp, dt, mapping=dt,
+                                   memory=self.memory_usage())
             return True
 
         # motion for every packet, applied lazily: a re-org between here
@@ -574,11 +628,28 @@ class PFSlam2D:
             return False
         self.acc_trans = 0.0
         self.acc_rot = 0.0
+        if self._pf_spill is not None:
+            self._pf_spill_hooks(odometry)    # refill near, spill far
         if opts.host_reorg and opts.resident_window:
             self._pf_maybe_reorg(odometry)
+        clock = None
+        if (self.summary is not None and opts.detailed_summary
+                and opts.resident_window):
+            clock = PhaseClock(self.device)
         self._flush_motion()
-        self._step(points, mask, origin)
+        self._step(points, mask, origin, clock)
+        if self.summary is not None:
+            dt = self._elapsed(t0)
+            phases = (clock.phases if clock is not None
+                      else {"solving": dt, "mapping": dt})
+            self.summary.probe(timestamp, dt, **phases,
+                               memory=self.memory_usage())
         return True
+
+    def _elapsed(self, t0: float) -> float:
+        """Seconds since ``t0`` once the device has finished."""
+        device_sync(self.device)
+        return time.perf_counter() - t0
 
     def update_many_prepadded(self, staged, odoms, chunk: int = 8) -> list:
         """Replay a pre-staged log: ``staged`` holds (points, mask, origin)
@@ -603,8 +674,9 @@ class PFSlam2D:
                 self.options, self._draw("normal", (n, 3)),
                 self._tensor(od), self.pset.pose))
         self._odelta_queue = []
+        self._odom_motion = self.odom_
 
-    def _step(self, points, mask, origin) -> None:
+    def _step(self, points, mask, origin, clock=None) -> None:
         opts = self.options
         if not opts.resident_window:
             self.pset, self._last_info_dev = pool_update_step(
@@ -622,7 +694,7 @@ class PFSlam2D:
                 self.n_reorgs += 1
         u = self._draw("uniform", ())
         self.pset, info = update_step(opts, self.pset, u, points, mask,
-                                      origin)
+                                      origin, clock)
         self._esc_max = torch.maximum(self._esc_max, info["escaped"])
         self._esc_total += info["escaped"]
         self._last_info_dev = info
@@ -742,6 +814,97 @@ class PFSlam2D:
         return mapping.resident_flush(m, self.options.mapping_config(),
                                       ps.res_org, ps.res_occ[i],
                                       ps.res_vis[i], ps.res_dist[i])
+
+    def full_particle_map(self, idx: Optional[int] = None):
+        """One particle's complete map (its pool, resident grids and stored
+        patches) for IO and export: (SlamMapState, MappingConfig). Without
+        the spill tier this is :meth:`particle_map` with the driver's
+        config."""
+        i = self.best_particle_idx() if idx is None else idx
+        m = self.particle_map(i)
+        sp = self._pf_spill
+        if sp is None or not sp.any_stored():
+            return m, self.options.mapping_config()
+        si = (int(self.pset.spill_lineage[i])
+              if self.pset.spill_lineage is not None else i)
+        return sp.merged_map_particle(m, si)
+
+    def memory_usage(self) -> int:
+        """Bytes of the allocated pool patches of every particle, in the
+        port's cell dtypes, plus the spill tier's compressed store (a blob
+        shared by particles counted once). The resident grids are a fixed
+        buffer and not counted, as in the JAX package."""
+        m = self.pset.maps
+        cell = sum(a.element_size() for a in (m.occupied, m.visited, m.dist))
+        total = (int(m.table.num_patches().sum())
+                 * self.options.patch_size ** 2 * cell)
+        if self._pf_spill is not None:
+            total += self._pf_spill.memory_usage()
+        return total
+
+    # -- per-particle spill tier ---------------------------------------------
+    def _pf_sync_now(self) -> None:
+        """Pair the best particle's pose with the odometry it is at (one
+        read). The queued motion stays queued: applying it here would move
+        the anchor of a re-org later in this update, and the filter would
+        no longer be the one without the tier (the JAX package applies
+        it)."""
+        ps = self.pset
+        self._sync_pose = Pose2D.from_se2_array(
+            ps.pose[torch.argmax(ps.weight_sum)].cpu().numpy())
+        self._sync_odom = self._odom_motion
+        self._pf_spill.host_reads += 1
+
+    def _pf_approx_pose(self, odometry: Pose2D) -> np.ndarray:
+        """Estimated xy without a device read: the best particle's pose at
+        the last sync composed with the odometry increment since; the
+        refill margin covers the drift and the particles' spread."""
+        if self._sync_pose is None:
+            self._pf_sync_now()
+        est = self._sync_pose + (self._sync_odom - odometry)
+        return np.asarray(est.xy())
+
+    def _pf_settle_stores(self) -> None:
+        """Apply ``spill_lineage`` to the host stores (one read), settle
+        the pools' lineage on the device and reset both."""
+        sp = self._pf_spill
+        sp.permute(self.pset.spill_lineage.cpu().numpy())
+        sp.host_reads += 1
+        n = self.options.particles
+        self.pset = settle(self.pset)._replace(spill_lineage=torch.arange(
+            n, dtype=torch.int32, device=self.device))
+
+    def _pf_spill_hooks(self, odometry: Pose2D) -> None:
+        """Refill the stored patches the resident window could touch; spill
+        far patches when a particle's pool nears capacity. The steady state
+        makes no device read (a host-side upper bound, as in Slam2D)."""
+        sp = self._pf_spill
+        if sp.any_stored() and self._sync_odom is not None:
+            # while stored ground exists the refill margin must absorb the
+            # estimate's drift: resync every half margin of travel
+            moved = float(np.linalg.norm((self._sync_odom - odometry).xy()))
+            if moved > (0.5 * sp.margin * self.options.patch_size
+                        * self.options.resolution):
+                self._pf_sync_now()
+        xy = self._pf_approx_pose(odometry)
+        if sp.any_stored() and sp.need_refill(xy):
+            self._pf_settle_stores()
+            self.pset = self.pset._replace(
+                maps=sp.refill_batch(self.pset.maps, xy))
+        self._potential.update(int(k) for k in sp.window_keys_np(xy))
+        if len(self._potential) - sp.stored_floor() > self._check_at:
+            self._pf_sync_now()
+            xy = self._pf_approx_pose(odometry)
+            n_max = int(self.pset.maps.table.num_patches().max())
+            sp.host_reads += 1
+            if n_max > sp.high:
+                self._pf_settle_stores()
+                maps, _ = sp.spill_batch(self.pset.maps, xy)
+                self.pset = self.pset._replace(maps=maps)
+                n_max = int(self.pset.maps.table.num_patches().max())
+                sp.host_reads += 1
+            self._check_at = (len(self._potential) - sp.stored_floor()
+                              + max(sp.high - n_max, 8))
 
     def save_occ_image(self, path: str) -> None:
         """saveOccImage (pf_slam2d.cpp:341-346): the best particle's

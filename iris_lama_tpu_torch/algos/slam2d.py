@@ -17,6 +17,16 @@ package's ``_make_step``): each scan gathers an f32 distance window from
 the pool, matches on its squared-distance form and applies the scan with
 ``mapping.update_maps``.
 
+``use_compression`` (not with ``transient_map``) bounds the device pool
+with the host spill tier (``sdm/spill.py``) and runs the pool-per-scan
+path: before each accepted update the driver refills the stored patches
+the window could touch and, when a host-side upper bound on the pool's
+patch count passes high water, reads the count and spills far patches.
+``create_summary`` probes every accepted update into :attr:`summary`
+(wall time and :meth:`memory_usage`, after a device synchronisation);
+``detailed_summary`` also times solving and mapping apart on the resident
+path, synchronising at each phase boundary. Neither adds a wait when off.
+
 The driver runs on the CUDA device unless constructed with
 ``device="cpu"``; the pose, trajectory and map stay on the device and the
 host reads them only on request (and the IRLS stop flag, the escape
@@ -26,6 +36,7 @@ counter and re-org origins at their checkpoints).
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Optional
 
@@ -40,14 +51,17 @@ from ..nlls.solver import SolverOptions
 from ..sdm import mapping, window as win_mod
 from ..sdm.geometry import MapGeometry
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
+from ..utils.summary import PhaseClock, Summary, device_sync
 
 
 @dataclasses.dataclass(frozen=True)
 class Slam2DOptions:
     """reference: Slam2D::Options (slam2d.h:91-125) + sizing knobs.
 
-    ``use_compression``, ``detailed_summary`` and ``create_summary`` are
-    not ported: :class:`Slam2D` raises NotImplementedError for them.
+    ``use_compression`` turns the host spill tier on (``cache_size`` is
+    kept for parity with the reference; ``calgorithm`` names the codec:
+    ``"lz4"`` or ``"zstd"``); ``create_summary`` and ``detailed_summary``
+    fill :attr:`Slam2D.summary` (see the module docstring).
     """
 
     trans_thresh: float = 0.5
@@ -63,6 +77,8 @@ class Slam2DOptions:
     create_summary: bool = False
     detailed_summary: bool = False
     use_compression: bool = False
+    cache_size: int = 100
+    calgorithm: str = "lz4"
     max_range: float = 10.0     # beams beyond this are dropped on host
     max_beams: int = 0          # 0 = bucket from first scan
     capacity: int = 4096        # patch-pool capacity
@@ -121,10 +137,6 @@ class Slam2D:
 
     def __init__(self, options: Slam2DOptions = Slam2DOptions(),
                  device=None):
-        for name in ("use_compression", "detailed_summary", "create_summary"):
-            if getattr(options, name):
-                raise NotImplementedError(f"Slam2DOptions.{name} is not "
-                                          "ported")
         self.device = resolve_device(device)
         self.options = options
         self.cfg = options.mapping_config()
@@ -132,9 +144,13 @@ class Slam2D:
         self._map = mapping.slam_map_init(self.cfg, self.device)
         self.odom_ = Pose2D()
         self.has_first_scan = False
+        self.summary: Optional[Summary] = (
+            Summary() if options.create_summary else None)
         self._max_beams = options.max_beams
         self._built = False
-        self._resident = options.resident_window
+        # the spill tier needs the pool per scan: no resident window
+        self._resident = (options.resident_window
+                          and not options.use_compression)
         self._res_org = None
         self._res_occ = self._res_vis = self._res_dist = None
         self._res_dirty = False
@@ -153,6 +169,17 @@ class Slam2D:
         self._esc_seen = 0
         self._esc_clean = 0
         self._extra_slack = 0.0
+        # host spill tier (use_compression: the reference's LRU
+        # compress-on-evict)
+        self._spill = None
+        if options.use_compression and not options.transient_map:
+            from ..sdm.spill import HostSpillStore
+            self._spill = HostSpillStore(self.cfg, self.cfg.geometry,
+                                         codec=options.calgorithm)
+            self._sync_pose: Optional[Pose2D] = None   # pose at last sync
+            self._sync_odom: Optional[Pose2D] = None   # odometry then
+            self._potential: set = set()   # window keys ever approached
+            self._check_at = int(0.85 * options.capacity)
 
     def _tensor(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -216,6 +243,7 @@ class Slam2D:
                          timestamp: float = 0.0) -> bool:
         """Update from a pre-padded scan: points f32[B, 3], mask bool[B],
         origin f32[3] (tensors on the driver's device, or arrays)."""
+        t0 = time.perf_counter()
         points = torch.as_tensor(points, dtype=torch.float32,
                                  device=self.device)
         mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
@@ -227,14 +255,36 @@ class Slam2D:
         if not self.has_first_scan:
             self.odom_ = odometry
             self._do_first(points, mask, origin)
+            if self.summary is not None:
+                dt = self._elapsed(t0)
+                self.summary.probe(timestamp, dt, mapping=dt,
+                                   memory=self.memory_usage())
             return True
         odelta = self.odom_ - odometry
         if self._below_gate(odelta):
             return False
+        if self._spill is not None:
+            self._spill_hooks(odometry)     # refill the window, spill far
         self._maybe_reorg(odometry)
         self.odom_ = odometry
-        self._do_step(self._tensor(odelta.se2_array()), points, mask, origin)
+        clock = None
+        if (self.summary is not None and self.options.detailed_summary
+                and self._resident):
+            clock = PhaseClock(self.device)
+        self._do_step(self._tensor(odelta.se2_array()), points, mask, origin,
+                      clock)
+        if self.summary is not None:
+            dt = self._elapsed(t0)
+            phases = (clock.phases if clock is not None
+                      else {"solving": dt, "mapping": dt})
+            self.summary.probe(timestamp, dt, **phases,
+                               memory=self.memory_usage())
         return True
+
+    def _elapsed(self, t0: float) -> float:
+        """Seconds since ``t0`` once the device has finished."""
+        device_sync(self.device)
+        return time.perf_counter() - t0
 
     def update_many_prepadded(self, staged, odoms, chunk: int = 32) -> list:
         """Replay a pre-staged log: ``staged`` is a list of (points, mask,
@@ -394,13 +444,16 @@ class Slam2D:
                 "safe-zone check")
             self._host_reorg = False
 
-    def _do_step(self, od, points, mask, origin) -> None:
+    def _do_step(self, od, points, mask, origin, clock=None) -> None:
         """Predict, match, map update: ``nopool_step`` of the JAX package
         on the resident path (fallback only: re-org if unsafe), its
-        ``_make_step`` on the pool path."""
+        ``_make_step`` on the pool path. ``clock`` (resident path) times
+        solving and mapping apart."""
         pose0 = lie.se2_compose(self._pose_dev, od)
-        step = self._resident_step if self._resident else self._pool_step
-        pose = step(pose0, points, mask, origin)
+        if self._resident:
+            pose = self._resident_step(pose0, points, mask, origin, clock)
+        else:
+            pose = self._pool_step(pose0, points, mask, origin)
         k = min(self._n_updates, self.TRAJ_CAP - 1)
         self._traj[k] = pose
         self._pose_dev = pose
@@ -423,7 +476,7 @@ class Slam2D:
         self.last_iterations = res.iterations
         return res.state
 
-    def _resident_step(self, pose0, points, mask, origin):
+    def _resident_step(self, pose0, points, mask, origin, clock=None):
         cfg, geo = self.cfg, self.cfg.geometry
         w_res = cfg.resident_window_cells
         ws_m = cfg.match_window_cells
@@ -442,14 +495,87 @@ class Slam2D:
             m_org = org + start
         res = match.solve_window(dist_m, m_org, geo, cfg.distance.max_dist,
                                  points[:, :2], mask, pose0, self.sopts)
+        if clock is not None:
+            clock.mark("solving")
         mapping.resident_update(cfg, org, self._res_occ, self._res_vis,
                                 dist, res.state, points, mask, origin)
         if cfg.transient:
             box = self._transient_reset(res.state, points, mask, origin)
             self._map = mapping.prune_transient_pool(self._map, cfg, *box)
+        if clock is not None:
+            clock.mark("mapping")
         self._res_dirty = True
         self.last_iterations = res.iterations
         return res.state
+
+    # -- map export and memory ----------------------------------------------
+    def full_map(self) -> mapping.SlamMapState:
+        """The complete map for IO and export: with patches in the spill
+        tier's store, the pool and the store merged into a fresh pool (same
+        geometry, a capacity that may exceed ``options.capacity``)."""
+        if self._spill is None or not self._spill.store:
+            return self.map
+        merged, _ = self._spill.merged_map(self.map)
+        return merged
+
+    def memory_usage(self) -> int:
+        """Bytes of map (Map::memory, src/sdm/map.cpp:115-137): the
+        allocated pool patches in the port's cell dtypes, the resident
+        grids when present and the spill tier's compressed store. Reads the
+        pool's patch count without flushing the resident grids."""
+        m = self._map
+        cell = sum(a.element_size() for a in (m.occupied, m.visited, m.dist))
+        total = (int(m.table.num_patches())
+                 * self.cfg.geometry.patch_length ** 2 * cell)
+        if self._resident and self._res_dist is not None:
+            total += sum(g.numel() * g.element_size() for g in
+                         (self._res_occ, self._res_vis, self._res_dist))
+        if self._spill is not None:
+            total += self._spill.memory_usage()
+        return total
+
+    # -- host spill tier ----------------------------------------------------
+    def _approx_pose(self, odometry: Pose2D) -> np.ndarray:
+        """Predicted map-frame xy without a device read: the pose at the
+        last sync composed with the odometry increment since. Called before
+        ``odom_`` advances (the synced pose belongs to the previous
+        odometry); the refill margin covers the drift between syncs."""
+        if self._sync_pose is None:
+            self._sync_now()
+        est = self._sync_pose + (self._sync_odom - odometry)
+        return np.asarray(est.xy())
+
+    def _sync_now(self) -> None:
+        """Pair the current device pose with its odometry (one read)."""
+        self._pose_host = None
+        self._sync_pose = self.pose()
+        self._sync_odom = self.odom_
+        self._spill.host_reads += 1
+
+    def _spill_hooks(self, odometry: Pose2D) -> None:
+        """Refill the upcoming window; spill when the pool nears capacity.
+
+        The pool-pressure check runs off a host-side upper bound (window
+        keys ever approached minus keys in the store), so the steady state
+        makes no device read."""
+        sp = self._spill
+        xy = self._approx_pose(odometry)
+        if sp.store:
+            self._map = sp.refill(self._map, xy)
+        self._potential.update(int(k) for k in sp.window_keys_np(xy))
+        if len(self._potential) - len(sp.store) > self._check_at:
+            self._sync_now()
+            xy = self._approx_pose(odometry)
+            n_active = int(self._map.table.num_patches())
+            sp.host_reads += 1
+            if n_active > sp.high:
+                self._map = sp.spill(self._map, xy)
+                n_active = int(self._map.table.num_patches())
+                sp.host_reads += 1
+            # next check once the upper bound has grown past high water
+            # again (at least 8 keys on: each check costs device reads)
+            self._check_at = (len(self._potential) - len(sp.store)
+                              + max(sp.high - n_active, 8))
 
     # -- map state across processes ----------------------------------------
     def state_dict(self) -> dict:

@@ -72,6 +72,11 @@ class MapGeometry:
         return (np.floor(mf + 0.5).astype(np.int32)
                 + np.int32(self.cell_offset))
 
+    def np_m2w(self, cells):
+        """:meth:`m2w` on the host, in float64."""
+        return ((np.asarray(cells, np.int64) - self.cell_offset)
+                * self.resolution)
+
     def m2w(self, cells):
         """Discrete cell coords -> world coords of the cell origin."""
         rel = cells.to(torch.int32) - self.cell_offset

@@ -25,7 +25,9 @@ state (:data:`PF_DRIVER`, optional on load): ``draw_state`` (uint8, the
 draw generator's state, so that a reloaded filter continues the random
 stream it was saved in), the re-org trigger ``trigger_m`` and ``scroll_m``
 (float64), ``host_reorg`` (bool), the escape ladder's counters and the
-escape and re-org counts (int64).
+escape and re-org counts (int64), and ``odom_motion`` (float64 x, y,
+theta: the odometry at which the particle poses stand, before the queued
+packets).
 
 A GraphSlam2D state dict (:func:`graph_to_numpy`) holds its front end's
 (the Slam2D keys above, plus ``traj``: float32 [n, 4], the matched poses
@@ -46,6 +48,18 @@ A LidarOdometry2D state dict (:func:`lo_to_numpy`) holds its map (the
 pool arrays above), ``pose``, ``map_odom`` and ``prev_delta`` (float32
 (tx, ty, cos, sin)), ``traj`` (float32 [n, 4], the poses so far) and
 ``n_updates``.
+
+A driver with the host spill tier (``use_compression``) adds its store
+and bookkeeping (:func:`spill_to_numpy`): the distinct compressed blobs
+concatenated in ``spill_blobs`` (uint8) with ``spill_offsets`` (int64
+[B+1]), one entry per stored key — ``spill_keys`` (int32), ``spill_blob``
+(int32, the entry's blob) and, for a particle filter, ``spill_particle``
+(int32, whose store) — so a blob that particles share stays one blob; the
+counters ``cache_hit``, ``cache_miss``, ``spills`` and ``refills``
+(int64); the sync bookkeeping ``sync_pose`` and ``sync_odom`` (float64 x,
+y, theta; absent before the first sync), ``potential`` (int32, the window
+keys ever approached) and ``check_at`` (int64); and for a particle filter
+``spill_lineage`` (int32 [N]).
 
 Loc2D's fixed maps carry across as their own dict
 (:func:`locmaps_to_numpy`), so that the port and the JAX package localise
@@ -69,10 +83,12 @@ TABLE_FIELDS = ("keys", "slots", "free_slots", "n_free", "overflow")
 
 
 def _np(t) -> np.ndarray:
-    """A tensor's values as numpy (any other array — the JAX package's —
-    as numpy reads it)."""
+    """A copy of a tensor's values as numpy (any other array — the JAX
+    package's — as numpy reads it). A CPU tensor is copied: the drivers
+    update their state in place, and a snapshot must not follow."""
     if isinstance(t, torch.Tensor):
-        return t.detach().cpu().numpy()
+        t = t.detach()
+        return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
     return np.asarray(t)
 
 
@@ -167,7 +183,65 @@ def slam_to_numpy(slam) -> dict:
         d["odom_reorg"] = slam._odom_reorg.xyr()
     d["n_updates"] = np.int64(slam._n_updates)
     d["escaped"] = np.int32(slam.escaped_count())
+    if getattr(slam, "_spill", None) is not None:
+        d.update(spill_to_numpy(slam, slam._spill, [slam._spill.store]))
     return d
+
+
+SPILL_COUNTERS = ("cache_hit", "cache_miss", "spills", "refills")
+
+
+def spill_to_numpy(driver, store, stores: list) -> dict:
+    """The spill tier's store (``stores``: one dict per particle, or one
+    for Slam2D), counters and the driver's sync bookkeeping."""
+    blobs, index, entries = [], {}, []
+    for p, st in enumerate(stores):
+        for k in sorted(st):
+            b = st[k]
+            if id(b) not in index:
+                index[id(b)] = len(blobs)
+                blobs.append(b)
+            entries.append((p, k, index[id(b)]))
+    offsets = np.cumsum([0] + [len(b) for b in blobs]).astype(np.int64)
+    e = np.asarray(entries, np.int64).reshape(-1, 3)
+    d = {"spill_blobs": np.frombuffer(b"".join(blobs), np.uint8).copy(),
+         "spill_offsets": offsets, "spill_particle": e[:, 0].astype(np.int32),
+         "spill_keys": e[:, 1].astype(np.int32),
+         "spill_blob": e[:, 2].astype(np.int32),
+         "potential": np.asarray(sorted(driver._potential), np.int32),
+         "check_at": np.int64(driver._check_at)}
+    d.update({k: np.int64(getattr(store, k)) for k in SPILL_COUNTERS})
+    if driver._sync_pose is not None:
+        d["sync_pose"] = driver._sync_pose.xyr()
+        d["sync_odom"] = driver._sync_odom.xyr()
+    return d
+
+
+def spill_from_numpy(driver, store, d: dict, n_stores: int) -> list:
+    """Load :func:`spill_to_numpy`'s keys into ``store`` and ``driver``;
+    returns the stores (a list of ``n_stores`` dicts)."""
+    raw, off = np.asarray(d["spill_blobs"], np.uint8), d["spill_offsets"]
+    blobs = [raw[off[i]:off[i + 1]].tobytes() for i in range(len(off) - 1)]
+    stores = [dict() for _ in range(n_stores)]
+    for p, k, b in zip(d["spill_particle"], d["spill_keys"],
+                       d["spill_blob"]):
+        stores[int(p)][int(k)] = blobs[int(b)]
+    for k in SPILL_COUNTERS:
+        setattr(store, k, int(d[k]))
+    driver._potential = set(int(k) for k in d["potential"])
+    driver._check_at = int(d["check_at"])
+    driver._sync_pose = (Pose2D.from_xyr(d["sync_pose"])
+                         if "sync_pose" in d else None)
+    driver._sync_odom = (Pose2D.from_xyr(d["sync_odom"])
+                         if "sync_odom" in d else None)
+    return stores
+
+
+def _has_spill(driver, store, d: dict) -> bool:
+    if "spill_keys" in d and store is None:
+        raise ValueError("the state holds a spill store; build the driver "
+                         "with use_compression=True")
+    return store is not None and "spill_keys" in d
 
 
 def slam_from_numpy(slam, d: dict) -> None:
@@ -196,6 +270,8 @@ def slam_from_numpy(slam, d: dict) -> None:
     slam._traj[min(n, slam.TRAJ_CAP) - 1] = slam._pose_dev
     slam._esc_dev.fill_(int(d.get("escaped", 0)))
     slam._esc_seen = int(d.get("escaped", 0))
+    if _has_spill(slam, slam._spill, d):
+        slam._spill.store = spill_from_numpy(slam, slam._spill, d, 1)[0]
 
 
 LO_POSES = ("pose", "map_odom", "prev_delta")
@@ -232,7 +308,7 @@ PF_COUNTERS = {"esc_seen": "_esc_seen", "esc_clean": "_esc_clean",
                "esc_strikes": "_esc_strikes", "n_reorgs": "n_reorgs",
                "n_scrolls": "n_scrolls"}
 PF_DRIVER = ("draw_state", "trigger_m", "scroll_m", "host_reorg",
-             "escaped_max", "escaped", *PF_COUNTERS)
+             "escaped_max", "escaped", "odom_motion", *PF_COUNTERS)
 
 
 def pf_to_numpy(pf) -> dict:
@@ -247,6 +323,7 @@ def pf_to_numpy(pf) -> dict:
                  lineage=_np(ps.lineage))
     d.update(odom=pf.odom_.xyr(),
              odom_reorg=pf._odom_reorg.xyr(),
+             odom_motion=pf._odom_motion.xyr(),
              acc_trans=np.float64(pf.acc_trans),
              acc_rot=np.float64(pf.acc_rot),
              odelta_queue=np.asarray(pf._odelta_queue,
@@ -258,6 +335,9 @@ def pf_to_numpy(pf) -> dict:
              escaped_max=np.int64(int(pf._esc_max)),
              escaped=np.int64(int(pf._esc_total)))
     d.update({k: np.int64(getattr(pf, a)) for k, a in PF_COUNTERS.items()})
+    if pf._pf_spill is not None:
+        d.update(spill_to_numpy(pf, pf._pf_spill, pf._pf_spill.stores))
+        d["spill_lineage"] = _np(ps.spill_lineage)
     return d
 
 
@@ -283,6 +363,7 @@ def pf_from_numpy(pf, d: dict) -> None:
     pf.has_first_scan = True
     pf.odom_ = Pose2D.from_xyr(d["odom"])
     pf._odom_reorg = Pose2D.from_xyr(d.get("odom_reorg", d["odom"]))
+    pf._odom_motion = Pose2D.from_xyr(d.get("odom_motion", d["odom"]))
     pf.acc_trans = float(d.get("acc_trans", 0.0))
     pf.acc_rot = float(d.get("acc_rot", 0.0))
     pf._odelta_queue = list(np.asarray(d.get("odelta_queue",
@@ -299,6 +380,13 @@ def pf_from_numpy(pf, d: dict) -> None:
         pf.options = dataclasses.replace(pf.options, host_reorg=False)
     for k, a in PF_COUNTERS.items():
         setattr(pf, a, int(d.get(k, 0)))
+    sp = pf._pf_spill
+    if _has_spill(pf, sp, d):
+        sp.stores = spill_from_numpy(pf, sp, d, pf.options.particles)
+    if sp is not None and pf.pset.res_org is not None:
+        lin = d.get("spill_lineage", np.arange(pf.options.particles))
+        pf.pset = pf.pset._replace(
+            spill_lineage=_tensor(lin, torch.int32, dev))
 
 
 def _poses_np(poses) -> np.ndarray:

@@ -36,6 +36,7 @@ inputs (taken from the chip_smoke.py beside this script):
 One JSON line per root.
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -47,20 +48,24 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+@functools.lru_cache(maxsize=None)
+def devprof():
+    """The port's ``utils/devprof.py`` beside this script, loaded by path
+    (a root's package may predate it)."""
+    spec = importlib.util.spec_from_file_location(
+        "devprof", os.path.join(HERE, "iris_lama_tpu_torch", "utils",
+                                "devprof.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def kernel_us(torch, fn, reps: int, match: str) -> float:
     """Device µs per call of the kernels whose name holds ``match``."""
-    from torch.profiler import ProfilerActivity, profile
+    dp = devprof()
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA") and match in e.key)
-    return us / reps
+    return dp.device_us(dp.cuda_rows(dp.profile_calls(fn, reps)),
+                        match) / reps
 
 
 def fit(xs, ys) -> tuple:

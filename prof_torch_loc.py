@@ -34,6 +34,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from torch.profiler import ProfilerActivity, profile, record_function
+    from iris_lama_tpu_torch.utils import devprof
     from iris_lama_tpu_torch.algos import loc2d
     from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
     from iris_lama_tpu_torch.core.pose import Pose2D
@@ -75,10 +76,6 @@ def main() -> int:
     loc2d.nlls_solver.covariance_from_eval = ranged(
         "covariance", loc2d.nlls_solver.covariance_from_eval)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     for mode in args.modes.split(","):
         def one_pass():
             loc = cls(opts, maps=maps, device=dev, match=mode)
@@ -95,10 +92,9 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         reads = nlls_solver.host_read.count - reads
-        kernels = sorted(((e.key, dev_us(e), e.count)
-                          for e in prof.key_averages()
-                          if str(e.device_type).endswith("CUDA")
-                          and e.key not in names), key=lambda x: -x[1])
+        kernels = sorted(((e.key, devprof.event_us(e), e.count)
+                          for e in devprof.cuda_rows(prof)
+                          if e.key not in names), key=lambda x: -x[1])
         total_dev_us = sum(x[1] for x in kernels)
         host = {r: 0.0 for r in names}
         for e in prof.events():

@@ -32,6 +32,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from torch.profiler import ProfilerActivity, profile, record_function
+    from iris_lama_tpu_torch.utils import devprof
     from iris_lama_tpu_torch.algos import slam2d
     from iris_lama_tpu_torch.core.pose import Pose2D
     from iris_lama_tpu_torch.utils import simulator
@@ -74,16 +75,11 @@ def main() -> int:
     n = len(acc)
     names = ("match", "map_update", "reorg")
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     # device activities (kernels, memsets, copies); the ranges' GPU-side
     # annotation spans are not kernels
-    kernels = sorted(((e.key, dev_us(e), e.count)
-                      for e in prof.key_averages()
-                      if str(e.device_type).endswith("CUDA")
-                      and e.key not in names), key=lambda x: -x[1])
+    kernels = sorted(((e.key, devprof.event_us(e), e.count)
+                      for e in devprof.cuda_rows(prof)
+                      if e.key not in names), key=lambda x: -x[1])
     total_dev_us = sum(k[1] for k in kernels)
     ranges = {k: {"host_ms_per_scan": 0.0, "device_span_ms_per_scan": 0.0,
                   "calls": 0} for k in names}

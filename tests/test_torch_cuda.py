@@ -1131,3 +1131,122 @@ def test_pf_pool_path_on_card_matches_cpu(cuda):
                                 - np.arctan2(pg[:, 3], pg[:, 2]))))
     assert np.abs(dth).max() <= 1e-3
     assert all(f.launches > b for f, b in zip(fns, before))
+
+
+SPILL_OPTS = dict(resolution=0.1, patch_size=8, max_range=3.0, l2_max=0.3,
+                  trans_thresh=0.15, rot_thresh=0.15, pose_slack=0.5,
+                  max_iter=30, capacity=160, use_compression=True)
+
+
+def _spill_data():
+    return simulator.simulate(simulator.SimConfig(
+        n_steps=240, seed=4,
+        laser=simulator.LaserSpec(n_beams=120, max_range=3.0)))
+
+
+def test_spill_extract_inject_merge_on_card_equal_cpu(cuda):
+    """The spill tier's device half on one state (a CPU spill run's map
+    after 120 scans, carried to both devices): extract, inject and
+    merged_map on the card equal the CPU's; the blobs are the same bytes."""
+    from iris_lama_tpu_torch.sdm import spill
+    data = _spill_data()
+    slam = Slam2D(Slam2DOptions(**SPILL_OPTS), device="cpu")
+    slam.set_prior(Pose2D(*data.poses_gt[0]))
+    for k in range(120):
+        slam.update(data.clouds[k], data.odometry[k])
+    assert slam._spill.spills > 0
+    d = state.map_to_numpy(slam.map)
+    cfg = slam.cfg
+    xy = slam.pose().xy()
+    out = {}
+    for dev in ("cpu", cuda):
+        st = state.map_from_numpy(d, dev)
+        store = spill.HostSpillStore(cfg, cfg.geometry)
+        store.low = int(st.table.num_patches()) // 2
+        active = spill.snapshot_keys(st.table).cpu().numpy()
+        victims = store.select_victims(active, xy)
+        st, *blocks = spill.extract_patches(st, cfg, victims)
+        # half of them back into the pool they left
+        st2, drop = spill.inject_patches(st, cfg, victims[::2],
+                                         *(b[::2] for b in blocks[:3]))
+        # and the store's own spill of the same state, then the merge
+        st = store.spill(state.map_from_numpy(d, dev), xy)
+        merged, _ = store.merged_map(st)
+        out[str(dev)] = (victims, [b.cpu() for b in blocks],
+                         state.map_to_numpy(st2), drop.cpu(), dict(
+                             store.store), state.map_to_numpy(merged))
+    c, g = out["cpu"], out[str(cuda)]
+    assert len(c[0]) > 0 and np.array_equal(c[0], g[0])
+    for a, b in zip(c[1], g[1]):
+        assert torch.equal(a, b)
+    for k in c[2]:
+        np.testing.assert_array_equal(g[2][k], c[2][k], err_msg=k)
+    assert torch.equal(c[3], g[3]) and bool(c[3].all())
+    assert c[4] == g[4] and len(c[4]) > 0
+    for k in c[5]:
+        np.testing.assert_array_equal(g[5][k], c[5][k], err_msg=k)
+
+
+def test_slam_spill_on_card_matches_cpu(cuda, monkeypatch):
+    """Slam2D's spill run (0.1 m, 120 beams, capacity 160) on the card, its
+    scan matches replaced by the CPU run's poses: the same spills, refills
+    and cache hits, the same stored blobs, the pool bit-equal, and the
+    merged map bit-equal to the CPU's."""
+    from iris_lama_tpu_torch.match import match_surface_2d
+    from iris_lama_tpu_torch.nlls.solver import SolveResult
+    data = _spill_data()
+    n = 160
+
+    def run(dev):
+        slam = Slam2D(Slam2DOptions(**SPILL_OPTS), device=dev)
+        slam.set_prior(Pose2D(*data.poses_gt[0]))
+        for k in range(n):
+            slam.update(data.clouds[k], data.odometry[k])
+        return slam
+
+    cpu = run("cpu")
+    sp = cpu._spill
+    assert sp.spills > 0 and sp.refills > 0
+    poses = iter(cpu._traj[1:cpu._n_updates].to(cuda))
+
+    def forced(*args, **kwargs):
+        zero = torch.zeros((), device=cuda)
+        return SolveResult(next(poses), torch.zeros((), dtype=torch.int32,
+                                                    device=cuda),
+                           zero, zero, zero)
+
+    monkeypatch.setattr(match_surface_2d, "solve_window", forced)
+    gpu = run(cuda)
+    gs = gpu._spill
+    assert ((gs.spills, gs.refills, gs.cache_hit)
+            == (sp.spills, sp.refills, sp.cache_hit))
+    assert gs.store == sp.store
+    for a, b in ((cpu.map, gpu.map), (cpu.full_map(), gpu.full_map())):
+        want, got = state.map_to_numpy(a), state.map_to_numpy(b)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_devprof_reads_the_card(cuda):
+    """utils/devprof on a kernel of the port: B2's one launch is one
+    activity with device time; ``device_time_ms`` is finite and positive,
+    ``device_breakdown`` names the kernel, and ``device_us`` filtered on
+    its name holds all of the profile's time."""
+    from iris_lama_tpu_torch.utils import devprof
+    g = torch.Generator(device=cuda).manual_seed(5)
+    grid = torch.randint(0, 101, (488, 488), generator=g, device=cuda,
+                         dtype=torch.int8)
+    iy, ix = (torch.randint(0, 488, (768,), generator=g, device=cuda,
+                            dtype=torch.int32) for _ in range(2))
+    select4.select4_sq(grid, iy, ix)          # built and warm
+    rows = devprof.cuda_rows(devprof.profile_calls(
+        select4.select4_sq, 3, (grid, iy, ix)))
+    assert devprof.launch_count(rows) == 3
+    total = devprof.device_us(rows)
+    assert total > 0 and devprof.device_us(rows, "select4") == total
+    ms = devprof.device_time_ms(select4.select4_sq,
+                                lambda k: (grid, iy, ix), n=3)
+    assert np.isfinite(ms) and 0 < ms < 1.0
+    top = devprof.device_breakdown(select4.select4_sq,
+                                   lambda k: (grid, iy, ix), n=2)
+    assert "select4" in top[0][0] and top[0][1] > 0

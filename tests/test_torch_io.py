@@ -49,6 +49,17 @@ GEO = MapGeometry(resolution=0.1, log2dim=4)
 CPU = dict(device="cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _to_jax(table, *arrays):
     return (jpool.PatchTable(*(jnp.asarray(t.numpy()) for t in table)),
             *(jnp.asarray(a.numpy()) for a in arrays))

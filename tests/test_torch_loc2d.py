@@ -40,6 +40,17 @@ N_MAP = 60
 MODES = ("generic", "sq", "solve", "fused")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class JaxLocDraws:
     """The JAX driver's key stream as a draw source for the port: one split
     per gloc round, then a split into the (n, 2) and (n,) uniforms."""

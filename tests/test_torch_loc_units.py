@@ -61,6 +61,17 @@ KW = dict(max_dist=MAXD, res=RES, scale=JGEO.scale,
           max_iter=40)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(a, dtype=None):
     t = torch.as_tensor(np.array(a))
     return t if dtype is None else t.to(dtype)

@@ -27,6 +27,17 @@ JCFG = jocc.OccupancyConfig(JGEO, 64)
 TABLE = ("keys", "slots", "free_slots", "n_free", "overflow")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def cells_of(points):
     return GEO.w2m(torch.as_tensor(np.asarray(points, np.float32)))
 

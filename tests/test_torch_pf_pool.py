@@ -44,6 +44,17 @@ OPTS = dict(particles=6, resolution=0.1, patch_size=16, max_range=8.0,
 FREE_UPDATES = 11
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def sim():
     return jsim.simulate(jsim.SimConfig(

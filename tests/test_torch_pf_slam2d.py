@@ -45,6 +45,17 @@ TABLE = ("keys", "slots", "free_slots", "n_free", "overflow")
 FREE_UPDATES = 10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class JaxDraws:
     """The JAX driver's key stream as a draw source for the port."""
 
@@ -439,25 +450,34 @@ def test_escape_persistent_bursts_fall_back_to_safe_check(data):
     ("detailed_summary", True), ("resident_window", False),
     ("reorg_chunk", 4), ("reorg_chunk", 0)])
 def test_pf_unported_options_raise(field, value):
-    """Options not ported yet raise; ``resident_window=False`` is ported
-    (the pool-per-update path): the filter builds on the CPU, maps a
-    first scan into every particle's pool and carries no resident grids."""
+    """A ``reorg_chunk`` other than -1 is not ported and raises. The other
+    options are ported: the filter builds on the CPU and maps a first scan
+    with the option on (``resident_window=False`` into every particle's
+    pool, with no resident grids)."""
     opts = tpf.PFSlam2DOptions(capacity=16, **{field: value})
+    if field == "reorg_chunk":
+        with pytest.raises(NotImplementedError):
+            tpf.PFSlam2D(opts, device="cpu")
+        return
+    if field == "detailed_summary":
+        opts = dataclasses.replace(opts, create_summary=True)
+    sim = jsim.simulate(jsim.SimConfig(
+        n_steps=2, seed=2, laser=jsim.LaserSpec(n_beams=60, max_range=4.0)))
+    f = tpf.PFSlam2D(dataclasses.replace(
+        opts, particles=3, resolution=0.1, patch_size=16, max_range=4.0,
+        capacity=256), device="cpu")
+    assert f.update(sim.clouds[0], sim.odometry[0])
     if field == "resident_window":
-        sim = jsim.simulate(jsim.SimConfig(
-            n_steps=2, seed=2, laser=jsim.LaserSpec(n_beams=60,
-                                                    max_range=4.0)))
-        f = tpf.PFSlam2D(dataclasses.replace(
-            opts, particles=3, resolution=0.1, patch_size=16,
-            max_range=4.0, capacity=256), device="cpu")
-        assert f.update(sim.clouds[0], sim.odometry[0])
         assert f.pset.res_org is None and f.pset.lineage is None
         patches = f.pset.maps.table.num_patches()
         assert int(patches[0]) > 0 and torch.equal(patches, patches[:1]
                                                    .expand(3))
-        return
-    with pytest.raises(NotImplementedError):
-        tpf.PFSlam2D(opts, device="cpu")
+    elif field == "use_compression":
+        assert f._pf_spill is not None and f.n_scrolls == 0
+        assert torch.equal(f.pset.spill_lineage.long(), torch.arange(3))
+        assert int(f.pset.res_occ[0].sum()) > 0
+    else:
+        assert len(f.summary.time_total) == 1 and f.memory_usage() >= 0
 
 
 def test_pf_entry_point_refuses_missing_cuda(monkeypatch):

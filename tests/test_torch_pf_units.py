@@ -46,6 +46,17 @@ KW = dict(max_dist=MAXD, res=RES, scale=GEO.scale,
           cell_offset=GEO.cell_offset, cauchy_c=CAUCHY, eps1=1e-4, eps2=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _world(rng, b):
     obst = np.zeros((H, W), bool)
     obst[20, 10:80] = True

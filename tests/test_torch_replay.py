@@ -21,6 +21,17 @@ from iris_lama_tpu_torch.utils import simulator
 from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _slam(data):
     slam = Slam2D(Slam2DOptions(resolution=0.1, patch_size=16, max_range=8.0,
                                 trans_thresh=0.2, rot_thresh=0.2,

@@ -36,6 +36,17 @@ OPTS = dict(resolution=0.1, patch_size=16, max_range=8.0, trans_thresh=0.2,
 TABLE = ("keys", "slots", "free_slots", "n_free", "overflow")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_state(slam) -> dict:
     """The JAX Slam2D's map, pose and driver bookkeeping as numpy (the
     layout of iris_lama_tpu_torch.utils.state)."""

@@ -51,6 +51,17 @@ from iris_lama_tpu_torch.utils import simulator as tsim
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def T(a, dtype=None):
     t = torch.as_tensor(np.array(a))
     return t if dtype is None else t.to(dtype)
@@ -122,15 +133,24 @@ SMALL = dict(resolution=0.1, patch_size=16, max_range=6.0, capacity=256)
 @pytest.mark.parametrize("field", ["transient_map", "use_compression",
                                    "detailed_summary", "create_summary"])
 def test_unported_options_raise(field):
-    """Options not ported yet raise; ``transient_map`` is ported: the
-    driver builds on the CPU and maps a scan."""
-    opts = tslam.Slam2DOptions(capacity=16, **{field: True})
+    """These options were once unported and raised; each is ported now:
+    the driver builds on the CPU and maps a scan with the option on."""
+    kw = {field: True}
+    if field == "detailed_summary":
+        kw["create_summary"] = True    # the phases go into the summary
+    slam = _one_scan(tslam.Slam2DOptions(**SMALL, **kw))
+    assert int(slam.map.table.num_patches()) > 0
     if field == "transient_map":
-        slam = _one_scan(tslam.Slam2DOptions(**SMALL, transient_map=True))
-        assert slam.cfg.transient and int(slam.map.table.num_patches()) > 0
-        return
-    with pytest.raises(NotImplementedError):
-        tslam.Slam2D(opts, device="cpu")
+        assert slam.cfg.transient
+    elif field == "use_compression":
+        # the spill tier runs the pool-per-scan path
+        assert slam._spill is not None and not slam._resident
+        assert slam.full_map() is slam.map
+    else:
+        s = slam.summary
+        assert len(s.time_total) == 2 and slam.memory_usage() > 0
+        split = field == "detailed_summary"
+        assert (s.time_solving[1] != s.time_total[1]) == split
 
 
 def test_pool_path_option_raises():

@@ -48,6 +48,17 @@ def _world():
                   for c in data.clouds[:N_SCANS]]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU paths make many small tensor ops; with the suite's
+    workers sharing the cores, intra-op threads only contend. One thread
+    for this module, the previous count restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("res,dtype", [(0.04, torch.uint8),
                                        (0.03, torch.int16)])
 def test_slam2d_fine_cells_match_jax(res, dtype):
