@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (iris_lama_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every group, in one process
+    python3 chip_smoke.py --group NAME    # one group, at full depth
+
+Groups (each after the device and build phases): ``slam`` (phases 3-5,
+12, 16), ``pf`` (6-8), ``loc`` (9-11), ``lo`` (13-15), ``graph``
+(17-20), ``maps`` (21-23), ``spill`` (24-26), ``3d`` (27). The run of
+every group (no argument, ``--group all``) cuts each bench workload's
+repeats to one pass (phases 5, 8, 11, 15 and 19; its time limit); a
+group's own run keeps them. No check against a plain version, no
+CPU-against-card prefix and no bound is cut.
 
 Phases, one JSON line each:
 
@@ -215,8 +224,26 @@ Phases, one JSON line each:
    ``detailed_summary``, the trajectories (particles) ``torch.equal`` to
    the same scans without them; both reports, beside the card's name and
    power limit.
+27. maps3d_prefix, maps3d_main_path — the 3D maps at the reference's
+   default sizes (5 cm cells, 16^3 patches; ``frequency3``, ``simple3``,
+   ``probabilistic3`` and the distance map at capacity 4,096, l2_max 0.5
+   m: R = 10; the TSDF at its constructor's defaults, capacity 8,192) on
+   ROOM3D_CLOUDS clouds of a 16-ring scanner (-15 to +15 degrees, 1,024
+   azimuths, 12 m, 1 cm noise) at SE(3) poses along a loop in a 12 x 8 x 3
+   m room with six boxes: the first ROOM3D_PREFIX clouds on the CPU and on
+   the card (integer state ``torch.equal``, log-odds within 4e-6, TSDF
+   within rtol 1e-5 and the observed set equal, 100,000 trilinear reads of
+   the distance map and the TSDF within 1e-5, mesh triangle counts within
+   0.5%); then every cloud on the card, one map at a time: ms a cloud,
+   device activities and device ms a cloud (torch.profiler over
+   PROFILED_CLOUDS more clouds, the top device ops), peak memory,
+   ``update3``'s dirty count and carry, ``to_mesh``'s time and triangles,
+   and the three occupancy states through .smd files (the same bytes as
+   from the state moved to the CPU; read back onto the card and written
+   again: the same bytes). No hand-written kernel runs on this path.
 
-Then the ``kernels`` line (each entry's ``launches`` from its main path's
+Each group ends with a ``group`` line (its seconds). Then the ``kernels``
+line (each entry's ``launches`` from its main path's
 run; phases 22, 24 and 25's counts under ``path_launches``, each with the
 shape that path sent the kernel, which may differ from the shape the
 entry's times were measured at) and, last,
@@ -264,7 +291,31 @@ TRANSIENT_ATE_REF_M = 0.018708577
 TRANSIENT_ATE_TOL_M = 0.001
 
 
+# phase 27: the 3D maps at the reference's default sizes
+ROOM3D = (12.0, 8.0, 3.0)      # the room's extent (m), the floor at z = 0
+ROOM3D_CLOUDS = 40             # scanner poses along a loop
+ROOM3D_PREFIX = 8              # clouds compared CPU vs card
+ROOM3D_RINGS = 16              # -15 to +15 degrees
+ROOM3D_AZIMUTHS = 1024
+ROOM3D_RANGE = 12.0            # m
+ROOM3D_NOISE = 0.01            # m, range noise
+DIST3_MAX_DIRTY = 2048         # update3's drain a cloud
+ROOM3D_QUERIES = 100_000       # trilinear reads compared CPU vs card
+TSDF_RTOL = 1e-5
+INTERP_ATOL = 1e-5
+MESH_TRI_RTOL = 0.005
+PROFILED_CLOUDS = 3            # clouds a map under torch.profiler
+
+GROUPS = ("slam", "pf", "loc", "lo", "graph", "maps", "spill", "3d")
+
 _START = []   # main()'s start on the host clock
+_ONE_REP = [False]   # main(): the ``all`` run cuts each bench's repeats to 1
+
+
+def bench_reps(n: int) -> int:
+    """A bench workload's repeats: ``n`` in a group's own run, one when
+    every group runs in one process (its time limit)."""
+    return 1 if _ONE_REP[0] else n
 
 
 def emit(obj) -> None:
@@ -1119,13 +1170,14 @@ def pf_phases(torch, dev) -> list:
     base_mem = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     passes = []
-    for rep in range(3):
+    for rep in range(bench_reps(3)):
         passes.append(pf_pass(torch, dev, data, opts, staged, rep))
     launches = {n: fn.launches for n, fn in fns.items()}
     updates = sum(p["updates"] for p in passes)
     rates = sorted(p["updates_per_s"] for p in passes)
     emit({"phase": "pf_main_path", "passes": passes,
-          "median_updates_per_s": rates[1], "launches": launches,
+          "median_updates_per_s": rates[len(rates) // 2],
+          "launches": launches,
           "launches_per_update": {n: v / updates
                                   for n, v in launches.items()},
           "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
@@ -1567,7 +1619,7 @@ def loc_phases(torch, dev) -> list:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reps = []
-        for rep in range(3):
+        for rep in range(bench_reps(3)):
             t_tot = err_sum = 0.0
             n_tot = gathers = 0
             for p in range(LOC_PASSES):
@@ -1583,7 +1635,7 @@ def loc_phases(torch, dev) -> list:
         updates = sum(r["updates"] for r in reps)
         rates = sorted(r["updates_per_s"] for r in reps)
         modes[mode] = {
-            "reps": reps, "median_updates_per_s": rates[1],
+            "reps": reps, "median_updates_per_s": rates[len(rates) // 2],
             "launches": launches,
             "launches_per_update": {n: v / updates
                                     for n, v in launches.items()},
@@ -2006,16 +2058,17 @@ def lo_phases(torch, dev) -> list:
     torch.cuda.reset_peak_memory_stats(dev)
     _cuda.reset_launches(*fns.values())
     reads0 = nlls_solver.host_read.count
-    reps = [one_pass(rep) for rep in range(LO_REPS)]
+    n_reps = bench_reps(LO_REPS)
+    reps = [one_pass(rep) for rep in range(n_reps)]
     launches = {n: fn.launches for n, fn in fns.items()}
-    scans = LO_REPS * (LO_SCANS - 1)
+    scans = n_reps * (LO_SCANS - 1)
     rates = sorted(p["scans_per_s"] for p in reps)
     drifts = sorted(p["drift_m_per_100m"] for p in reps)
     med = drifts[len(drifts) // 2]
     med_rep = sorted(reps, key=lambda p: p["drift_m_per_100m"])[
         len(reps) // 2]
     emit({"phase": "lo_main_path", "reps": reps, "scans": LO_SCANS,
-          "reps_cut": f"{LO_REPS} reps (bench_lidar.py runs 5 on an "
+          "reps_cut": f"{n_reps} reps (bench_lidar.py runs 5 on an "
                       "accelerator)",
           "median_scans_per_s": rates[len(rates) // 2],
           "drift_m_per_100m": med, "drifts": drifts,
@@ -2443,7 +2496,8 @@ def graph_phases(torch, dev) -> list:
     _cuda.reset_launches(*fns.values())
     counts.update(rebuild=[0, 0], r50=0, coarse=0)
     reads0 = nlls_solver.host_read.count
-    reps = [one_pass(rep, maps=True)[1] for rep in range(GRAPH_REPS)]
+    reps = [one_pass(rep, maps=True)[1]
+            for rep in range(bench_reps(GRAPH_REPS))]
     launches = {n: fn.launches for n, fn in fns.items()}
     reads = nlls_solver.host_read.count - reads0
     syncs = sum(r["stats"].get("sync_n", 0) for r in reps)
@@ -3553,14 +3607,348 @@ def summary_phase(torch, dev) -> None:
     assert all(out.values()), f"summaries change the results: {out}"
 
 
-def main() -> int:
-    _START.append(time.perf_counter())
+@functools.lru_cache(maxsize=None)
+def room3d_workload(n_clouds: int = ROOM3D_CLOUDS,
+                    azimuths: int = ROOM3D_AZIMUTHS, seed: int = 27):
+    """Phase 27's clouds: a 16-ring scanner (-15 to +15 degrees,
+    ``azimuths`` steps, 12 m, 1 cm range noise) 1 m above the floor of a
+    12 x 8 x 3 m room with six boxes, at ``n_clouds`` SE(3) poses along
+    a loop (built with the port's ``se3_*``). Returns [(points f32 [B,
+    3] in the world frame, mask bool [B], origin f32 [3], pose f32 [7])].
+    """
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from iris_lama_tpu_torch.core import lie
+    rng = np.random.default_rng(seed)
+    hi = np.array([ROOM3D[0] / 2, ROOM3D[1] / 2, ROOM3D[2]])
+    lo = np.array([-hi[0], -hi[1], 0.0])
+    boxes = []
+    for cx, cy in ((0.0, 0.0), (-4.6, -2.9), (4.6, 2.9), (-4.6, 2.9),
+                   (4.6, -2.9), (0.0, 3.2)):
+        half = rng.uniform([0.25, 0.25, 0.3], [0.5, 0.4, 1.0])
+        c = np.array([cx + rng.uniform(-0.2, 0.2),
+                      cy + rng.uniform(-0.1, 0.1), half[2]])
+        boxes.append((c - half, c + half))
+    elev = np.deg2rad(np.linspace(-15.0, 15.0, ROOM3D_RINGS))
+    azim = 2 * np.pi * np.arange(azimuths) / azimuths
+    e, a = np.meshgrid(elev, azim, indexing="ij")
+    dirs = torch.as_tensor(np.stack([np.cos(e) * np.cos(a),
+                                     np.cos(e) * np.sin(a), np.sin(e)],
+                                    -1).reshape(-1, 3), dtype=torch.float32)
+    out = []
+    for k in range(n_clouds):
+        th = 2 * np.pi * k / n_clouds
+        t = np.array([3.2 * np.cos(th), 2.0 * np.sin(th), 1.0])
+        yaw = np.arctan2(2.0 * np.cos(th), -3.2 * np.sin(th))
+        q = lie.quat_mul(
+            lie.so3_exp(torch.tensor([0.0, 0.0, yaw], dtype=torch.float32)),
+            lie.so3_exp(torch.tensor([0.03 * np.sin(3 * th),
+                                      0.02 * np.cos(2 * th), 0.0],
+                                     dtype=torch.float32)))
+        pose = lie.se3(t, q)
+        o = lie.se3_translation(pose).double().numpy()
+        d = (lie.se3_apply(pose, dirs) - lie.se3_translation(pose)) \
+            .double().numpy()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = 1.0 / d
+            # the room from inside: the nearest wall ahead on each axis
+            r = np.where(inv > 0, (hi - o) * inv, (lo - o) * inv).min(-1)
+            for blo, bhi in boxes:
+                t1, t2 = (blo - o) * inv, (bhi - o) * inv
+                tmin = np.nan_to_num(np.minimum(t1, t2), nan=-np.inf).max(-1)
+                tmax = np.nan_to_num(np.maximum(t1, t2), nan=np.inf).min(-1)
+                r = np.where((tmax >= tmin) & (tmin > 0), np.minimum(r, tmin),
+                             r)
+        r = r + rng.normal(0.0, ROOM3D_NOISE, r.shape)
+        mask = (r > 0.1) & (r < ROOM3D_RANGE)
+        pts = (o + d * r[:, None]).astype(np.float32)
+        out.append((pts, mask, o.astype(np.float32),
+                    pose.numpy().astype(np.float32)))
+    return out
+
+
+MAPS3D = ("frequency3", "simple3", "probabilistic3", "distance3", "tsdf")
+
+
+def maps3d_setup(torch):
+    """(configs, init(name, device), step(name, state, cloud, device) ->
+    (state, info)) of phase 27's five 3D maps."""
+    import math
+    from iris_lama_tpu_torch.sdm import distance3d as d3
+    from iris_lama_tpu_torch.sdm import occupancy3d as o3
+    from iris_lama_tpu_torch.sdm import tsdf as tsdf_mod
+    from iris_lama_tpu_torch.sdm.raycast import ray_cells
+    geo = o3.MapGeometry3(0.05, 4)
+    dcfg = d3.Distance3Config(geo, l2_max=0.5)
+    tcfg = tsdf_mod.TSDFConfig()
+    steps = math.ceil(ROOM3D_RANGE / geo.resolution)
+    cap = 4096
+
+    def init(name, device):
+        if name == "distance3":
+            return d3.distance3_init(dcfg, cap, device)
+        if name == "tsdf":
+            return tsdf_mod.tsdf_init(tcfg, device)
+        return getattr(o3, name + "_init")(geo, cap, device)
+
+    def step(name, st, cloud, device):
+        pts, msk, org = (torch.as_tensor(a, device=device)
+                         for a in cloud[:3])
+        if name == "frequency3":
+            return o3.frequency3_insert_scan(st, geo, pts, msk, org,
+                                             steps), {}
+        if name == "tsdf":
+            st, n = tsdf_mod.insert_point_cloud(st, tcfg, pts, msk, org)
+            return st, {"integrated": n}
+        hits = geo.w2m(pts)
+        if name == "simple3":
+            return o3.simple3_set(st, geo, hits[msk], 1), {}
+        if name == "probabilistic3":
+            # the rays' cells: a hit at each endpoint, a miss on each cell
+            # before it (the masked stream's cells left out)
+            frees, fmask = ray_cells(geo.w2m(org).expand(hits.shape), hits,
+                                     steps)
+            hit_c, free_c = hits[msk], frees[fmask & msk[:, None]]
+            cells = torch.cat([hit_c, free_c])
+            h = torch.cat([torch.ones_like(hit_c[:, 0]),
+                           torch.zeros_like(free_c[:, 0])])
+            return o3.probabilistic3_apply(st, geo, cells, h, 1 - h), {}
+        st = d3.add_obstacles3(st, dcfg, hits[msk])
+        n_dirty = int(d3.dirty_slots(st).numel())
+        st = d3.update3(st, dcfg, DIST3_MAX_DIRTY)
+        return st, {"dirty": n_dirty,
+                    "carried": max(n_dirty - DIST3_MAX_DIRTY, 0)}
+
+    return (geo, dcfg, tcfg, steps), init, step
+
+
+def maps3d_compare(torch, name, a, b) -> dict:
+    """CPU state ``a`` against card state ``b`` of one 3D map: integer
+    arrays ``torch.equal``, log-odds within 4e-6, TSDF values within
+    rtol 1e-5 (their float sums ran in another order) and the observed
+    set equal. Raises on a difference."""
+    tab = all(torch.equal(x, y.cpu()) for x, y in zip(a.table, b.table))
+    out = {"table_equal": tab,
+           "patches": int(a.table.num_patches()),
+           "overflow": int(b.table.overflow)}
+    assert tab, f"{name}: tables differ"
+    if name == "probabilistic3":
+        err = float((a.logodds - b.logodds.cpu()).abs().max())
+        out["logodds_max_abs_err"] = err
+        assert torch.equal(a.touched, b.touched.cpu()), f"{name}: touched"
+        assert err <= LO_ATOL, f"{name}: log-odds {err}"
+    elif name == "tsdf":
+        wa, wb = a.weight, b.weight.cpu()
+        da, db = a.dist, b.dist.cpu()
+        out["observed_equal"] = torch.equal(wa > 0, wb > 0)
+        out["weight_max_rel_err"] = float(((wa - wb).abs() / wa.abs()
+                                           .clamp(min=1e-30)).max())
+        out["dist_max_abs_err"] = float((da - db).abs().max())
+        assert out["observed_equal"], f"{name}: observed cells differ"
+        assert torch.allclose(wb, wa, rtol=TSDF_RTOL, atol=0), \
+            f"{name}: weights {out['weight_max_rel_err']}"
+        assert torch.allclose(db, da, rtol=TSDF_RTOL, atol=1e-6), \
+            f"{name}: distances {out['dist_max_abs_err']}"
+    else:
+        for f in a._fields[1:]:
+            assert torch.equal(getattr(a, f), getattr(b, f).cpu()), \
+                f"{name}: {f} differs"
+        out["cells_equal"] = True
+    return out
+
+
+def maps3d_phase(torch, dev, tmp: str) -> None:
+    """Phase 27: the 3D maps at the reference's default sizes (5 cm, 16^3
+    patches; frequency, simple and probabilistic states and the distance
+    map at capacity 4,096, l2_max 0.5 m: R = 10, windows of 48^3; the
+    TSDF at its constructor's defaults, capacity 8,192) on phase 27's
+    room workload. CPU against card over the first ROOM3D_PREFIX clouds,
+    then the whole workload on the card, each map alone: per-cloud ms,
+    device activities and device ms a cloud, peak memory, update3's dirty
+    counts and carry, to_mesh, and the .smd files of the three occupancy
+    states (the same bytes as from the state moved to the CPU, read back
+    equal)."""
+    from iris_lama_tpu_torch.sdm import distance3d as d3
+    from iris_lama_tpu_torch.sdm import occupancy3d as o3
+    from iris_lama_tpu_torch.sdm import tsdf as tsdf_mod
+    (geo, dcfg, tcfg, steps), init, step = maps3d_setup(torch)
+    t_gen = time.perf_counter()
+    clouds = room3d_workload()
+    t_gen = time.perf_counter() - t_gen
+    n_pts = int(clouds[0][0].shape[0])
+
+    # 1. the CPU (plain PyTorch) against the card, first clouds
+    states, secs = {}, {}
+    for device in ("cpu", dev):
+        for name in MAPS3D:
+            st = init(name, device)
+            t0 = time.perf_counter()
+            for c in clouds[:ROOM3D_PREFIX]:
+                st, _ = step(name, st, c, device)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            states[device, name] = st
+            secs.setdefault(name, []).append(time.perf_counter() - t0)
+    cmp = {n: maps3d_compare(torch, n, states["cpu", n], states[dev, n])
+           for n in MAPS3D}
+    hits = torch.cat([geo.w2m(torch.as_tensor(c[0][c[1]]))
+                      for c in clouds[:ROOM3D_PREFIX]])
+    q_cpu = o3.simple3_query(states["cpu", "simple3"], geo, hits)
+    q_card = o3.simple3_query(states[dev, "simple3"], geo, hits.to(dev))
+    assert torch.equal(q_cpu, q_card.cpu()), "simple3: queries differ"
+    assert bool((q_cpu == 1).all()), "simple3: a hit reads unset"
+    rng = np.random.default_rng(28)
+    half = np.array(ROOM3D) / 2
+    q = np.stack([rng.uniform(-half[0], half[0], ROOM3D_QUERIES),
+                  rng.uniform(-half[1], half[1], ROOM3D_QUERIES),
+                  rng.uniform(0.0, ROOM3D[2], ROOM3D_QUERIES)],
+                 -1).astype(np.float32)
+    reads = {}
+    for name, fn, cfg in (("distance3", d3.distance3, dcfg),
+                          ("tsdf", tsdf_mod.distance_interp, tcfg)):
+        dc, gc = fn(states["cpu", name], cfg, torch.as_tensor(q))
+        dg, gg = fn(states[dev, name], cfg, torch.as_tensor(q, device=dev))
+        reads[name] = {"dist_max_abs_err": float((dc - dg.cpu()).abs().max()),
+                       "grad_max_abs_err": float((gc - gg.cpu()).abs().max())}
+        assert max(reads[name].values()) <= INTERP_ATOL, (name, reads[name])
+    tris = [len(tsdf_mod.to_mesh(states[d, "tsdf"], tcfg)[1])
+            for d in ("cpu", dev)]
+    assert abs(tris[0] - tris[1]) <= MESH_TRI_RTOL * max(tris[0], 1), tris
+    emit({"phase": "maps3d_prefix", "clouds": ROOM3D_PREFIX,
+          "points_per_cloud": n_pts, "workload_gen_s": t_gen,
+          "cpu_s": {n: v[0] for n, v in secs.items()},
+          "card_s": {n: v[1] for n, v in secs.items()},
+          "compare": cmp, "queries": ROOM3D_QUERIES, "reads": reads,
+          "simple3_hits_read": int(hits.shape[0]),
+          "mesh_triangles_cpu_card": tris})
+    del states
+
+    # 2. the whole workload on the card, one map at a time
+    dp = devprof()
+    out = {}
+    for name in MAPS3D:
+        st = init(name, dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, infos = [], []
+        for c in clouds:
+            t0 = time.perf_counter()
+            st, info = step(name, st, c, dev)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            infos.append(info)
+        peak = torch.cuda.max_memory_allocated(dev)
+        box = [st]
+
+        def more():
+            for c in clouds[:PROFILED_CLOUDS]:
+                box[0] = step(name, box[0], c, dev)[0]
+
+        rows = dp.cuda_rows(dp.profile_calls(more))
+        top = sorted(((short_kernel_name(r.key),
+                       dp.event_us(r) / PROFILED_CLOUDS, r.count)
+                      for r in rows), key=lambda r: -r[1])[:6]
+        rec = {"per_cloud_ms": ms, "median_ms": float(np.median(ms)),
+               "first_ms": ms[0], "max_ms": max(ms),
+               "clouds_per_s": len(ms) / (sum(ms) / 1e3),
+               "device_ms_per_cloud": dp.device_us(rows) / 1e3
+               / PROFILED_CLOUDS,
+               "device_activities_per_cloud": dp.launch_count(rows)
+               / PROFILED_CLOUDS,
+               "top_device_us_per_cloud": top,
+               "state_mib": sum(x.numel() * x.element_size()
+                                for x in (*st.table, *st[1:])) / 2 ** 20,
+               "peak_mib_above_state": (peak - base) / 2 ** 20,
+               "patches": int(st.table.num_patches()),
+               "overflow": int(st.table.overflow)}
+        del box
+        if name == "distance3":
+            rec["dirty_per_cloud"] = [i["dirty"] for i in infos]
+            rec["carried_per_cloud"] = [i["carried"] for i in infos]
+            rec["max_dirty"] = DIST3_MAX_DIRTY
+            rec["still_dirty"] = int(d3.dirty_slots(st).numel())
+        if name == "tsdf":
+            rec["integrated_per_cloud"] = [int(i["integrated"])
+                                           for i in infos]
+            t0 = time.perf_counter()
+            verts, tri = tsdf_mod.to_mesh(st, tcfg)
+            rec["to_mesh_s"] = time.perf_counter() - t0
+            rec["mesh_triangles"] = int(len(tri))
+            rec["mesh_vertices"] = int(len(verts))
+            assert len(tri) > 0 and np.isfinite(verts).all(), "tsdf: mesh"
+        if name in ("frequency3", "simple3", "probabilistic3"):
+            rec["smd"] = smd3_roundtrip(torch, name, st, geo, tmp)
+        out[name] = rec
+        # frequency3_insert_scan allocates every cell of its [B, T + 1]
+        # stream, masked or not (as the JAX package does): the rays'
+        # masked extension past each hit fills the pool
+        assert name == "frequency3" or rec["overflow"] == 0, \
+            f"{name}: pool overflow"
+        del st
+    emit({"phase": "maps3d_main_path", "clouds": len(clouds),
+          "points_per_cloud": n_pts, "ray_steps": steps,
+          "maps": out,
+          "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True, text=True,
+              timeout=60).stdout.strip()})
+
+
+def short_kernel_name(key: str) -> str:
+    """A profiler row's kernel name cut to the op it runs: the templated
+    names of PyTorch's elementwise kernels run to kilobytes."""
+    import re
+    for pat in (r"(\w+_kernel_cuda)", r"(\w+_kernel_impl)\(",
+                r"(\w+Functor\w*)", r"(\w+Kernel\w*)"):
+        m = re.search(pat, key)
+        if m:
+            return m.group(1)
+    return key[:80]
+
+
+def smd3_roundtrip(torch, name: str, st, geo, tmp: str) -> dict:
+    """A 3D state written as .smd from the card and from its copy on the
+    CPU (the same bytes), read back onto the card (every allocated slot's
+    cells equal: the reader inserts in slot order) and written again (the
+    same bytes). Returns sizes and times."""
+    from iris_lama_tpu_torch.sdm import io as sdm_io
+    from iris_lama_tpu_torch.sdm import pool as pool_mod
+    write = getattr(sdm_io, "write_" + name)
+    read = getattr(sdm_io, "read_" + name)
+    path, cpath, again = (os.path.join(tmp, f"{name}{s}.smd")
+                          for s in ("", "_cpu", "_again"))
+    t0 = time.perf_counter()
+    write(st, geo, path)
+    t_write = time.perf_counter() - t0
+    cpu_state = type(st)(pool_mod.PatchTable(*(x.cpu() for x in st.table)),
+                         *(x.cpu() for x in st[1:]))
+    write(cpu_state, geo, cpath)
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(cpath, "rb") as f:
+        assert f.read() == data, f"{name}: card and CPU files differ"
+    t0 = time.perf_counter()
+    loaded, _ = read(path, capacity=st.table.capacity,
+                     device=st.table.keys.device)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    slots = torch.nonzero(pool_mod.active_slot_mask(st.table)).reshape(-1)
+    for f in st._fields[1:]:
+        assert torch.equal(getattr(loaded, f)[slots], getattr(st, f)[slots]), \
+            f"{name}: {f} read back differs"
+    write(loaded, geo, again)
+    with open(again, "rb") as f:
+        assert f.read() == data, f"{name}: write -> read -> write differs"
+    for p in (path, cpath, again):
+        os.remove(p)
+    return {"bytes": len(data), "write_s": t_write, "read_s": t_read,
+            "cpu_bytes_equal": True, "read_back_equal": True}
+
+
+def slam_phases(torch, dev) -> list:
+    """Phases 3-5: the kernels against their plain versions at the main
+    path's shapes, the CPU/card prefix, the Slam2D bench workload.
+    Returns the kernels line's entries of B1, B2 and B3."""
     from iris_lama_tpu_torch.algos.slam2d import Slam2D
     from iris_lama_tpu_torch.core import lie
     from iris_lama_tpu_torch.core.pose import Pose2D
@@ -3568,30 +3956,6 @@ def main() -> int:
     from iris_lama_tpu_torch.ops import select4
     from iris_lama_tpu_torch.sdm import mapping
     from iris_lama_tpu_torch.utils.cloud import beam_bucket
-
-    dev = torch.device("cuda:0")
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-
-    # 1. device ------------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
-    emit({"phase": "device", "kind": kind, "count": count,
-          "nvidia_smi": smi.splitlines(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-
-    # 2. build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    built = _cuda.build_all(verbose=True)
-    ptxas = {n: [ln.strip() for ln in b["log"].splitlines()
-                 if "entry function" in ln or "registers" in ln
-                 or "spill" in ln]
-             for n, b in built.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_s": {n: b["seconds"] for n, b in built.items()},
-          "ptxas": ptxas})
 
     # the main path's data: the bench workload's scans and options
     data, opts, padded = slam_workload()
@@ -3849,13 +4213,14 @@ def main() -> int:
            "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
     _cuda.reset_launches(*fns.values())
     passes = []
-    for p in range(3):
+    for p in range(bench_reps(3)):
         passes.append(slam_pass(torch, dev, data, opts, staged, p))
     launches = {n: fn.launches for n, fn in fns.items()}
     rates = sorted(p["scans_per_s"] for p in passes)
     updates = sum(p["updates"] for p in passes)
     emit({"phase": "main_path", "passes": passes,
-          "median_scans_per_s": rates[1], "launches": launches,
+          "median_scans_per_s": rates[len(rates) // 2],
+          "launches": launches,
           "launches_per_scan": {k: v / updates for k, v in launches.items()},
           "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20})
     for p in passes:
@@ -3868,42 +4233,106 @@ def main() -> int:
 
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
+    return kernels
 
-    # 6-8. the particle filter: its kernels, the CPU/card prefix, the bench
-    # workload
-    kernels += pf_phases(torch, dev)
-    # 9-11. Loc2D: its kernels, the CPU/card prefix, the bench workload
-    kernels += loc_phases(torch, dev)
-    # 12. Slam2D at 4 and 3 cm, the PF at 4 cm: the wider instantiations
-    fine = fine_phases(torch, dev)
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--group", choices=GROUPS + ("all",), default="all",
+                    help="the phase group to run (default: all of them, "
+                         "each bench workload's repeats cut to one)")
+    args = ap.parse_args(argv)
+    _START.append(time.perf_counter())
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from iris_lama_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda:0")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    groups = GROUPS if args.group == "all" else (args.group,)
+    _ONE_REP[0] = args.group == "all"
+
+    # 1. device ------------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    emit({"phase": "device", "kind": kind, "count": count,
+          "nvidia_smi": smi.splitlines(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "groups": list(groups),
+          "bench_reps_cut_to_one": _ONE_REP[0]})
+
+    # 2. build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    built = _cuda.build_all(verbose=True)
+    ptxas = {n: [ln.strip() for ln in b["log"].splitlines()
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
+             for n, b in built.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_source_s": {n: b["seconds"] for n, b in built.items()},
+          "ptxas": ptxas})
+
+    kernels, fine, path_launches = [], {}, {}
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        for group in groups:
+            t0 = time.perf_counter()
+            if group == "slam":
+                # 3-5. Slam2D: B1-B3 against their plain versions, the
+                # CPU/card prefix, the bench workload
+                kernels += slam_phases(torch, dev)
+                # 12. Slam2D at 4 and 3 cm, the PF at 4 cm: the wider
+                # instantiations
+                fine = fine_phases(torch, dev)
+                # 16. Slam2D's transient map and pool-per-scan path
+                slam_option_phases(torch, dev)
+            elif group == "pf":
+                # 6-8. the particle filter: its kernels, the CPU/card
+                # prefix, the bench workload
+                kernels += pf_phases(torch, dev)
+            elif group == "loc":
+                # 9-11. Loc2D: its kernels, the CPU/card prefix, the bench
+                # workload
+                kernels += loc_phases(torch, dev)
+            elif group == "lo":
+                # 13-15. LidarOdometry2D: B1's pair and B3 at its shapes,
+                # the CPU/card prefix, the bench_lidar.py workload
+                kernels += lo_phases(torch, dev)
+            elif group == "graph":
+                # 17-19. GraphSlam2D: the rebuild's and the coarse
+                # fallback's kernels, the CPU/card prefix, the
+                # bench_graph.py workload; 20. bench_pgo.py's pose graph
+                kernels += graph_phases(torch, dev)
+                pgo_phase(torch, dev)
+            elif group == "maps":
+                # 21. the standalone occupancy states' updates; 22.
+                # bench_loc.py's workload through .smd files (its kernels
+                # at phase 3's and phase 9's shapes); 23. the particle
+                # filter's pool path
+                occupancy_phase(torch, dev)
+                path_launches.update(file_workflow_phase(torch, dev, tmp))
+                kernels += pf_pool_phases(torch, dev)
+            elif group == "spill":
+                # 24-25. Slam2D's and the particle filter's spill tier;
+                # 26. the drivers' summaries
+                path_launches.update(slam_spill_phase(torch, dev, tmp))
+                path_launches.update(pf_spill_phase(torch, dev))
+                summary_phase(torch, dev)
+            else:
+                # 27. the 3D maps
+                maps3d_phase(torch, dev, tmp)
+            emit({"phase": "group", "group": group,
+                  "seconds": time.perf_counter() - t0})
     for k in kernels:
         if k["name"] in fine:
             k["launches"] = fine[k["name"]]
-    # 13-15. LidarOdometry2D: B1's pair and B3 at its shapes, the CPU/card
-    # prefix, the bench_lidar.py workload
-    kernels += lo_phases(torch, dev)
-    # 16. Slam2D's transient map and pool-per-scan path
-    slam_option_phases(torch, dev)
-    # 17-19. GraphSlam2D: the rebuild's and the coarse fallback's kernels,
-    # the CPU/card prefix, the bench_graph.py workload
-    kernels += graph_phases(torch, dev)
-    # 20. bench_pgo.py's pose graph
-    pgo_phase(torch, dev)
-    # 21. the standalone occupancy states' updates, CPU against card
-    occupancy_phase(torch, dev)
-    # 22. bench_loc.py's workload through .smd files; its kernels run at
-    # phase 3's (Slam2D) and phase 9's (Loc2D) shapes
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        path_launches = file_workflow_phase(torch, dev, tmp)
-        # 23. the particle filter's pool path
-        kernels += pf_pool_phases(torch, dev)
-        # 24-25. Slam2D's and the particle filter's spill tier
-        path_launches.update(slam_spill_phase(torch, dev, tmp))
-        path_launches.update(pf_spill_phase(torch, dev))
-    # 26. the drivers' summaries
-    summary_phase(torch, dev)
-    for k in kernels:
         for path, counts in path_launches.items():
             if k["name"] in counts:
                 k.setdefault("path_launches", {})[path] = counts[k["name"]]

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,6 +23,13 @@ from . import pool as pool_mod
 from .geometry import PKEY_BITS, MapGeometry
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+class PolygonMesh(NamedTuple):
+    """Vertices + triangle indices (reference: types.h PolygonMesh)."""
+
+    vertices: np.ndarray    # f64[V, 3]
+    triangles: np.ndarray   # i64[T, 3]
 
 
 def _dense_from_pool(table, arrays, geo: MapGeometry, defaults):

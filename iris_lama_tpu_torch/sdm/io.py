@@ -35,8 +35,14 @@ Cell structs (numpy dtypes of the reference layouts):
 The files are written on the host: a writer copies each array it needs
 from the device once (the allocated slots only). A reader parses on the
 host, inserts the patch keys with :func:`pool.table_insert` and returns
-tensors on the caller's device (CUDA unless ``device="cpu"``). The 3D maps
-are not ported.
+tensors on the caller's device (CUDA unless ``device="cpu"``).
+
+3D maps (``is_3d`` = 1) use the same wire format with patch volume L^3;
+the patch id is ``(x*UC + y)*UC + z`` (map.cpp:578-585) and the cells run
+x fastest (map.h:182-189), which is C-order ``[z][y][x]``: the 3D pool
+arrays' layout. Their readers insert the file's keys with
+:func:`pool.table_insert_ordered` (the sequential insert's table, in
+vectorised rounds).
 """
 
 from __future__ import annotations
@@ -107,17 +113,19 @@ def _mask_bytes(bits, volume: int) -> bytes:
     return np.pad(packed, (0, words * 8 - len(packed))).tobytes()
 
 
-def _write_map(path: str, geo: MapGeometry, cell_size: int, keys,
-               cell_bytes, masks, params: bytes = b"") -> None:
+def _write_map(path: str, geo, cell_size: int, keys, cell_bytes, masks,
+               params: bytes = b"", is_3d: bool = False) -> None:
     """Header, parameters, then per patch its id, ``cell_bytes[i]`` and the
-    bitmask of ``masks[i]``."""
-    volume = geo.patch_length ** 2
+    bitmask of ``masks[i]`` (``geo``: a MapGeometry, or a MapGeometry3
+    with ``is_3d``)."""
+    volume = geo.patch_length ** (3 if is_3d else 2)
+    ref_id = _key3_to_ref_id if is_3d else _key_to_ref_id
     with open(path, "wb") as f:
         f.write(_HEADER.pack(MAGIC, IO_VERSION, cell_size, geo.patch_length,
-                             len(keys), geo.resolution, geo.is_3d))
+                             len(keys), geo.resolution, is_3d))
         f.write(params)
         for i, key in enumerate(keys):
-            f.write(struct.pack("<Q", _key_to_ref_id(int(key))))
+            f.write(struct.pack("<Q", ref_id(int(key))))
             f.write(cell_bytes[i])
             f.write(_mask_bytes(masks[i], volume))
 
@@ -131,9 +139,11 @@ def _read_exact(f, n: int) -> bytes:
     return buf
 
 
-def _read_header(f, expect_cell_size: int, params_size: int = 0):
-    """Parse and validate the IOHeader (map.h:95-103) of a 2D map.
-    Truncated, corrupt or absurd headers raise ValueError."""
+def _parse_header(f, expect_cell_size: int, expect_3d: bool,
+                  params_size: int = 0):
+    """Parse and validate the IOHeader (map.h:95-103): (patch_length, n,
+    resolution). Truncated, corrupt or absurd headers, and a file of the
+    other dimensionality, raise ValueError."""
     magic, version, cell_size, patch_length, n, resolution, is_3d = \
         _HEADER.unpack(_read_exact(f, _HEADER.size))
     if magic != MAGIC or version != IO_VERSION:
@@ -141,15 +151,15 @@ def _read_header(f, expect_cell_size: int, params_size: int = 0):
     if cell_size != expect_cell_size:
         raise ValueError(
             f"cell size mismatch: {cell_size} != {expect_cell_size}")
-    if is_3d:
-        raise ValueError("dimensionality mismatch: file is_3d=True")
+    if bool(is_3d) != expect_3d:
+        raise ValueError(f"dimensionality mismatch: file is_3d={bool(is_3d)}")
     if not (1 <= patch_length <= 256) or (patch_length & (patch_length - 1)):
         raise ValueError(f"invalid patch_length {patch_length} "
                          "(power of two in [1, 256] expected)")
     if not np.isfinite(resolution) or resolution <= 0.0:
         raise ValueError(f"invalid resolution {resolution}")
     # patch-count sanity: the payload must fit in the file
-    volume = patch_length ** 2
+    volume = patch_length ** (3 if expect_3d else 2)
     per_patch = 8 + volume * cell_size + max(volume >> 6, 1) * 8
     pos = f.tell()
     f.seek(0, 2)
@@ -159,26 +169,34 @@ def _read_header(f, expect_cell_size: int, params_size: int = 0):
         raise ValueError(
             f"corrupt .smd: header claims {n} patches "
             f"({n * per_patch} B) but only {max(remaining, 0)} B remain")
+    return patch_length, n, resolution
+
+
+def _read_header(f, expect_cell_size: int, params_size: int = 0):
+    """The header of a 2D map: (MapGeometry, patch count)."""
+    patch_length, n, resolution = _parse_header(f, expect_cell_size, False,
+                                                params_size)
     geo = MapGeometry(resolution, int(np.log2(patch_length)), False)
     return geo, n
 
 
-def _read_patches(f, geo: MapGeometry, n: int, cell_dtype):
-    """(keys int32 [n], cells [n, L, L] of ``cell_dtype``, masks bool
-    [n, L, L]) of the n patch records."""
-    length = geo.patch_length
-    volume = length * length
+def _read_patches(f, length: int, n: int, cell_dtype, is_3d: bool = False):
+    """(keys int32 [n], cells [n, L, L(, L)] of ``cell_dtype``, masks bool
+    of the same shape) of the n patch records."""
+    dims = 3 if is_3d else 2
+    volume = length ** dims
     words = max(volume >> 6, 1)
+    to_key = _ref_id_to_key3 if is_3d else _ref_id_to_key
     keys, cells, masks = [], [], []
     for _ in range(n):
         (idx,) = struct.unpack("<Q", _read_exact(f, 8))
-        keys.append(_ref_id_to_key(idx))
+        keys.append(to_key(idx))
         cells.append(np.frombuffer(
             _read_exact(f, volume * cell_dtype.itemsize), cell_dtype))
         bits = np.unpackbits(np.frombuffer(_read_exact(f, words * 8),
                                            np.uint8), bitorder="little")
         masks.append(bits[:volume].astype(bool))
-    shape = (n, length, length)
+    shape = (n,) + (length,) * dims
     return (np.asarray(keys, np.int32),
             np.asarray(cells, cell_dtype).reshape(shape),
             np.asarray(masks, bool).reshape(shape))
@@ -219,7 +237,7 @@ def read_simple_occupancy(path: str, capacity: int = 4096, device=None):
     dev = _device(device)
     with open(path, "rb") as f:
         geo, n = _read_header(f, 1)
-        keys, blocks, _ = _read_patches(f, geo, n, np.dtype(np.int8))
+        keys, blocks, _ = _read_patches(f, geo.patch_length, n, np.dtype(np.int8))
     state = occ_mod.simple_init(occ_mod.OccupancyConfig(geo, capacity), dev)
     table, slots = _insert(state.table, keys)
     cells = _pool_array(state.cells.shape, 0, np.int8, slots, blocks)
@@ -247,7 +265,7 @@ def read_frequency_occupancy(path: str, capacity: int = 4096, device=None):
     dev = _device(device)
     with open(path, "rb") as f:
         geo, n = _read_header(f, FREQ_DTYPE.itemsize)
-        keys, rec, _ = _read_patches(f, geo, n, FREQ_DTYPE)
+        keys, rec, _ = _read_patches(f, geo.patch_length, n, FREQ_DTYPE)
     state = occ_mod.frequency_init(occ_mod.OccupancyConfig(geo, capacity),
                                    dev)
     table, slots = _insert(state.table, keys)
@@ -334,7 +352,7 @@ def read_distance_map(path: str, capacity: int = 4096, device=None):
     with open(path, "rb") as f:
         geo, n = _read_header(f, DIST_DTYPE.itemsize, params_size=4)
         (max_sqdist,) = struct.unpack("<I", _read_exact(f, 4))
-        keys, rec, _ = _read_patches(f, geo, n, DIST_DTYPE)
+        keys, rec, _ = _read_patches(f, geo.patch_length, n, DIST_DTYPE)
     l2_max = np.sqrt(max_sqdist) * geo.resolution
     dcfg = dist_mod.DistanceConfig(geo, float(l2_max))
     state = dist_mod.distance_map_init(dcfg, capacity, dev)
@@ -370,7 +388,7 @@ def read_probabilistic_occupancy(path: str, capacity: int = 4096,
     dev = _device(device)
     with open(path, "rb") as f:
         geo, n = _read_header(f, 4)
-        keys, lo_b, masks = _read_patches(f, geo, n, np.dtype("<f4"))
+        keys, lo_b, masks = _read_patches(f, geo.patch_length, n, np.dtype("<f4"))
     state = occ_mod.probabilistic_init(
         occ_mod.OccupancyConfig(geo, capacity), dev)
     table, slots = _insert(state.table, keys)
@@ -380,3 +398,115 @@ def read_probabilistic_occupancy(path: str, capacity: int = 4096,
     return occ_mod.ProbabilisticOccupancyState(
         table, torch.as_tensor(lo, device=dev),
         torch.as_tensor(touched, device=dev)), geo
+
+
+# ---------------------------------------------------------------------------
+# 3D maps (is_3d = 1)
+# ---------------------------------------------------------------------------
+
+def _key3_to_ref_id(key: int) -> int:
+    from .occupancy3d import CENTER_PATCH3, PKEY3_BITS
+    m = (1 << PKEY3_BITS) - 1
+    px, py, pz = key >> (2 * PKEY3_BITS), (key >> PKEY3_BITS) & m, key & m
+    half = UNIVERSAL_CONSTANT >> 1
+    rx = px - CENTER_PATCH3 + half
+    ry = py - CENTER_PATCH3 + half
+    rz = pz - CENTER_PATCH3 + half
+    return (rx * UNIVERSAL_CONSTANT + ry) * UNIVERSAL_CONSTANT + rz
+
+
+def _ref_id_to_key3(idx: int) -> int:
+    from .occupancy3d import CENTER_PATCH3, PKEY3_BITS
+    half = UNIVERSAL_CONSTANT >> 1
+    rx, rem = divmod(idx, UNIVERSAL_CONSTANT * UNIVERSAL_CONSTANT)
+    ry, rz = divmod(rem, UNIVERSAL_CONSTANT)
+    px = rx - half + CENTER_PATCH3
+    py = ry - half + CENTER_PATCH3
+    pz = rz - half + CENTER_PATCH3
+    lim = 1 << PKEY3_BITS
+    if not (0 <= px < lim and 0 <= py < lim and 0 <= pz < lim):
+        raise ValueError(f"3D patch id {idx} outside this build's range")
+    return (px << (2 * PKEY3_BITS)) | (py << PKEY3_BITS) | pz
+
+
+def _read_smd3(path: str, cell_dtype):
+    """(MapGeometry3, keys, cells, masks) of a 3D map file."""
+    from .occupancy3d import MapGeometry3
+    with open(path, "rb") as f:
+        length, n, resolution = _parse_header(f, cell_dtype.itemsize, True)
+        keys, cells, masks = _read_patches(f, length, n, cell_dtype, True)
+    return MapGeometry3(resolution, int(np.log2(length))), keys, cells, masks
+
+
+def _insert3(table, keys: np.ndarray):
+    """:func:`_insert` for a 3D file: the sequential insert's table, from
+    :func:`pool.table_insert_ordered` when the file's keys are unique."""
+    if not len(keys) or len(np.unique(keys)) < len(keys):
+        return _insert(table, keys)
+    table, slots = pool_mod.table_insert_ordered(
+        table, torch.as_tensor(keys, device=table.keys.device))
+    return table, slots.cpu().numpy().astype(np.int64)
+
+
+def write_simple3(state, geo3, path: str) -> None:
+    keys, slots = _active_patches(state.table)
+    cells = _host(state.cells, slots).astype(np.int8)
+    _write_map(path, geo3, 1, keys, [c.tobytes() for c in cells], cells != 0,
+               is_3d=True)
+
+
+def read_simple3(path: str, capacity: int = 4096, device=None):
+    """(Simple3State on ``device``, MapGeometry3)."""
+    from . import occupancy3d as o3
+    dev = _device(device)
+    geo3, keys, blocks, _ = _read_smd3(path, np.dtype(np.int8))
+    state = o3.simple3_init(geo3, capacity, dev)
+    table, slots = _insert3(state.table, keys)
+    cells = _pool_array(state.cells.shape, 0, np.int8, slots, blocks)
+    return o3.Simple3State(table, torch.as_tensor(cells, device=dev)), geo3
+
+
+def write_frequency3(state, geo3, path: str) -> None:
+    keys, slots = _active_patches(state.table)
+    vis = _host(state.visited, slots)
+    rec = np.zeros(vis.shape, FREQ_DTYPE)
+    rec["occupied"] = _host(state.occupied, slots)
+    rec["visited"] = vis
+    _write_map(path, geo3, FREQ_DTYPE.itemsize, keys,
+               [r.tobytes() for r in rec], vis > 0, is_3d=True)
+
+
+def read_frequency3(path: str, capacity: int = 4096, device=None):
+    """(Frequency3State on ``device``, MapGeometry3)."""
+    from . import occupancy3d as o3
+    dev = _device(device)
+    geo3, keys, rec, _ = _read_smd3(path, FREQ_DTYPE)
+    state = o3.frequency3_init(geo3, capacity, dev)
+    table, slots = _insert3(state.table, keys)
+    shape = state.occupied.shape
+    occ = _pool_array(shape, 0, np.int32, slots, rec["occupied"])
+    vis = _pool_array(shape, 0, np.int32, slots, rec["visited"])
+    return o3.Frequency3State(table, torch.as_tensor(occ, device=dev),
+                              torch.as_tensor(vis, device=dev)), geo3
+
+
+def write_probabilistic3(state, geo3, path: str) -> None:
+    keys, slots = _active_patches(state.table)
+    lo = _host(state.logodds, slots).astype("<f4")
+    _write_map(path, geo3, 4, keys, [c.tobytes() for c in lo],
+               _host(state.touched, slots), is_3d=True)
+
+
+def read_probabilistic3(path: str, capacity: int = 4096, device=None):
+    """(Probabilistic3State on ``device``, MapGeometry3)."""
+    from . import occupancy3d as o3
+    dev = _device(device)
+    geo3, keys, lo_b, masks = _read_smd3(path, np.dtype("<f4"))
+    state = o3.probabilistic3_init(geo3, capacity, dev)
+    table, slots = _insert3(state.table, keys)
+    shape = state.logodds.shape
+    lo = _pool_array(shape, 0.0, np.float32, slots, lo_b)
+    touched = _pool_array(shape, False, bool, slots, masks)
+    return o3.Probabilistic3State(
+        table, torch.as_tensor(lo, device=dev),
+        torch.as_tensor(touched, device=dev)), geo3

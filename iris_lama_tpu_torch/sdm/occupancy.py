@@ -185,17 +185,18 @@ def simple_is_unknown(state: SimpleOccupancyState, geo, cells):
 # Frequency occupancy (frequency_occupancy_map.cpp)
 # ---------------------------------------------------------------------------
 
-def _scatter_sum(shape, idx, values, dtype):
-    """Dense ``shape`` ([P+1, L, L]) array of ``values`` summed at the
-    index tuple ``idx`` (duplicates accumulate): one ``index_add_`` on the
-    flat cell index (atomics on the card; integer sums, and float sums of
-    integers below 2**24, are exact in any order)."""
-    safe, ly, lx = idx
-    length = shape[-1]
-    flat = ((safe * length + ly) * length + lx).reshape(-1)
+def scatter_sum(shape, idx, values, dtype):
+    """Dense ``shape`` array (``[P+1, L, L]`` or ``[P+1, L, L, L]``) of
+    ``values`` summed at the index tuple ``idx`` (slot, then a local index
+    an axis; duplicates accumulate): one ``index_add_`` on the flat cell
+    index (atomics on the card; integer sums, and float sums of integers
+    below 2**24, are exact in any order)."""
+    flat = idx[0]
+    for i, n in zip(idx[1:], shape[1:]):
+        flat = flat * n + i
     out = torch.zeros(shape, dtype=dtype, device=values.device)
-    out.view(-1).index_add_(0, flat,
-                            values.to(dtype).expand(safe.shape).reshape(-1))
+    out.view(-1).index_add_(0, flat.reshape(-1),
+                            values.to(dtype).expand(idx[0].shape).reshape(-1))
     return out
 
 
@@ -210,7 +211,7 @@ def frequency_apply_counts(state: FrequencyOccupancyState, geo, cells,
 
     def add(counts, more):
         more = more.to(torch.int64) & U16_MASK
-        total = counts.to(torch.int64) + _scatter_sum(shape, idx, more,
+        total = counts.to(torch.int64) + scatter_sum(shape, idx, more,
                                                       torch.int64)
         out = (total & U16_MASK).to(torch.int32)
         # keep the trash slot clean so pool-wide derivations stay valid
@@ -272,10 +273,10 @@ def probabilistic_apply(state: ProbabilisticOccupancyState, geo, cells,
     trash = state.logodds.shape[0] - 1
     table, _, idx = _locate_alloc(state.table, geo, cells, trash)
     shape = state.logodds.shape
-    hcount = _scatter_sum(shape, idx, hits, torch.float32)
-    mcount = _scatter_sum(shape, idx, misses, torch.float32)
+    hcount = scatter_sum(shape, idx, hits, torch.float32)
+    mcount = scatter_sum(shape, idx, misses, torch.float32)
     lo = probabilistic_saturate(state.logodds, hcount, mcount)
-    written = _scatter_sum(shape, idx, (hits > 0) | (misses > 0),
+    written = scatter_sum(shape, idx, (hits > 0) | (misses > 0),
                            torch.int32)
     touched = state.touched | (written > 0)
     lo[trash] = 0.0

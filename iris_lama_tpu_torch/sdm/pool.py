@@ -172,6 +172,68 @@ def table_insert_unique(table: PatchTable, keys):
                       table.overflow + n_fail), out
 
 
+def table_insert_ordered(table: PatchTable, keys):
+    """:func:`table_insert` for keys UNIQUE among their non-negative
+    entries, computed in vectorised rounds: the same table, slots and
+    counters as the sequential insert, key for key.
+
+    Each pending key takes the first free entry of its probe window that
+    no earlier placed key takes (the sequential rule). A round recomputes
+    every key's entry from the previous round's entries; key ``i`` depends
+    only on keys before it, so the rounds reach the sequential answer (the
+    one fixed point) after at most ``K`` rounds, in practice after the
+    longest chain of keys whose windows overlap, plus one. One host read a
+    round (the fixed-point test). The claim rounds of
+    :func:`table_insert_unique` differ: a smaller key may take the entry a
+    key before it would take.
+    """
+    keys = keys.to(torch.int32).reshape(-1)
+    dev = keys.device
+    k = keys.shape[0]
+    hsize = table.table_size
+    pre = table_lookup(table, keys)
+    pend = (keys >= 0) & (pre == EMPTY)
+    base, offs, probed = _probe(table.keys, keys)
+    free0 = pend[:, None] & ((probed == EMPTY) | (probed == TOMBSTONE))
+    entries = (base[:, None] + offs) % hsize                   # [K, W]
+    order = torch.arange(k, device=dev)
+    big = torch.full_like(entries, PROBE_WINDOW)
+
+    def placement(first):
+        cand = first < PROBE_WINDOW
+        rank = torch.cumsum(cand.to(torch.int32), 0, dtype=torch.int32) - 1
+        placed = cand & (rank < table.n_free)
+        pos = (base + torch.clamp(first, max=PROBE_WINDOW - 1)) % hsize
+        return placed, rank, pos
+
+    first = torch.where(free0, offs, big).amin(-1)
+    while True:
+        placed, rank, pos = placement(first)
+        claim = torch.full((hsize + 1,), k, dtype=torch.int64, device=dev)
+        claim.scatter_reduce_(0, torch.where(placed, pos, hsize), order,
+                              "amin")
+        taken = claim[entries] < order[:, None]
+        nxt = torch.where(free0 & ~taken, offs, big).amin(-1)
+        if torch.equal(nxt, first):
+            break
+        first = nxt
+
+    cap = table.capacity
+    slot_idx = torch.clamp(table.n_free - 1 - rank, 0, cap - 1)
+    new_slot = table.free_slots[slot_idx.long()]
+    target = torch.where(placed, pos, hsize)
+    tkeys = torch.cat([table.keys, table.keys.new_full((1,), EMPTY)])
+    tslots = torch.cat([table.slots, table.slots.new_full((1,), EMPTY)])
+    tkeys[target] = keys
+    tslots[target] = new_slot
+    n_placed = placed.sum(dtype=torch.int32)
+    n_fail = (pend & ~placed).sum(dtype=torch.int32)
+    out = torch.where(pre >= 0, pre, torch.where(placed, new_slot, EMPTY))
+    return PatchTable(tkeys[:hsize], tslots[:hsize], table.free_slots,
+                      table.n_free - n_placed,
+                      table.overflow + n_fail), out
+
+
 def active_slot_mask(table: PatchTable):
     """bool[P]: which pool slots are currently allocated (every slot but
     ``free_slots[:n_free]``)."""

@@ -18,13 +18,14 @@ import torch
 def ray_cells(from_cells, to_cells, max_steps: int):
     """All intermediate cells of each ray.
 
-    from_cells, to_cells: int32[B, 2] start and end (hit) cells.
+    from_cells, to_cells: int32[B, D] start and end (hit) cells, in any
+    dimension D (2 for the 2D maps, 3 for the 3D ones).
     max_steps: bound T on cells per ray (longer rays are truncated).
-    Returns (cells int32[B, T, 2] for t = 1..T, mask bool[B, T] — True
+    Returns (cells int32[B, T, D] for t = 1..T, mask bool[B, T] — True
     where t <= n - 1).
     """
     f = from_cells.to(torch.int32)
-    d = to_cells.to(torch.int32) - f                           # [B, 2]
+    d = to_cells.to(torch.int32) - f                           # [B, D]
     step = torch.sign(d)
     ad = torch.abs(d)
     n = ad.amax(dim=-1)                                         # [B]
@@ -32,7 +33,7 @@ def ray_cells(from_cells, to_cells, max_steps: int):
     t = torch.arange(1, max_steps + 1, dtype=torch.int32, device=f.device)
     num = 2 * t[None, :, None] * ad[:, None, :] + n_safe[:, None, None]
     den = 2 * n_safe[:, None, None]
-    c = torch.div(num, den, rounding_mode="floor")             # [B, T, 2]
+    c = torch.div(num, den, rounding_mode="floor")             # [B, T, D]
     cells = f[:, None, :] + step[:, None, :] * c
     mask = t[None, :] <= (n[:, None] - 1)
     return cells, mask

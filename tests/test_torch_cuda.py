@@ -1250,3 +1250,106 @@ def test_devprof_reads_the_card(cuda):
     top = devprof.device_breakdown(select4.select4_sq,
                                    lambda k: (grid, iy, ix), n=2)
     assert "select4" in top[0][0] and top[0][1] > 0
+
+
+# ---------------------------------------------------------------------------
+# The 3D maps (sdm/occupancy3d.py, distance3d.py, tsdf.py, io.py 3D)
+# ---------------------------------------------------------------------------
+
+def _room_clouds(n, seed=0):
+    """Clouds of a small box room from three origins: points f32 [n, 3],
+    mask, origin."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(3):
+        o = np.array([0.3 * k, -0.2 * k, 1.0], np.float32)
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        hi, lo = np.array([3.0, 2.0, 2.5]), np.array([-3.0, -2.0, 0.0])
+        with np.errstate(divide="ignore"):
+            inv = 1.0 / d
+        r = np.where(inv > 0, (hi - o) * inv, (lo - o) * inv).min(-1)
+        out.append(((o + d * r[:, None]).astype(np.float32),
+                    r < 5.0, o))
+    return out
+
+
+def test_maps3d_on_card_match_cpu(cuda):
+    """The four 3D maps on the card against the CPU: integer state
+    ``torch.equal``, log-odds within 4e-6, TSDF within rtol 1e-5 with the
+    observed set equal, trilinear reads within 1e-5."""
+    from iris_lama_tpu_torch.sdm import distance3d as d3
+    from iris_lama_tpu_torch.sdm import occupancy3d as o3
+    from iris_lama_tpu_torch.sdm import tsdf as tsdf_mod
+    geo = o3.MapGeometry3(0.05, 4)
+    dcfg = d3.Distance3Config(geo, 0.5)
+    tcfg = tsdf_mod.TSDFConfig(capacity=1024)
+    res = {}
+    for dev in ("cpu", cuda):
+        f = o3.frequency3_init(geo, 2048, dev)
+        p = o3.probabilistic3_init(geo, 2048, dev)
+        d = d3.distance3_init(dcfg, 2048, dev)
+        t = tsdf_mod.tsdf_init(tcfg, dev)
+        for pts, m, o in _room_clouds(2000):
+            pts, m, o = (torch.as_tensor(a, device=dev) for a in (pts, m, o))
+            f = o3.frequency3_insert_scan(f, geo, pts, m, o, 100)
+            hits = geo.w2m(pts)[m]
+            p = o3.probabilistic3_apply(p, geo, hits, torch.ones_like(
+                hits[:, 0]), torch.zeros_like(hits[:, 0]))
+            d = d3.update3(d3.add_obstacles3(d, dcfg, hits), dcfg, 512)
+            t, _ = tsdf_mod.insert_point_cloud(t, tcfg, pts, m, o)
+        q = torch.rand(5000, 3, generator=torch.Generator().manual_seed(1))
+        q = (q * torch.tensor([6.0, 4.0, 2.5]) - torch.tensor(
+            [3.0, 2.0, 0.0])).to(dev)
+        res[str(dev)] = (f, p, d, t, d3.distance3(d, dcfg, q),
+                         tsdf_mod.distance_interp(t, tcfg, q))
+    (f0, p0, d0, t0, r0, s0), (f1, p1, d1, t1, r1, s1) = res.values()
+    for a, b in ((f0, f1), (d0, d1)):
+        for x, y in zip((*a.table, *a[1:]), (*b.table, *b[1:])):
+            assert torch.equal(x, y.cpu())
+    assert all(torch.equal(x, y.cpu()) for x, y in zip(p0.table, p1.table))
+    assert torch.equal(p0.touched, p1.touched.cpu())
+    assert float((p0.logodds - p1.logodds.cpu()).abs().max()) <= 4e-6
+    assert all(torch.equal(x, y.cpu()) for x, y in zip(t0.table, t1.table))
+    assert torch.equal(t0.weight > 0, t1.weight.cpu() > 0)
+    assert torch.allclose(t1.weight.cpu(), t0.weight, rtol=1e-5, atol=0)
+    assert torch.allclose(t1.dist.cpu(), t0.dist, rtol=1e-5, atol=1e-6)
+    for a, b in (r0, r1), (s0, s1):
+        for x, y in zip(a, b):
+            assert float((x - y.cpu()).abs().max()) <= 1e-5
+
+
+def test_ordered_insert_on_card_equals_cpu(cuda):
+    from iris_lama_tpu_torch.sdm import pool as pool_mod
+    g = torch.Generator().manual_seed(3)
+    keys = torch.unique(torch.randint(0, 1 << 29, (3000,), generator=g,
+                                      dtype=torch.int32))
+    for cap in (4096, 1024):
+        a, sa = pool_mod.table_insert_ordered(pool_mod.table_init(cap), keys)
+        b, sb = pool_mod.table_insert_ordered(
+            pool_mod.table_init(cap, device=cuda), keys.to(cuda))
+        assert all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
+        assert torch.equal(sa, sb.cpu())
+
+
+def test_smd3_round_trip_on_card(cuda, tmp_path):
+    from iris_lama_tpu_torch.sdm import io as sdm_io
+    from iris_lama_tpu_torch.sdm import occupancy3d as o3
+    geo = o3.MapGeometry3(0.1, 2)
+    f = o3.frequency3_init(geo, 512, cuda)
+    for pts, m, o in _room_clouds(300):
+        f = o3.frequency3_insert_scan(
+            f, geo, *(torch.as_tensor(a, device=cuda) for a in (pts, m, o)),
+            20)
+    p = str(tmp_path / "f3.smd")
+    sdm_io.write_frequency3(f, geo, p)
+    cpu = o3.Frequency3State(type(f.table)(*(x.cpu() for x in f.table)),
+                             f.occupied.cpu(), f.visited.cpu())
+    q = str(tmp_path / "f3_cpu.smd")
+    sdm_io.write_frequency3(cpu, geo, q)
+    assert open(p, "rb").read() == open(q, "rb").read()
+    loaded, _ = sdm_io.read_frequency3(p, capacity=512)
+    again, _ = sdm_io.read_frequency3(p, capacity=512, device="cpu")
+    assert all(torch.equal(x.cpu(), y)
+               for x, y in zip((*loaded.table, *loaded[1:]),
+                               (*again.table, *again[1:])))
