@@ -6,11 +6,16 @@
 
 Groups (each after the device and build phases): ``slam`` (phases 3-5,
 12, 16), ``pf`` (6-8), ``loc`` (9-11), ``lo`` (13-15), ``graph``
-(17-20), ``maps`` (21-23), ``spill`` (24-26), ``3d`` (27). The run of
-every group (no argument, ``--group all``) cuts each bench workload's
-repeats to one pass (phases 5, 8, 11, 15 and 19; its time limit); a
-group's own run keeps them. No check against a plain version, no
-CPU-against-card prefix and no bound is cut.
+(17-20), ``maps`` (21-23), ``spill`` (24-26), ``3d`` (27), ``parallel``
+(28). The run of every group (no argument, ``--group all``) has the
+1,200 s limit of one call, so it cuts repeats, never a check: each bench
+workload's repeats to one pass (phases 5, 8, 11, 15 and 19), the
+profiled passes that count device activities to 20 (11), 25 (15) and 40
+(19) scans and 2 updates (23), each timing's calls to a quarter, and in
+phase 28 the pool path's updates to one and GN-CG at world 4 over gloo to
+bench_pgo.py's graph (the 16,384-node graph runs there at world 1); a
+group's own run keeps the full depth. Every check against a plain
+version, every CPU-against-card prefix, warm-up pass and bound stays.
 
 Phases, one JSON line each:
 
@@ -241,10 +246,40 @@ Phases, one JSON line each:
    and the three occupancy states through .smd files (the same bytes as
    from the state moved to the CPU; read back onto the card and written
    again: the same bytes). No hand-written kernel runs on this path.
+28. parallel_kernel, parallel_pf_pool, parallel_pf_resident,
+   parallel_rebuild, parallel_pgo — the parallel paths
+   (parallel/{pf_sharding, distributed_pgo, map_rebuild}.py) in spawned
+   ranks of one ``torch.distributed`` group (parallel/group.py), at world
+   1 over NCCL and at world 4 over gloo with the four ranks on cuda:0 (one
+   card: NCCL takes one rank a device; gloo moves the collectives' bytes
+   through the host), and at world 4 over NCCL, one rank a card, when the
+   machine has four. The parent runs each part unsharded on the card first
+   (the reference, one file the ranks memory-map) and checks B6, B1's
+   pair and B3 ``torch.equal`` to their plain versions at a world-4
+   rank's share (B6 on 128 pool windows and on 128 resident sub-windows,
+   the pair and B3 on 128 resident update windows, the pair over 18 of the
+   rebuild's key scans, B3 on a rebuild strip with its halos), with times
+   and bounds as in phase 3. Each rank then runs, each part's launch
+   counts set to 0 just before and read just after: the PF pool path at
+   bench_pf_scale.py's size (512 particles, 720 beams, 5 cm, capacity
+   512, max_iter 16; the first scan, then 3 updates, one in the run of
+   every group, the last with its weights spread so that it resamples and
+   most pools change rank; updates/s, the bytes
+   the row exchanges moved, resample indices, poses and weights
+   ``torch.equal``, every pool cell compared); the PF resident path at
+   __graft_entry__.dryrun_multichip's size (512 particles, 0.1 m) through
+   tests/test_pf_slam2d.py's three sharded steps (plain, forced resample,
+   forced re-org), compared as the pool path; GN-CG on bench_pgo.py's
+   512-node graph and on a 16,384-node one (world W against world 1 and
+   the card against the CPU within PAR_PGO_ATOL, raw and after a rigid
+   alignment, finite nodes, non-increasing chi2, the dense LM's error beside); and
+   bench_graph.py's rebuild through ``generate_occupancy_map(mesh=...)``,
+   bit-equal. A rank that fails or hangs fails the phase.
 
 Each group ends with a ``group`` line (its seconds). Then the ``kernels``
 line (each entry's ``launches`` from its main path's
-run; phases 22, 24 and 25's counts under ``path_launches``, each with the
+run; phase 28's new shapes count the world-4 ranks' launches; phases 22,
+24, 25 and 28's counts under ``path_launches``, each with the
 shape that path sent the kernel, which may differ from the shape the
 entry's times were measured at) and, last,
 ``{"ok":
@@ -306,7 +341,8 @@ INTERP_ATOL = 1e-5
 MESH_TRI_RTOL = 0.005
 PROFILED_CLOUDS = 3            # clouds a map under torch.profiler
 
-GROUPS = ("slam", "pf", "loc", "lo", "graph", "maps", "spill", "3d")
+GROUPS = ("slam", "pf", "loc", "lo", "graph", "maps", "spill", "3d",
+          "parallel")
 
 _START = []   # main()'s start on the host clock
 _ONE_REP = [False]   # main(): the ``all`` run cuts each bench's repeats to 1
@@ -316,6 +352,13 @@ def bench_reps(n: int) -> int:
     """A bench workload's repeats: ``n`` in a group's own run, one when
     every group runs in one process (its time limit)."""
     return 1 if _ONE_REP[0] else n
+
+
+def depth(full: int, cut: int) -> int:
+    """A profiled pass's length or a timing's calls: ``full`` in a group's
+    own run, ``cut`` when every group runs in one process (its time
+    limit)."""
+    return cut if _ONE_REP[0] else full
 
 
 def emit(obj) -> None:
@@ -372,7 +415,9 @@ def timings(torch, prefix: str, fn, reps: int) -> dict:
     """``<prefix>ms``: device time per call; ``<prefix>events_ms`` (for the
     kernel itself ``kernel_ms``): CUDA events around ``reps`` back-to-back
     calls, per call — host enqueue included, which dominates at µs-scale
-    kernels."""
+    kernels. The run of every group times a quarter of ``reps`` (at least
+    3)."""
+    reps = depth(reps, max(3, reps // 4))
     ms, src = device_ms(torch, fn, reps)
     events_key = f"{prefix}events_ms" if prefix else "kernel_ms"
     return {f"{prefix}ms": ms, f"{prefix}ms_source": src,
@@ -383,6 +428,38 @@ def bound(nbytes: float, nops: float) -> tuple:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = nops / FP32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def b6_window_bytes(torch, grids, orgs, start, solved, pts, mask, kw) -> int:
+    """The bytes of B6's (or B4's) window grids that a solve must read. A
+    window the kernel stages in shared memory is read whole. A window read
+    from global memory is read where the corners are: every 32-byte sector
+    that holds one of the four corners of a valid beam at the start state
+    or at the solved state (the first and the last evaluation), counted
+    once — the least this run's data needs (the iterations between move
+    the corners by a few cells)."""
+    from iris_lama_tpu_torch.ops import gn_solve
+    p, h, w = grids.shape
+    isz = grids.element_size()
+    if gn_solve.staged(h, w, pts.shape[0], isz):
+        return grids.numel() * isz
+    px, py = pts[:, 0][mask], pts[:, 1][mask]
+    org = orgs.to(torch.int64)
+    scale = torch.tensor(kw["scale"], dtype=torch.float32)
+    base = torch.arange(p, device=grids.device)[:, None] * (h * w)
+    sectors = []
+    for st in (start, solved):
+        tx, ty, c, s_ = (st[:, k:k + 1] for k in range(4))
+        mx = torch.floor((tx + c * px - s_ * py) * scale).long()
+        my = torch.floor((ty + s_ * px + c * py) * scale).long()
+        lx = mx + kw["cell_offset"] - org[:, 0:1]
+        ly = my + kw["cell_offset"] - org[:, 1:2]
+        for dy in (0, 1):
+            for dx in (0, 1):
+                cell = ((ly + dy).clamp(0, h - 1) * w
+                        + (lx + dx).clamp(0, w - 1))
+                sectors.append(((base + cell) * isz // 32).reshape(-1))
+    return int(torch.unique(torch.cat(sectors)).numel()) * 32
 
 
 def border_mask(torch, dev, shape, seed: int):
@@ -1648,7 +1725,8 @@ def loc_phases(torch, dev) -> list:
         # launch counts were read
         box = []
         n_dev = device_launches(
-            torch, lambda: box.append(one_pass(mode, 8, 0, LOC_PROFILED)))
+            torch, lambda: box.append(one_pass(mode, 8, 0,
+                                               depth(LOC_PROFILED, 20))))
         modes[mode]["device_launches_per_update"] = n_dev / box[0][2]
         emit({"phase": "loc_main_path", "mode": mode, **modes[mode]})
         for r in reps:
@@ -2101,7 +2179,7 @@ def lo_profile(torch, dev, opts, staged) -> dict:
     lo = LidarOdometry2D(opts, device=dev)
     for k in range(101):
         lo.update_prepadded(*staged[k])
-    scans = range(101, 101 + LO_PROFILED)
+    scans = range(101, 101 + depth(LO_PROFILED, 25))
     run = {"refreshes": 0}
 
     def profiled():
@@ -2548,12 +2626,12 @@ def graph_profile(torch, dev, opts, staged, data, times) -> dict:
     gs = GraphSlam2D(opts, device=dev)
     gs.set_prior(Pose2D(*data.poses_gt[0]))
     run = {}
+    n_prof = depth(GRAPH_PROFILED, 40)
 
     def profiled():
         t0 = time.perf_counter()
-        gs.update_many_prepadded(staged[:GRAPH_PROFILED],
-                                 data.odometry[:GRAPH_PROFILED],
-                                 timestamps=times[:GRAPH_PROFILED])
+        gs.update_many_prepadded(staged[:n_prof], data.odometry[:n_prof],
+                                 timestamps=times[:n_prof])
         run["keys"] = len(gs.key_poses)  # drains the verifications in flight
         torch.cuda.synchronize()
         run["wall"] = time.perf_counter() - t0
@@ -2978,7 +3056,9 @@ def pf_pool_phases(torch, dev) -> list:
     n_p, b = grids.shape[0], pts.shape[0]
     it = got[1]
     evals = int(it.sum()) + 2 * n_p
-    bd = bound(grids.numel() + n_p * (8 + 16 + 32) + b * 9, 60 * b * evals)
+    win_bytes = b6_window_bytes(torch, grids, orgs, poses, got[0],
+                                pts[:, :2], msk, b6_kw)
+    bd = bound(win_bytes + n_p * (8 + 16 + 32) + b * 9, 60 * b * evals)
     b6 = {"name": "gn_batch_solve_pool", "route": "cuda",
           "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
           "replaces": "iris_lama_tpu/ops/gn_batch.py:108",
@@ -2986,6 +3066,8 @@ def pf_pool_phases(torch, dev) -> list:
           "dtype": str(grids.dtype).replace("torch.", ""),
           "max_abs_err": 0.0, "iters_max": int(it.max()),
           "iters_mean": float(it.float().mean()),
+          "window_bytes_read": win_bytes,
+          "window_bytes": grids.numel() * grids.element_size(),
           # B6 launches B4's kernel: B5's launch shape (gn_common.cuh)
           "launch_floor_ms": b5_floor_ms(torch, dev, n_p, b),
           **timings(torch, "", lambda: gn_batch.solve_window_sq(
@@ -3187,7 +3269,7 @@ def pf_pool_phases(torch, dev) -> list:
 
     def five_updates():
         i = 1
-        while len(n_prof) < 5:
+        while len(n_prof) < depth(5, 2):
             if prof_pf.update_prepadded(*staged[i], data.odometry[i]):
                 n_prof.append(i)
             i += 1
@@ -4236,6 +4318,852 @@ def slam_phases(torch, dev) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# 28: the parallel paths on torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_PARTICLES = 512            # bench_pf_scale.py's and dryrun_multichip's
+PAR_POOL_UPDATES = 3           # bench_pf_scale.py: 3 updates after the
+#                                first (one in the run of every group); the
+#                                last with its weights spread (a resample)
+PAR_GLOO_WORLD = 4             # ranks that share cuda:0 over gloo
+PAR_BIG_NODES = 16384          # dense [3N, 3N] f32 Hessian: 9.7 GB
+PAR_BIG_LOOPS = 1024
+PAR_PGO_ATOL = 1e-3            # m, GN-CG nodes, raw and aligned: card vs
+#                                CPU, world W vs world 1 (sums split
+#                                elsewhere)
+PAR_RANK_TIMEOUT = 900         # s, one world's ranks
+PAR_STEPS = ("plain", "resample", "reorg")
+
+
+def par_pool_workload(n_updates: int):
+    """bench_pf_scale.py's workload (SimConfig(n_steps=4, seed=5), 720
+    beams padded to 768, 512 particles, 5 cm, 10 m, capacity 512,
+    max_iter 16, ``resident_window=False``), its first ``n_updates``
+    updates: (options, padded scans, the draws (eps [N, 3], u) of each
+    update from one CPU generator, the odometry increments). Every rank
+    builds the same."""
+    import torch
+    from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2DOptions
+    from iris_lama_tpu_torch.utils import simulator
+    from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=PAR_POOL_UPDATES + 1, seed=5,
+        laser=simulator.LaserSpec(n_beams=720, max_range=10.0)))
+    opts = PFSlam2DOptions(particles=PAR_PARTICLES, resolution=0.05,
+                           max_range=10.0, capacity=512, max_iter=16,
+                           seed=11, resident_window=False)
+    gen = torch.Generator().manual_seed(opts.seed)
+    draws = [(torch.randn((PAR_PARTICLES, 3), generator=gen),
+              torch.rand((), generator=gen)) for _ in range(n_updates)]
+    odeltas = [np.asarray((data.odometry[i - 1]
+                           - data.odometry[i]).se2_array(), np.float32)
+               for i in range(1, n_updates + 1)]
+    return opts, [pad_scan(c, beam_bucket(720)) for c in data.clouds], \
+        draws, odeltas
+
+
+def par_resident_setup(torch, dev):
+    """__graft_entry__.dryrun_multichip's configuration (512 particles, 0.1
+    m, 16-cell patches, 4 m, capacity 1024, max_iter 10,
+    resident_extra_patches 2) with tests/test_pf_slam2d.py's sharded
+    test's layout: the particles at distinct poses (uniform +-0.9 m and
+    +-0.3 rad, seed 11), each with a 512-beam ring of radius 2 m deposited
+    at its own pose. Returns (options, scan, particle set, the resample
+    draws of the three steps)."""
+    from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.sdm import mapping
+
+    n = PAR_PARTICLES
+    opts = pf_mod.PFSlam2DOptions(particles=n, resolution=0.1,
+                                  patch_size=16, max_range=4.0,
+                                  capacity=1024, max_iter=10,
+                                  resident_extra_patches=2, seed=7)
+    ang = np.linspace(-np.pi, np.pi, 512, endpoint=False)
+    pts = np.stack([2.0 * np.cos(ang), 2.0 * np.sin(ang),
+                    np.zeros(512)], -1).astype(np.float32)
+    scan = (torch.as_tensor(pts, device=dev),
+            torch.ones(512, dtype=torch.bool, device=dev),
+            torch.zeros(3, device=dev))
+    rng = np.random.default_rng(11)
+    xyr = np.stack([rng.uniform(-0.9, 0.9, n) + 0.013,
+                    rng.uniform(-0.9, 0.9, n) + 0.017,
+                    rng.uniform(-0.3, 0.3, n)], -1)
+    ps = pf_mod.particles_init(opts, np.array([0, 0, 1, 0], np.float32), dev)
+    ps = ps._replace(pose=torch.as_tensor(
+        np.asarray([Pose2D(*p).se2_array() for p in xyr], np.float32),
+        device=dev))
+    cfg = opts.mapping_config()
+    mapping.resident_update(cfg, ps.res_org, ps.res_occ, ps.res_vis,
+                            ps.res_dist, ps.pose, *scan)
+    gen = torch.Generator().manual_seed(opts.seed)
+    us = [torch.rand((), generator=gen).to(dev) for _ in PAR_STEPS]
+    return opts, scan, ps, us
+
+
+def par_resident_prepare(torch, opts, ps, step: str, sl):
+    """The JAX sharded test's set-up of a step on rows ``sl`` of the set
+    (the pool path's last update takes ``resample`` too):
+    ``resample`` spreads the weights (exp(gain * spread) from 1 to e^-7:
+    Neff < N/2), ``reorg`` moves every pose 20 m (out of the safe zone)."""
+    from iris_lama_tpu_torch.core import lie
+    if step == "resample":
+        n = opts.particles
+        gain = 1.0 / (opts.meas_sigma_gain * n)
+        spread = (torch.arange(n, dtype=torch.float32,
+                               device=ps.pose.device)
+                  * np.float32(7.0 / (gain * (n - 1))))[sl]
+        return ps._replace(weight=spread.clone(), weight_sum=spread.clone())
+    if step == "reorg":
+        shift = lie.se2(torch.tensor(20.0), torch.tensor(0.0),
+                        torch.tensor(0.0), device=ps.pose.device)
+        return ps._replace(pose=lie.se2_compose(ps.pose, shift.expand_as(
+            ps.pose)))
+    return ps
+
+
+class IdxRecorder:
+    """Records the resample indices of every ``weights_and_resample`` call
+    while active (the module function is wrapped, and restored on exit)."""
+
+    def __init__(self, pf_mod):
+        self.mod, self.idx = pf_mod, []
+
+    def __enter__(self):
+        self.orig = self.mod.weights_and_resample
+
+        def rec(*a, **kw):
+            out = self.orig(*a, **kw)
+            self.idx.append(out[0].cpu())
+            return out
+
+        self.mod.weights_and_resample = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.weights_and_resample = self.orig
+
+
+def par_named(ps) -> dict:
+    """The particle set's pools (and resident grids) by name."""
+    d = {f"table_{f}": getattr(ps.maps.table, f)
+         for f in ps.maps.table._fields}
+    d.update(occupied=ps.maps.occupied, visited=ps.maps.visited,
+             dist=ps.maps.dist)
+    if ps.res_org is not None:
+        d.update(res_occ=ps.res_occ, res_vis=ps.res_vis,
+                 res_dist=ps.res_dist, lineage=ps.lineage)
+    return d
+
+
+def par_diff(torch, got: dict, ref: dict, sl) -> dict:
+    """Differing cells of each of this rank's arrays against its rows of
+    the reference (a CPU tensor each, read from the memory-mapped file)."""
+    return {k: int((t != ref[k][sl].to(t.device)).sum())
+            for k, t in got.items()}
+
+
+def par_counts(fns: dict) -> dict:
+    return {n: fn.launches for n, fn in fns.items()}
+
+
+def par_pgo_problems():
+    """bench_pgo.py's 512-node graph and a 16,384-node one built alike
+    (1,024 Huber loop closures)."""
+    return {"pgo_512": pgo_graph(),
+            "pgo_16384": pgo_graph(PAR_BIG_NODES, loops=PAR_BIG_LOOPS)}
+
+
+def par_align_diff(a, b) -> tuple:
+    """(max raw xy difference, max after the rigid SE(2) alignment of ``a``
+    onto ``b``) of two node arrays [N, 4]."""
+    from iris_lama_tpu_torch.utils.evaluation import align_se2
+
+    def xyr(x):
+        x = np.asarray(x, np.float64)
+        return np.stack([x[:, 0], x[:, 1], np.arctan2(x[:, 3], x[:, 2])], -1)
+
+    xa, xb = xyr(a), xyr(b)
+    return (float(np.abs(xa[:, :2] - xb[:, :2]).max()),
+            float(np.abs(align_se2(xa, xb) - xb[:, :2]).max()))
+
+
+def parallel_rank(r, world, spec):
+    """One rank of phase 28: the four parts on this rank's share, each
+    part's launches counted from 0, every result compared on the rank
+    against the unsharded reference the parent wrote (a memory-mapped
+    file). Returns host values."""
+    import torch
+    import torch.distributed as dist
+    from iris_lama_tpu_torch.algos import graph_slam2d as gmod
+    from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
+    from iris_lama_tpu_torch.nlls import factor_graph as fg
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
+    from iris_lama_tpu_torch.ops import scatter_matmul
+    from iris_lama_tpu_torch.parallel import distributed_pgo as dpgo
+    from iris_lama_tpu_torch.parallel import group as G
+    from iris_lama_tpu_torch.parallel import pf_sharding
+    from iris_lama_tpu_torch.utils import state as state_mod
+
+    dev = torch.device(spec["devices"][r])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    mesh = pf_sharding.particle_mesh()
+    ref = torch.load(spec["ref"], mmap=True, weights_only=False)
+    fns = {"deposit_pair": scatter_matmul.deposit_pair,
+           "edt2d": edt_pallas.edt2d,
+           "gn_batch_solve": gn_batch.solve_window_sq}
+    out, part_s = {}, {}
+    n_up = spec["pool_updates"]
+
+    def timed(fn):
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        dist.barrier()
+        return res, time.perf_counter() - t0
+
+    # 1. the PF pool path at bench_pf_scale.py's size
+    t_part = time.perf_counter()
+    opts, padded, draws, odeltas = par_pool_workload(n_up)
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded]
+    full = pf_mod.particles_init(opts, np.array([0, 0, 1, 0], np.float32),
+                                 dev)
+    pf_mod.first_step(opts, full, *staged[0])
+    sl = G.rows(opts.particles, mesh)
+    ps = pf_sharding.shard_particles(full, mesh)
+    del full
+    motion = pf_sharding.make_sharded_motion(opts, mesh)
+    update = pf_sharding.make_sharded_update(opts, mesh)
+    _cuda.reset_launches(*fns.values())
+    infos, poses, weights = [], [], []
+
+    def pool_updates():
+        nonlocal ps
+        for k in range(n_up):
+            eps, u = draws[k]
+            ps = ps._replace(pose=motion(ps.pose, eps.to(dev),
+                                         torch.as_tensor(odeltas[k],
+                                                         device=dev)))
+            if k == n_up - 1:
+                ps = par_resident_prepare(torch, opts, ps, "resample", sl)
+            ps, info = update(ps, u.to(dev), *staged[k + 1])
+            poses.append(ps.pose.cpu())
+            weights.append(ps.weight.cpu())
+            infos.append({"exchange_bytes": info["exchange_bytes"],
+                          "resampled": bool(info["resampled"]),
+                          "neff": float(info["neff"])})
+
+    with IdxRecorder(pf_mod) as rec:
+        _, dt = timed(pool_updates)
+    rp = ref["pool"]
+    out["pool"] = {
+        "seconds": dt, "updates": n_up, "infos": infos,
+        "launches": par_counts(fns),
+        "idx_equal": [torch.equal(a, b) for a, b in zip(rec.idx, rp["idx"])],
+        "pose_equal": [torch.equal(a, b[sl]) for a, b in
+                       zip(poses, rp["pose"])],
+        "weight_equal": [torch.equal(a, b[sl]) for a, b in
+                         zip(weights, rp["weight"])],
+        "differing_cells": par_diff(torch, par_named(ps), rp["final"], sl),
+        "cells": {k: int(t.numel()) for k, t in par_named(ps).items()}}
+    del ps, staged, update, motion
+    part_s["pool"] = time.perf_counter() - t_part
+
+    # 2. the PF resident path at dryrun_multichip's size, the JAX sharded
+    # test's three steps
+    t_part = time.perf_counter()
+    opts, scan, full, us = par_resident_setup(torch, dev)
+    sl = G.rows(opts.particles, mesh)
+    ps = pf_sharding.shard_particles(full, mesh)
+    del full
+    update = pf_sharding.make_sharded_update(opts, mesh)
+    _cuda.reset_launches(*fns.values())
+    rr, steps = ref["resident"], []
+    with IdxRecorder(pf_mod) as rec:
+        for k, name in enumerate(PAR_STEPS):
+            ps = par_resident_prepare(torch, opts, ps, name, sl)
+            (ps, info), dt = timed(lambda: update(ps, us[k], *scan))
+            steps.append({
+                "step": name, "seconds": dt,
+                "resampled": bool(info["resampled"]),
+                "reorged": bool(info["reorged"]),
+                "escaped": int(info["escaped"]),
+                "exchange_bytes": info["exchange_bytes"],
+                "pose_equal": torch.equal(ps.pose.cpu(),
+                                          rr["pose"][k][sl]),
+                "weight_equal": torch.equal(ps.weight.cpu(),
+                                            rr["weight"][k][sl])})
+    out["resident"] = {
+        "steps": steps, "launches": par_counts(fns),
+        "idx_equal": [torch.equal(a, b) for a, b in zip(rec.idx, rr["idx"])],
+        "res_org_equal": torch.equal(ps.res_org.cpu(), rr["res_org"]),
+        "differing_cells": par_diff(torch, par_named(ps), rr["final"], sl)}
+    del ps, update
+    part_s["resident"] = time.perf_counter() - t_part
+
+    # 3. distributed PGO: the factors over the ranks (the graphs from the
+    # reference file)
+    t_part = time.perf_counter()
+    out["pgo"] = {}
+    for name, (nodes, graph, active) in ref["pgo"].items():
+        if name not in spec["pgo_graphs"]:
+            continue
+        graph = dpgo.shard_graph(fg.SE2Graph(*(a.to(dev) for a in graph)),
+                                 mesh)
+        args = (nodes.to(dev), graph, active.to(dev))
+        (res, info), dt = timed(
+            lambda: dpgo.optimize_distributed(*args, mesh=mesh))
+        out["pgo"][name] = {"nodes": res.cpu().numpy(), "seconds": dt,
+                            "chi2_history": info["chi2_history"].cpu()
+                            .numpy()}
+
+    part_s["pgo"] = time.perf_counter() - t_part
+
+    # 4. GraphSlam2D's rebuild through generate_occupancy_map(mesh=...)
+    t_part = time.perf_counter()
+    gspec = ref["rebuild"]
+    gs = gmod.GraphSlam2D(spec["graph_options"], device=dev)
+    gs.update_prepadded(*(torch.as_tensor(a, device=dev)
+                          for a in gspec["first_scan"]),
+                        gspec["first_odometry"])
+    state_mod.graph_from_numpy(gs, gspec["state"])
+    _cuda.reset_launches(*fns.values())
+    m, dt = timed(lambda: gs.generate_occupancy_map(mesh=mesh))
+    got = state_mod.map_to_numpy(m)
+    out["rebuild"] = {
+        "seconds": dt, "launches": par_counts(fns),
+        "differing_cells": {k: int((a != gspec["map"][k]).sum())
+                            for k, a in got.items()},
+        "same_keys": set(got) == set(gspec["map"])}
+    part_s["rebuild"] = time.perf_counter() - t_part
+    out["part_s"] = part_s
+    return out
+
+
+def par_unsharded_step(torch, pf_mod, opts, ps, u, scan):
+    """The unsharded resident update with the JAX package's in-step
+    re-org: ``reorg`` when a particle left the safe zone, then
+    ``update_step``. Returns (pset, info, reorged)."""
+    from iris_lama_tpu_torch.sdm import mapping
+    cfg = opts.mapping_config()
+    safe = bool(torch.all(mapping.resident_safe(
+        cfg, ps.res_org, cfg.geometry.w2m(ps.pose[:, :2]))))
+    if not safe:
+        ps = pf_mod.reorg(opts, ps)
+    ps, info = pf_mod.update_step(opts, ps, u, *scan)
+    return ps, info, not safe
+
+
+def par_b6_entry(torch, dev, name, args, kw, source_line) -> dict:
+    """A kernels-line entry of B6 at a rank's share, checked bit-equal."""
+    from iris_lama_tpu_torch.ops import gn_batch
+    got = gn_batch.solve_window_sq(*args, **kw)
+    want = gn_batch.solve_window_sq_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for k, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got, want):
+        assert torch.equal(a, w), f"B6 {name}: {k} differs"
+    grids = args[0]
+    n_p, b = grids.shape[0], args[3].shape[0]
+    it = got[1]
+    evals = int(it.sum()) + 2 * n_p
+    win_bytes = b6_window_bytes(torch, grids, args[1], args[2], got[0],
+                                args[3], args[4], kw)
+    bd = bound(win_bytes + n_p * (8 + 16 + 32) + b * 9, 60 * b * evals)
+    return {"name": name, "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
+            "replaces": source_line,
+            "shape": [n_p, grids.shape[1], grids.shape[2], b],
+            "dtype": str(grids.dtype).replace("torch.", ""),
+            "max_abs_err": 0.0, "iters_max": int(it.max()),
+            "iters_mean": float(it.float().mean()),
+            "window_bytes_read": win_bytes,
+            "window_bytes": grids.numel() * grids.element_size(),
+            "launch_floor_ms": b5_floor_ms(torch, dev, n_p, b),
+            **timings(torch, "", lambda: gn_batch.solve_window_sq(
+                *args, **kw), 50),
+            **timings(torch, "plain_", lambda: gn_batch.solve_window_sq_plain(
+                *args, **kw), 3),
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes an IRLS "
+                            "solve",
+            "bound_ms": bd[0], "bound_by": bd[1]}
+
+
+def par_pair_entry(torch, dev, name, hit, free, h, w, source_line,
+                   **extra) -> dict:
+    """B1's pair at a rank's share, checked bit-equal ([P, n] streams, or
+    one grid pair from [n] streams)."""
+    from iris_lama_tpu_torch.ops import scatter_matmul
+    got = scatter_matmul.deposit_pair(*hit, *free, h, w)
+    want = scatter_matmul.deposit_pair_plain(*hit, *free, h, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+        f"B1 pair {name}: differs"
+    p = hit[0].shape[0] if hit[0].dim() == 2 else 1
+    n_hit, n_free = hit[0].shape[-1], free[0].shape[-1]
+    lead = (lambda t: t) if hit[0].dim() == 2 else (lambda t: t[None])
+    blocks = scatter_matmul.launch_blocks(p, [n_hit, n_free])
+    return kernel_entry(
+        torch, name, source_line,
+        lambda: scatter_matmul.deposit_pair(*hit, *free, h, w),
+        lambda: scatter_matmul.deposit_pair_plain(*hit, *free, h, w),
+        p * ((n_hit + n_free) * 8 + 2 * h * w * 4), p * (2 * n_hit + n_free),
+        library=deposit_library(torch, dev, [
+            (lead(hit[0]), lead(hit[1]), (0, 1)),
+            (lead(free[0]), lead(free[1]), (1,))], p, h, w),
+        library_call="zeros + index_put_(accumulate=True) over both grids' "
+                     "bins", reps=100, library_reps=3,
+        shape=[p, n_hit, n_free, h, w], max_abs_err=0,
+        launch_floor_ms=memset_floor_ms(torch, dev, 2 * p * h * w * 4,
+                                        blocks, 256), **extra)
+
+
+def par_edt_entry(torch, dev, name, obst, cap, r, **extra) -> dict:
+    """B3 at a rank's share, checked bit-equal."""
+    from iris_lama_tpu_torch.ops import edt_pallas
+    got = edt_pallas.edt2d(obst, cap, r)
+    want = edt_pallas.edt2d_plain(obst, cap, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"B3 {name}: differs"
+    h, w = obst.shape[-2:]
+    p = obst.numel() // (h * w)
+    return kernel_entry(
+        torch, name, "iris_lama_tpu/ops/edt_pallas.py:25",
+        lambda: edt_pallas.edt2d(obst, cap, r),
+        lambda: edt_pallas.edt2d_plain(obst, cap, r),
+        obst.numel() * (1 + 4), obst.numel() * 4 * (2 * r + 1),
+        library_call="none: no single PyTorch call computes a capped EDT",
+        reps=100, shape=list(obst.shape), radius=r, max_abs_err=0,
+        obstacle_share=float(obst.float().mean()),
+        launch_floor_ms=launch_floor_ms(
+            torch, dev, p * -(-w // 64) * -(-h // 32), 256), **extra)
+
+
+def parallel_phase(torch, dev, tmp: str) -> tuple:
+    """Phase 28: the parallel paths (parallel/{pf_sharding,
+    distributed_pgo, map_rebuild}.py) through spawned ranks of one process
+    group, at world 1 over NCCL and at world 4 over gloo with every rank on
+    cuda:0 (gloo moves the collectives' bytes through the host); at world
+    4 over NCCL too, one rank a card, when the machine has four cards.
+
+    The parent first runs each part unsharded on the card (the reference,
+    written to one file the ranks memory-map) and checks B1, B3 and B6
+    bit-equal to their plain versions at a rank's share of the world-4
+    shapes, with times and bounds. Each rank then runs the four parts,
+    each part's launch counts set to 0 just before and read just after, and
+    compares its rows with the reference: 1. the PF pool path at
+    bench_pf_scale.py's size (updates/s, bytes the row exchanges moved,
+    resample indices, poses and weights bit-equal, pools cell by cell); 2.
+    the PF resident path at dryrun_multichip's size through the JAX
+    sharded test's three steps (plain, forced resample, forced re-org); 3.
+    GN-CG on bench_pgo.py's graph and on 16,384 nodes (world W against
+    world 1 and the card against the CPU within PAR_PGO_ATOL, raw and
+    after a rigid alignment, finite nodes, non-increasing chi2); 4. bench_graph.py's
+    rebuild through ``generate_occupancy_map(mesh=...)``, bit-equal.
+    Returns (the kernels-line entries of the new shapes, path_launches of
+    the earlier entries)."""
+    import dataclasses
+    from iris_lama_tpu_torch.algos import graph_slam2d as gmod
+    from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    from iris_lama_tpu_torch.nlls import factor_graph as fg
+    from iris_lama_tpu_torch.parallel import distributed_pgo as dpgo
+    from iris_lama_tpu_torch.parallel import group as G
+    from iris_lama_tpu_torch.parallel import map_rebuild
+    from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.utils import state as state_mod
+
+    n_rank = PAR_PARTICLES // PAR_GLOO_WORLD
+    n_up = bench_reps(PAR_POOL_UPDATES)
+    ref, entries, unsharded, ref_s = {}, [], {}, {}
+
+    # 1. the pool path, unsharded
+    t_part = time.perf_counter()
+    opts, padded, draws, odeltas = par_pool_workload(n_up)
+    staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
+              for p in padded]
+    ps = pf_mod.particles_init(opts, np.array([0, 0, 1, 0], np.float32),
+                               dev)
+    pf_mod.first_step(opts, ps, *staged[0])
+    poses, weights, secs, b6_args = [], [], 0.0, None
+    with IdxRecorder(pf_mod) as rec:
+        for k in range(n_up):
+            eps, u = draws[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps = ps._replace(pose=pf_mod.draw_from_motion(
+                opts, eps.to(dev), torch.as_tensor(odeltas[k], device=dev),
+                ps.pose))
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            if k == 0:     # B6's inputs at a rank's share
+                g_, o_ = pf_mod.pool_windows(opts, ps.maps,
+                                             ps.pose[:n_rank])
+                b6_args = (g_, o_, ps.pose[:n_rank].contiguous(),
+                           staged[1][0][:, :2].contiguous(), staged[1][1])
+            if k == n_up - 1:
+                ps = par_resident_prepare(torch, opts, ps, "resample",
+                                          slice(None))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps, info = pf_mod.pool_update_step(opts, ps, u.to(dev),
+                                               *staged[k + 1])
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            poses.append(ps.pose.cpu())
+            weights.append(ps.weight.cpu())
+    unsharded["pool_updates_per_s"] = n_up / secs
+    unsharded["pool_resampled"] = [
+        not torch.equal(i, torch.arange(PAR_PARTICLES)) for i in rec.idx]
+    assert unsharded["pool_resampled"][-1], "pool: no forced resample"
+    ref["pool"] = {"idx": rec.idx, "pose": poses, "weight": weights,
+                   "final": {k: t.cpu() for k, t in par_named(ps).items()}}
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in par_named(ps).values())
+    cfg = opts.mapping_config()
+    sopts = opts.solver_options()
+    b6_kw = dict(max_dist=cfg.distance.max_dist, res=cfg.geometry.resolution,
+                 scale=cfg.geometry.scale,
+                 cell_offset=cfg.geometry.cell_offset,
+                 cauchy_c=sopts.robust.param, eps1=sopts.eps1,
+                 eps2=sopts.eps2, max_iter=sopts.max_iterations,
+                 want_lik=True)
+    entries.append(par_b6_entry(torch, dev, "gn_batch_solve_pool_rank",
+                                b6_args, b6_kw,
+                                "iris_lama_tpu/ops/gn_batch.py:108"))
+    pool_shape = [PAR_PARTICLES, *b6_args[0].shape[1:]]
+    del ps, staged, b6_args, g_, o_
+    torch.cuda.empty_cache()
+    ref_s["pool"] = time.perf_counter() - t_part
+
+    # 2. the resident path, unsharded: plain, forced resample, forced re-org
+    t_part = time.perf_counter()
+    opts_r, scan, ps, us = par_resident_setup(torch, dev)
+    cfg_r = opts_r.mapping_config()
+    res_steps, poses, weights = [], [], []
+    with IdxRecorder(pf_mod) as rec:
+        for k, name in enumerate(PAR_STEPS):
+            ps = par_resident_prepare(torch, opts_r, ps, name, slice(None))
+            if k == 0:     # B6, B1's pair and B3 at a rank's share
+                pose = ps.pose[:n_rank].contiguous()
+                grids, orgs = pf_mod.match_windows(
+                    opts_r, ps.res_org, ps.res_dist[:n_rank], pose)
+                so = opts_r.solver_options()
+                geo = cfg_r.geometry
+                kw = dict(max_dist=cfg_r.distance.max_dist,
+                          res=geo.resolution, scale=geo.scale,
+                          cell_offset=geo.cell_offset,
+                          cauchy_c=so.robust.param, eps1=so.eps1,
+                          eps2=so.eps2, max_iter=so.max_iterations,
+                          want_lik=True)
+                entries.append(par_b6_entry(
+                    torch, dev, "gn_batch_solve_resident_rank",
+                    (grids, orgs, pose, scan[0][:, :2].contiguous(),
+                     scan[1]), kw, "iris_lama_tpu/ops/gn_batch.py:108"))
+                wu, w_res = cfg_r.resident_update_cells, \
+                    cfg_r.resident_window_cells
+                start = torch.clamp(geo.w2m(pose[:, :2]) - ps.res_org
+                                    - wu // 2, 0, w_res - wu)
+                idx = mapping.deposit_indices(cfg_r, pose, *scan,
+                                              ps.res_org + start, wu)
+                entries.append(par_pair_entry(
+                    torch, dev, "deposit_pair_resident_rank",
+                    (idx.hit_ly, idx.hit_lx), (idx.free_ly, idx.free_lx),
+                    wu, wu, "iris_lama_tpu/ops/scatter_matmul.py:228"))
+                obst = mapping.dyn_slice(ps.res_dist[:n_rank], start[:, 1],
+                                         start[:, 0], wu, wu) == 0
+                entries.append(par_edt_entry(
+                    torch, dev, "edt2d_resident_rank", obst,
+                    cfg_r.distance.max_sqdist, cfg_r.distance.radius_cells))
+                del grids, orgs, idx, obst
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps, info, reorged = par_unsharded_step(torch, pf_mod, opts_r,
+                                                   ps, us[k], scan)
+            torch.cuda.synchronize()
+            res_steps.append({"step": name,
+                              "seconds": time.perf_counter() - t0,
+                              "resampled": bool(info["resampled"]),
+                              "reorged": reorged,
+                              "escaped": int(info["escaped"])})
+            poses.append(ps.pose.cpu())
+            weights.append(ps.weight.cpu())
+    unsharded["resident_steps"] = res_steps
+    assert res_steps[1]["resampled"], f"resident: no resample {res_steps}"
+    assert [s["reorged"] for s in res_steps] == [False, False, True], \
+        f"resident: re-orgs {res_steps}"
+    ref["resident"] = {"idx": rec.idx, "pose": poses, "weight": weights,
+                       "res_org": ps.res_org.cpu(),
+                       "final": {k: t.cpu() for k, t in
+                                 par_named(ps).items()}}
+    res_shape = list(ps.res_occ.shape)
+    del ps, scan
+    torch.cuda.empty_cache()
+    ref_s["resident"] = time.perf_counter() - t_part
+
+    # 3. GN-CG unsharded: bench_pgo.py's graph on the CPU and on the card,
+    # the 16,384-node graph on the card; the dense LM beside
+    t_part = time.perf_counter()
+    problems = par_pgo_problems()
+    ref["pgo"] = {name: (torch.as_tensor(nodes), b.finalize("cpu"),
+                         torch.as_tensor(active))
+                  for name, (b, nodes, active, _) in problems.items()}
+    pgo_ref = {}
+    for name, (b, nodes, active, true) in problems.items():
+        devs = ("cpu", dev) if name == "pgo_512" else (dev,)
+        for d in devs:
+            args = (torch.as_tensor(nodes, device=d), b.finalize(d),
+                    torch.as_tensor(active, device=d))
+            dpgo.optimize_distributed(*args)      # warm-up
+            if d != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, info = dpgo.optimize_distributed(*args)
+            if d != "cpu":
+                torch.cuda.synchronize()
+            pgo_ref[(name, str(d))] = (res.cpu().numpy(),
+                                       info["chi2_history"].cpu().numpy(),
+                                       time.perf_counter() - t0)
+    b, nodes, active, true = problems["pgo_512"]
+    dense, _ = fg.optimize(torch.as_tensor(nodes, device=dev),
+                           b.finalize(dev),
+                           torch.as_tensor(active, device=dev))
+    dense = dense.cpu().numpy()
+    ref_s["pgo"] = time.perf_counter() - t_part
+
+    def mean_err(x, true_):
+        return float(np.mean([np.linalg.norm(x[i, :2] - true_[i].xy())
+                              for i in range(0, len(true_), 16)]))
+
+    # 4. the rebuild, unsharded, after one pass of bench_graph.py's workload
+    t_part = time.perf_counter()
+    data, gopts, padded_g = graph_workload()
+    staged_g = [tuple(torch.as_tensor(a, device=dev) for a in p)
+                for p in padded_g]
+    gs = gmod.GraphSlam2D(gopts, device=dev)
+    gs.set_prior(Pose2D(*data.poses_gt[0]))
+    gs.update_many_prepadded(staged_g, data.odometry,
+                             timestamps=[float(k) for k in
+                                         range(len(staged_g))])
+    kps = gs.key_poses
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = gs.generate_occupancy_map()
+    torch.cuda.synchronize()
+    unsharded["rebuild_s"] = time.perf_counter() - t0
+    ref["rebuild"] = {"state": state_mod.graph_to_numpy(gs),
+                      "map": state_mod.map_to_numpy(want),
+                      "first_scan": padded_g[0],
+                      "first_odometry": data.odometry[0]}
+    # B1's pair over a rank's scans and B3 on a middle rank's strip with
+    # its halos, at world 4
+    rcfg = dataclasses.replace(gs.slam.cfg, capacity=4 * gs.slam.cfg.capacity)
+    kp_poses = np.asarray([kp.pose.se2_array() for kp in kps], np.float32)
+    org, h, w = map_rebuild.grid_bounds(rcfg, rcfg.geometry, kp_poses)
+    org_t = torch.as_tensor(org, dtype=torch.int32, device=dev)
+    k_rank = -(-len(kps) // PAR_GLOO_WORLD)
+    (hy, hx), (fy, fx) = map_rebuild._scan_cells(
+        rcfg, torch.as_tensor(kp_poses[:k_rank], device=dev),
+        torch.stack([kp.points for kp in kps[:k_rank]]),
+        torch.stack([kp.mask for kp in kps[:k_rank]]),
+        torch.stack([kp.origin for kp in kps[:k_rank]]), org_t, h, w)
+    entries.append(par_pair_entry(
+        torch, dev, "deposit_pair_rebuild_rank", (hy, hx), (fy, fx), h, w,
+        "iris_lama_tpu/ops/scatter_matmul.py:81", key_poses=k_rank))
+    occ, vis = map_rebuild.rasterize_scans(
+        rcfg, torch.as_tensor(kp_poses, device=dev),
+        torch.stack([kp.points for kp in kps]),
+        torch.stack([kp.mask for kp in kps]),
+        torch.stack([kp.origin for kp in kps]), org_t, h, w)
+    rad = rcfg.distance.radius_cells
+    hs = -(-h // PAR_GLOO_WORLD)
+    strip = ((4 * occ) > vis)[hs - rad:2 * hs + rad].contiguous()
+    entries.append(par_edt_entry(torch, dev, "edt2d_rebuild_strip", strip,
+                                 rcfg.distance.max_sqdist, rad))
+    del gs, staged_g, want, hy, hx, fy, fx, occ, vis, strip
+    torch.cuda.empty_cache()
+    ref_s["rebuild"] = time.perf_counter() - t_part
+    for kern in entries:
+        emit({"phase": "parallel_kernel", **kern})
+
+    path = os.path.join(tmp, "parallel_ref.pt")
+    t0 = time.perf_counter()
+    torch.save(ref, path)
+    ref_write_s = time.perf_counter() - t0
+    del ref
+    spec = {"ref": path, "graph_options": gopts, "pool_updates": n_up}
+    worlds = [(1, "nccl"), (PAR_GLOO_WORLD, "gloo")]
+    if torch.cuda.device_count() >= 4:
+        worlds.append((4, "nccl"))
+    results = {}
+    for world, backend in worlds:
+        devices = ([f"cuda:{r}" for r in range(world)] if backend == "nccl"
+                   else [str(dev)] * world)
+        # the run of every group: GN-CG over gloo on bench_pgo.py's graph
+        pgo_graphs = [k for k in problems if not (
+            _ONE_REP[0] and backend == "gloo" and k != "pgo_512")]
+        t0 = time.perf_counter()
+        res = G.run_ranks(parallel_rank, world, backend,
+                          timeout=PAR_RANK_TIMEOUT,
+                          args=({**spec, "devices": devices,
+                                 "pgo_graphs": pgo_graphs},))
+        results[(world, backend)] = (res, time.perf_counter() - t0)
+
+    # what every world showed
+    launches = {}
+    for (world, backend), (res, wall) in results.items():
+        tag = f"world {world} {backend}"
+        pool = [r_["pool"] for r_ in res]
+        resd = [r_["resident"] for r_ in res]
+        reb = [r_["rebuild"] for r_ in res]
+        counts = {part: {k: sum(r_[part]["launches"][k] for r_ in res)
+                         for k in res[0][part]["launches"]}
+                  for part in ("pool", "resident", "rebuild")}
+        launches[(world, backend)] = counts
+        pool_diff = {k: sum(p["differing_cells"][k] for p in pool)
+                     for k in pool[0]["differing_cells"]}
+        emit({"phase": "parallel_pf_pool", "world": world,
+              "backend": backend, "particles": PAR_PARTICLES,
+              "updates": n_up,
+              "updates_per_s": n_up / pool[0]["seconds"],
+              "unsharded_updates_per_s": unsharded["pool_updates_per_s"],
+              "exchange_bytes_per_update": [i["exchange_bytes"]
+                                            for i in pool[0]["infos"]],
+              "resampled": [i["resampled"] for i in pool[0]["infos"]],
+              "neff": [i["neff"] for i in pool[0]["infos"]],
+              "pool_bytes": pool_bytes, "pool_shape": pool_shape,
+              "idx_equal": all(all(p["idx_equal"]) for p in pool),
+              "pose_equal": all(all(p["pose_equal"]) for p in pool),
+              "weight_equal": all(all(p["weight_equal"]) for p in pool),
+              "differing_cells": pool_diff, "launches": counts["pool"],
+              "world_wall_s": wall})
+        assert all(len(p["idx_equal"]) == n_up for p in pool)
+        assert pool[0]["infos"][-1]["resampled"] and (
+            world == 1 or pool[0]["infos"][-1]["exchange_bytes"] > 0), \
+            f"{tag}: the pool's forced resample moved nothing"
+        assert all(all(p["idx_equal"]) for p in pool), \
+            f"{tag}: pool resample indices differ"
+        assert all(all(p["pose_equal"] + p["weight_equal"]) for p in pool), \
+            f"{tag}: pool poses or weights differ"
+        assert sum(pool_diff.values()) == 0, f"{tag}: pools {pool_diff}"
+        res_diff = {k: sum(p["differing_cells"][k] for p in resd)
+                    for k in resd[0]["differing_cells"]}
+        emit({"phase": "parallel_pf_resident", "world": world,
+              "backend": backend, "particles": PAR_PARTICLES,
+              "grids": res_shape, "steps": resd[0]["steps"],
+              "unsharded_steps": unsharded["resident_steps"],
+              "idx_equal": all(all(p["idx_equal"]) for p in resd),
+              "res_org_equal": all(p["res_org_equal"] for p in resd),
+              "differing_cells": res_diff, "launches": counts["resident"]})
+        for k, s in enumerate(resd[0]["steps"]):
+            u_ = unsharded["resident_steps"][k]
+            assert (s["resampled"], s["reorged"], s["escaped"]) == (
+                u_["resampled"], u_["reorged"], u_["escaped"]), \
+                f"{tag}: resident step {s['step']} decisions"
+        assert all(s["pose_equal"] and s["weight_equal"]
+                   for p in resd for s in p["steps"]), \
+            f"{tag}: resident poses or weights differ"
+        assert all(all(p["idx_equal"]) and p["res_org_equal"]
+                   for p in resd), f"{tag}: resident indices or origin"
+        assert sum(res_diff.values()) == 0, f"{tag}: resident {res_diff}"
+        reb_diff = {k: sum(p["differing_cells"][k] for p in reb)
+                    for k in reb[0]["differing_cells"]}
+        emit({"phase": "parallel_rebuild", "world": world,
+              "backend": backend, "key_poses": len(kps), "grid": [h, w],
+              "radius": rad, "seconds": reb[0]["seconds"],
+              "unsharded_s": unsharded["rebuild_s"],
+              "differing_cells": reb_diff, "launches": counts["rebuild"]})
+        assert all(p["same_keys"] for p in reb)
+        assert sum(reb_diff.values()) == 0, f"{tag}: rebuild {reb_diff}"
+        for part, c in counts.items():
+            need = ("deposit_pair", "edt2d") + (
+                ("gn_batch_solve",) if part != "rebuild" else ())
+            assert all(c[k] > 0 for k in need), f"{tag} {part}: {c}"
+
+    # GN-CG: card against CPU, world W against world 1
+    one = results[(1, "nccl")][0][0]["pgo"]
+    for name, (b, nodes, active, true) in problems.items():
+        n = len(true)
+        card = pgo_ref[(name, str(dev))]
+        line = {"phase": "parallel_pgo", "graph": name, "nodes": n,
+                "factors": len(b.betweens) + len(b.priors),
+                "dense_hessian_gb": (3 * len(nodes)) ** 2 * 4 / 1e9,
+                "unsharded_card_s": card[2],
+                "mean_err_m": mean_err(card[0], true),
+                "chi2_history_card": card[1].tolist()}
+        if name == "pgo_512":
+            cpu = pgo_ref[(name, "cpu")]
+            line.update(cpu_s=cpu[2], dense_lm_mean_err_m=mean_err(
+                dense, true),
+                card_vs_cpu_m=par_align_diff(card[0][:n], cpu[0][:n]))
+            assert max(line["card_vs_cpu_m"]) <= PAR_PGO_ATOL, line
+        for (world, backend), (res, _) in results.items():
+            if name not in res[0]["pgo"]:
+                continue
+            got = res[0]["pgo"][name]
+            key = f"world{world}_{backend}"
+            line[f"{key}_s"] = got["seconds"]
+            line[f"{key}_vs_world1_m"] = par_align_diff(
+                got["nodes"][:n], one[name]["nodes"][:n])
+            line[f"{key}_vs_unsharded_m"] = par_align_diff(
+                got["nodes"][:n], card[0][:n])
+            line[f"{key}_chi2_history"] = got["chi2_history"].tolist()
+            hist = got["chi2_history"]
+            assert np.isfinite(got["nodes"]).all(), (key, name)
+            assert (np.diff(hist) <= 0).all(), (key, name, hist)
+            # raw and after the rigid alignment: a lost prior or a rigid
+            # drift shows in the raw difference
+            assert max(line[f"{key}_vs_world1_m"]) <= PAR_PGO_ATOL, line
+            assert max(line[f"{key}_vs_unsharded_m"]) <= PAR_PGO_ATOL, line
+        emit(line)
+    emit({"phase": "parallel", "worlds": [list(k) for k in results],
+          "pool_updates": n_up, "reference_part_s": ref_s,
+          "rank0_part_s": {f"{w_}_{b_}": v[0][0]["part_s"]
+                           for (w_, b_), v in results.items()},
+          "reference_write_s": ref_write_s,
+          "world_wall_s": {f"{w_}_{b_}": v[1]
+                           for (w_, b_), v in results.items()}})
+
+    # the kernels line: each new shape's launches in world 4's ranks (the
+    # first world of four ranks); the earlier pool entries' launches at
+    # their [2,512,512] window under path_launches
+    w4 = launches[(PAR_GLOO_WORLD, "gloo")]
+    names = {"gn_batch_solve_pool_rank": ("pool", "gn_batch_solve"),
+             "gn_batch_solve_resident_rank": ("resident", "gn_batch_solve"),
+             "deposit_pair_resident_rank": ("resident", "deposit_pair"),
+             "edt2d_resident_rank": ("resident", "edt2d"),
+             "deposit_pair_rebuild_rank": ("rebuild", "deposit_pair"),
+             "edt2d_rebuild_strip": ("rebuild", "edt2d")}
+    for kern in entries:
+        part, fn = names[kern["name"]]
+        kern["launches"] = w4[part][fn]
+        kern["launches_by_world"] = {f"{w_}_{b_}": c[part][fn]
+                                     for (w_, b_), c in launches.items()}
+    pool_all = {fn: sum(c["pool"][fn] for c in launches.values())
+                for fn in ("deposit_pair", "edt2d", "gn_batch_solve")}
+    path = {"parallel": {
+        "deposit_pair_pool": {"launches": pool_all["deposit_pair"],
+                              "shape": "[2,512,512], one a particle"},
+        "edt2d_pool": {"launches": pool_all["edt2d"],
+                       "shape": "[512,512], one a particle"},
+        "gn_batch_solve_pool": {
+            "launches": pool_all["gn_batch_solve"],
+            "shape": f"[{PAR_PARTICLES // PAR_GLOO_WORLD} or "
+                     f"{PAR_PARTICLES}, {pool_shape[1]}, {pool_shape[2]}], "
+                     "a rank's particles"}}}
+    return entries, path
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4325,9 +5253,14 @@ def main(argv=None) -> int:
                 path_launches.update(slam_spill_phase(torch, dev, tmp))
                 path_launches.update(pf_spill_phase(torch, dev))
                 summary_phase(torch, dev)
-            else:
+            elif group == "3d":
                 # 27. the 3D maps
                 maps3d_phase(torch, dev, tmp)
+            else:
+                # 28. the parallel paths on torch.distributed
+                entries, path = parallel_phase(torch, dev, tmp)
+                kernels += entries
+                path_launches.update(path)
             emit({"phase": "group", "group": group,
                   "seconds": time.perf_counter() - t0})
     for k in kernels:

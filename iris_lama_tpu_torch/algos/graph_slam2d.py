@@ -610,18 +610,15 @@ class GraphSlam2D:
     def generate_occupancy_map(self, mesh=None) -> mapping.SlamMapState:
         """Re-rasterize all key-pose clouds at their optimized poses: every
         scan deposited at once (parallel/map_rebuild.py), on a pool of four
-        times the front end's capacity. ``mesh`` (a sharded rebuild) is not
-        ported and raises NotImplementedError."""
+        times the front end's capacity. ``mesh``: a process group over
+        which the rebuild is split (every rank calls this on the same
+        state and gets the whole map)."""
         from ..parallel import map_rebuild
 
         self._live_flush()
         self._sync(drain=True)
         cfg = dataclasses.replace(self.slam.cfg,
                                   capacity=4 * self.slam.cfg.capacity)
-        if mesh is not None:
-            raise NotImplementedError(
-                "generate_occupancy_map: the sharded rebuild (mesh) is "
-                "ROADMAP item A8")
         if not self._key_poses:
             return mapping.slam_map_init(cfg, self.device)
         with self._timed("rebuild"):
@@ -632,7 +629,8 @@ class GraphSlam2D:
                 cfg, torch.as_tensor(poses, device=self.device),
                 _stack(kp.points for kp in self._key_poses),
                 _stack(kp.mask for kp in self._key_poses),
-                _stack(kp.origin for kp in self._key_poses), org, h, w)
+                _stack(kp.origin for kp in self._key_poses), org, h, w,
+                mesh=mesh)
             return map_rebuild.dense_to_state(cfg, dense)
 
     def coarse_obstacles(self, resolution: float = 0.1, l2_max: float = 5.0):

@@ -64,6 +64,7 @@ from ..core.pose import Pose2D
 from ..nlls.robust import CAUCHY_SCAN
 from ..nlls.solver import SolverOptions
 from ..ops import gn_batch
+from ..parallel import group as group_mod
 from ..sdm import mapping
 from ..sdm import window as win_mod
 from ..sdm.geometry import MapGeometry, f32
@@ -310,38 +311,55 @@ def match_phase(opts: PFSlam2DOptions, pset: ParticleSet, points, mask):
 
 
 def update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points, mask,
-                origin, clock=None):
+                origin, clock=None, mesh=None):
     """One resident PF update on post-motion poses: match -> weights ->
     resample (lineages composed, resident grids gathered by ``idx``) -> map
     update of every particle. The resident grids are updated IN PLACE.
     The caller has checked the safe zone (or triggers re-orgs from
     odometry). ``clock`` (a ``utils.summary.PhaseClock``) times solving,
-    normalizing, resampling and mapping apart. Returns (pset, info)."""
+    normalizing, resampling and mapping apart. Returns (pset, info).
+
+    ``mesh`` (a process group; ``parallel/pf_sharding.py``): ``pset`` is
+    this rank's rows of the particles and ``u`` the same on every rank. The
+    N states, likelihoods and weights are all-gathered and every rank
+    normalises and draws ``idx`` on all N alike (bit-equal to the
+    unsharded filter's); the resample's gather is a row exchange
+    (``parallel/group.py``), and ``info`` holds the values over all N plus
+    ``exchange_bytes``, the bytes the exchange moved between ranks."""
     cfg = opts.mapping_config()
     states, liks, iters = match_phase(opts, pset, points, mask)
     _mark(clock, "solving")
+
+    def cat(t):
+        return group_mod.all_gather_cat(t, mesh)
+
     idx, pose, weight, weight_sum, nw, neff, do_resample = \
-        weights_and_resample(opts, pset.weight, pset.weight_sum, states,
-                             liks, u)
+        weights_and_resample(opts, cat(pset.weight), cat(pset.weight_sum),
+                             cat(states), cat(liks), u)
+    sl = group_mod.rows(idx.shape[0], mesh)
     _mark(clock, "normalizing")
     occ, vis, dist = pset.res_occ, pset.res_vis, pset.res_dist
-    for g in (occ, vis, dist):    # in place: one grid's temporary at a time
-        g.copy_(g[idx])
+    # in place: one grid's temporary at a time
+    moved = group_mod.exchange_rows((occ, vis, dist), idx, mesh)
     spill_lineage = (None if pset.spill_lineage is None
-                     else pset.spill_lineage[idx])
+                     else cat(pset.spill_lineage)[idx][sl])
     _mark(clock, "resampling")
     org = pset.res_org
-    mapping.resident_update(cfg, org, occ, vis, dist, pose, points, mask,
-                            origin)
+    mapping.resident_update(cfg, org, occ, vis, dist, pose[sl], points,
+                            mask, origin)
     _mark(clock, "mapping")
     escaped = torch.sum(~mapping.resident_safe(
         cfg, org, cfg.geometry.w2m(pose[:, :2])))
-    new = ParticleSet(pose, weight, weight_sum, nw, pset.maps, org, occ,
-                      vis, dist, pset.lineage[idx], spill_lineage)
+    new = ParticleSet(pose[sl], weight[sl], weight_sum[sl], nw[sl],
+                      pset.maps, org, occ, vis, dist,
+                      cat(pset.lineage)[idx][sl], spill_lineage)
+    iters = cat(iters)
     info = {"neff": neff, "resampled": do_resample, "escaped": escaped,
-            "overflow": torch.max(pset.maps.table.overflow),
+            "overflow": torch.max(cat(pset.maps.table.overflow)),
             "match_iters_max": torch.max(iters),
             "match_iters_mean": torch.mean(iters.to(torch.float32))}
+    if mesh is not None:
+        info["exchange_bytes"] = moved
     return new, info
 
 
@@ -351,29 +369,38 @@ def _mark(clock, name: str) -> None:
 
 
 def pool_update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points,
-                     mask, origin):
+                     mask, origin, mesh=None):
     """One PF update of the pool path on post-motion poses: match ->
     weights -> resample (every pool array gathered by ``idx`` in place,
     one temporary of one array at a time) -> ``mapping.update_maps`` into
-    every particle's pool, one particle after the other. Returns (pset,
-    info)."""
+    every particle's pool, one particle after the other. ``mesh`` as in
+    :func:`update_step` (the pools' gather is the row exchange). Returns
+    (pset, info)."""
     cfg = opts.mapping_config()
     states, liks, iters = match_phase(opts, pset, points, mask)
+
+    def cat(t):
+        return group_mod.all_gather_cat(t, mesh)
+
     idx, pose, weight, weight_sum, nw, neff, do_resample = \
-        weights_and_resample(opts, pset.weight, pset.weight_sum, states,
-                             liks, u)
+        weights_and_resample(opts, cat(pset.weight), cat(pset.weight_sum),
+                             cat(states), cat(liks), u)
+    sl = group_mod.rows(idx.shape[0], mesh)
     maps = pset.maps
-    for a in (*maps.table, maps.occupied, maps.visited, maps.dist):
-        a.copy_(a[idx])
+    moved = group_mod.exchange_rows(pool_arrays(maps), idx, mesh)
+    pose = pose[sl]
     for i in range(pose.shape[0]):
         m, _ = mapping.update_maps(_pool(maps, i), cfg, pose[i], points,
                                    mask, origin)
         _store_table(maps, i, m.table)
-    new = ParticleSet(pose, weight, weight_sum, nw, maps)
+    new = ParticleSet(pose, weight[sl], weight_sum[sl], nw[sl], maps)
+    iters = cat(iters)
     info = {"neff": neff, "resampled": do_resample,
-            "overflow": torch.max(maps.table.overflow),
+            "overflow": torch.max(cat(maps.table.overflow)),
             "match_iters_max": torch.max(iters),
             "match_iters_mean": torch.mean(iters.to(torch.float32))}
+    if mesh is not None:
+        info["exchange_bytes"] = moved
     return new, info
 
 
@@ -387,8 +414,7 @@ def first_step(opts: PFSlam2DOptions, pset: ParticleSet, points, mask,
         m, _ = mapping.update_maps(_pool(pset.maps, 0), cfg, pset.pose[0],
                                    points, mask, origin)
         _store_table(pset.maps, 0, m.table)
-        grids = (*pset.maps.table, pset.maps.occupied, pset.maps.visited,
-                 pset.maps.dist)
+        grids = pool_arrays(pset.maps)
     else:
         mapping.resident_update(cfg, pset.res_org, pset.res_occ[:1],
                                 pset.res_vis[:1], pset.res_dist[:1],
@@ -410,13 +436,17 @@ def _store_table(maps: mapping.SlamMapState, i: int, table) -> None:
         dst[i] = src
 
 
+def pool_arrays(maps: mapping.SlamMapState) -> tuple:
+    """Every per-particle array of the pools: the table's and the grids."""
+    return (*maps.table, maps.occupied, maps.visited, maps.dist)
+
+
 def settle(pset: ParticleSet) -> ParticleSet:
     """Realise the deferred pool lineage IN PLACE (each particle's pool
     becomes its own; one temporary of one pool array at a time) and reset
     it to the identity. ``spill_lineage`` is left as it is: only the
     driver resets it, when it permutes the host stores."""
-    for a in (*pset.maps.table, pset.maps.occupied, pset.maps.visited,
-              pset.maps.dist):
+    for a in pool_arrays(pset.maps):
         a.copy_(a[pset.lineage.long()])
     return pset._replace(lineage=torch.arange(
         pset.lineage.shape[0], dtype=torch.int32, device=pset.pose.device))
@@ -433,7 +463,16 @@ def reorg(opts: PFSlam2DOptions, pset: ParticleSet) -> ParticleSet:
     rewritten in place)."""
     cfg = opts.mapping_config()
     pset = settle(pset)
-    new_org = mapping.resident_org(cfg, _mean_anchor(cfg, pset.pose))
+    return recentre(opts, pset, mapping.resident_org(
+        cfg, _mean_anchor(cfg, pset.pose)))
+
+
+def recentre(opts: PFSlam2DOptions, pset: ParticleSet,
+             new_org) -> ParticleSet:
+    """The second half of :func:`reorg` on a settled set: flush every
+    particle's grids into its pool and regather them at ``new_org`` (in
+    place)."""
+    cfg = opts.mapping_config()
     for i in range(pset.pose.shape[0]):
         m = mapping.resident_flush(_pool(pset.maps, i), cfg, pset.res_org,
                                    pset.res_occ[i], pset.res_vis[i],

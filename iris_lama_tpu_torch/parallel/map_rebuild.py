@@ -11,9 +11,20 @@ sequential end state exactly (frequency_occupancy_map.cpp:40-44). The
 distance field is one launch of kernel B3 (``sdm/distance.edt2d``) over the
 whole grid.
 
-Single device only: the JAX package's sharded branch (scans over a mesh,
-row strips with halos for the EDT) is ROADMAP item A8; passing a ``mesh``
-raises NotImplementedError.
+With a process group (``mesh``, the JAX package's device mesh) the
+rebuild is split over the ranks, as the JAX package's sharded branch is:
+
+1. **Rasterize — split over scans.** Each rank deposits its share of the
+   scans (the scan count padded to a multiple of the ranks with masked-out
+   scans) into a dense global count-grid pair with one launch of B1's
+   pair, and one sum all-reduce merges the counts: integer sums, so the
+   totals equal the one-device rebuild's.
+2. **Distance field — split over row strips.** The grid's rows (padded
+   to a multiple of the ranks with obstacle-free rows, exact no-ops for
+   the capped EDT) split into strips; each rank fetches ``radius`` rows
+   from each neighbouring strip (:func:`edt_strips`; the edge strips get
+   obstacle-free halos), runs B3 on its strip with the halos, and an
+   all-gather assembles the field: bit-equal to the one-device EDT.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from ..sdm import pool as pool_mod
 from ..sdm.distance import edt2d
 from ..sdm.geometry import MapGeometry, f32
 from ..sdm.raycast import ray_cells
+from . import group as group_mod
 
 
 class DenseRebuild(NamedTuple):
@@ -102,21 +114,60 @@ def rasterize_scans(cfg, poses, points, masks, origins, org_cell, h: int,
     return scatter_matmul.deposit_pair(hy, hx, fy, fx, h, w)
 
 
+def edt_strips(obst, max_sqdist: int, radius: int, group):
+    """Exact capped EDT of a bool grid split into row strips over the
+    group's ranks: ``obst`` is this rank's [h_local, W] strip, at least
+    ``radius`` rows tall. The vertical pass needs ``radius`` rows from each
+    neighbouring strip (one halo exchange), after which everything is
+    strip-local. Returns this rank's rows of the unsharded ``edt2d``."""
+    if radius == 0:
+        return edt2d(obst, max_sqdist, radius)
+    above, below = group_mod.halo_exchange(obst, radius, group)
+    d2 = edt2d(torch.cat([above, obst, below]), max_sqdist, radius)
+    return d2[radius:radius + obst.shape[0]]
+
+
 def rebuild_dense(cfg, poses, points, masks, origins, org_cell, h: int,
                   w: int, mesh=None) -> DenseRebuild:
     """Full rebuild on the inputs' device: counts, obstacle mask and exact
-    distance field. ``mesh`` (the JAX package's sharded branch) is not
-    ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "rebuild_dense: the sharded rebuild (mesh) is ROADMAP item A8; "
-            "pass mesh=None")
+    distance field. With ``mesh`` (a process group; every rank passes the
+    same scans) the scans split over the ranks for the rasterize and the
+    grid's rows for the EDT; every rank returns the whole result, equal to
+    the one-device rebuild's."""
     dcfg = cfg.distance
+    dev = poses.device
     org = torch.as_tensor(np.asarray(org_cell), dtype=torch.int32,
-                          device=poses.device)
-    occ, vis = rasterize_scans(cfg, poses, points, masks, origins, org, h, w)
-    obst = (4 * occ) > vis
-    d2 = edt2d(obst, dcfg.max_sqdist, dcfg.radius_cells)
+                          device=dev)
+    if mesh is None:
+        occ, vis = rasterize_scans(cfg, poses, points, masks, origins, org,
+                                   h, w)
+        d2 = edt2d((4 * occ) > vis, dcfg.max_sqdist, dcfg.radius_cells)
+    else:
+        nd = group_mod.size(mesh)
+        pad = (-poses.shape[0]) % nd
+        if pad:
+            # padded scans: masks all False -> sentinel-only streams
+            poses = torch.cat([poses, poses[-1:].expand(pad, -1)])
+            points = torch.cat([points, points[-1:].expand(pad, -1, -1)])
+            masks = torch.cat([masks, masks.new_zeros((pad,)
+                                                      + masks.shape[1:])])
+            origins = torch.cat([origins, origins[-1:].expand(pad, -1)])
+        sl = group_mod.rows(poses.shape[0], mesh)
+        occ, vis = rasterize_scans(cfg, poses[sl], points[sl], masks[sl],
+                                   origins[sl], org, h, w)
+        occ = group_mod.all_sum(occ, mesh)
+        vis = group_mod.all_sum(vis, mesh)
+        obst = (4 * occ) > vis
+        hpad = (-h) % nd
+        if hpad:
+            obst = torch.cat([obst, obst.new_zeros((hpad, w))])
+        if (h + hpad) // nd < dcfg.radius_cells:
+            raise ValueError(f"rebuild_dense: strips of {(h + hpad) // nd} "
+                             f"rows are shorter than the EDT radius "
+                             f"{dcfg.radius_cells}")
+        strip = obst[group_mod.rows(h + hpad, mesh)]
+        d2 = group_mod.all_gather_cat(edt_strips(
+            strip, dcfg.max_sqdist, dcfg.radius_cells, mesh), mesh)[:h]
     dist = torch.sqrt(d2.to(torch.float32)) * f32(cfg.geometry.resolution)
     return DenseRebuild(org, occ, vis, dist)
 

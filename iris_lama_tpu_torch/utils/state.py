@@ -311,16 +311,45 @@ PF_DRIVER = ("draw_state", "trigger_m", "scroll_m", "host_reorg",
              "escaped_max", "escaped", "odom_motion", *PF_COUNTERS)
 
 
-def pf_to_numpy(pf) -> dict:
-    """Snapshot of a port ``PFSlam2D`` after its first scan (the pools as
-    they stand, lineage not settled)."""
-    ps = pf.pset
+def pset_to_numpy(ps) -> dict:
+    """A particle set (the port's ``ParticleSet``, or the JAX package's:
+    the same fields) as numpy arrays, pools as they stand, lineage not
+    settled; ``spill_lineage`` is the driver's (:func:`pf_to_numpy`)."""
     d = map_to_numpy(ps.maps)
     d.update({k: _np(getattr(ps, k)) for k in PF_FLOATS})
     if ps.res_org is not None:   # the pool path has no resident grids
         d.update(res_org=_np(ps.res_org), res_occ=_counts_np(ps.res_occ),
                  res_vis=_counts_np(ps.res_vis), res_dist=_np(ps.res_dist),
                  lineage=_np(ps.lineage))
+    return d
+
+
+def pset_from_numpy(opts, d: dict, device):
+    """The port's ``ParticleSet`` from :func:`pset_to_numpy`'s layout, on
+    ``device`` (``opts``: the filter's ``PFSlam2DOptions``, for the
+    squared-distance dtype); resident fields only where ``d`` has them."""
+    from ..algos.pf_slam2d import ParticleSet
+
+    def t(k, dtype):
+        return _tensor(d[k], dtype, device)
+
+    ps = ParticleSet(*(t(k, torch.float32) for k in PF_FLOATS),
+                     maps=map_from_numpy(d, device))
+    if "res_org" in d:
+        ps = ps._replace(
+            res_org=t("res_org", torch.int32),
+            res_occ=t("res_occ", mapping.COUNT_DTYPE),
+            res_vis=t("res_vis", mapping.COUNT_DTYPE),
+            res_dist=t("res_dist", opts.mapping_config().sq_dtype),
+            lineage=t("lineage", torch.int32))
+    return ps
+
+
+def pf_to_numpy(pf) -> dict:
+    """Snapshot of a port ``PFSlam2D`` after its first scan (the pools as
+    they stand, lineage not settled)."""
+    ps = pf.pset
+    d = pset_to_numpy(ps)
     d.update(odom=pf.odom_.xyr(),
              odom_reorg=pf._odom_reorg.xyr(),
              odom_motion=pf._odom_motion.xyr(),
@@ -344,22 +373,8 @@ def pf_to_numpy(pf) -> dict:
 def pf_from_numpy(pf, d: dict) -> None:
     """Load a state dict into a port ``PFSlam2D`` so that it continues
     from that particle set (a scan already went into the maps)."""
-    from ..algos.pf_slam2d import ParticleSet
     dev = pf.device
-    cfg = pf.options.mapping_config()
-
-    def t(k, dtype):
-        return _tensor(d[k], dtype, dev)
-
-    pf.pset = ParticleSet(*(t(k, torch.float32) for k in PF_FLOATS),
-                          maps=map_from_numpy(d, dev))
-    if "res_org" in d:
-        pf.pset = pf.pset._replace(
-            res_org=t("res_org", torch.int32),
-            res_occ=t("res_occ", mapping.COUNT_DTYPE),
-            res_vis=t("res_vis", mapping.COUNT_DTYPE),
-            res_dist=t("res_dist", cfg.sq_dtype),
-            lineage=t("lineage", torch.int32))
+    pf.pset = pset_from_numpy(pf.options, d, dev)
     pf.has_first_scan = True
     pf.odom_ = Pose2D.from_xyr(d["odom"])
     pf._odom_reorg = Pose2D.from_xyr(d.get("odom_reorg", d["odom"]))

@@ -36,11 +36,14 @@ from iris_lama_tpu.algos.slam2d import Slam2DOptions as JSlamOptions
 from iris_lama_tpu.core.pose import Pose2D as JPose2D
 from iris_lama_tpu.utils import simulator
 
+import torch_parallel_ranks as ranks
 from iris_lama_tpu_torch.algos import graph_slam2d as tgraph
 from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
 from iris_lama_tpu_torch.core.pose import Pose2D
+from iris_lama_tpu_torch.parallel import group as G
 from iris_lama_tpu_torch.sdm import distance as tdist
 from iris_lama_tpu_torch.utils import state as tstate
+from iris_lama_tpu_torch.utils.cloud import PointCloudXYZ
 from iris_lama_tpu_torch.utils.evaluation import ate_rmse
 
 POSE_ATOL = 1e-4
@@ -452,10 +455,20 @@ def test_live_chunk_same_key_poses(run):
     np.testing.assert_array_equal(_xyr(kp.pose for kp in kps), run["tkeys"])
 
 
-def test_rebuild_mesh_raises():
-    gs = _port_graph(CONFIGS["optimize"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        gs.generate_occupancy_map(mesh=object())
+def test_sharded_rebuild_equals_unsharded(run):
+    """generate_occupancy_map(mesh=...) at world 2 on gloo (the driver's
+    state carried to each rank) gives the unsharded rebuild's pool bit for
+    bit, on every rank."""
+    tg = _carried(run)
+    want = tstate.map_to_numpy(tg.generate_occupancy_map())
+    cloud = PointCloudXYZ(points=np.asarray(run["data"].clouds[0].points))
+    got = G.run_ranks(ranks.graph_rebuild, 2, timeout=300, args=(
+        tg.options, cloud, Pose2D(*run["odo"][0].xyr()),
+        tstate.graph_to_numpy(tg)))
+    for r, m in enumerate(got):
+        assert set(m) == set(want)
+        for k, a in want.items():
+            np.testing.assert_array_equal(m[k], a, err_msg=f"rank {r} {k}")
 
 
 def test_options_plain_defaults():

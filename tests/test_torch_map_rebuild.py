@@ -1,6 +1,7 @@
-"""The port's single-device map rebuild (parallel/map_rebuild.py) against
-the JAX package's, on the CPU, on tests/test_map_rebuild.py's scans and
-config.
+"""The port's map rebuild (parallel/map_rebuild.py) against the JAX
+package's, on the CPU, on tests/test_map_rebuild.py's scans and config: on
+one device, and split over 3 and 4 gloo ranks (spawned processes) against
+the JAX package's 8-device sharded rebuild.
 
 Tolerances: none — grid bounds, counts, squared distances, meters, the
 packed pool (table, slots, cell arrays) are bit-equal; against the port's
@@ -8,18 +9,24 @@ own sequential update_maps, counts are equal and stored distances within
 1e-6 (test_rebuild_matches_sequential_update_maps).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from iris_lama_tpu.algos.slam2d import Slam2DOptions as JOptions
 from iris_lama_tpu.parallel import map_rebuild as jreb
+from iris_lama_tpu.sdm import distance as jdist
 from iris_lama_tpu.utils import simulator
 from iris_lama_tpu.utils.cloud import pad_scan
 
+import torch_parallel_ranks as ranks
 from iris_lama_tpu_torch.algos.slam2d import Slam2DOptions
+from iris_lama_tpu_torch.parallel import group as G
 from iris_lama_tpu_torch.parallel import map_rebuild as treb
+from iris_lama_tpu_torch.sdm.distance import edt2d as tdist_edt2d
 from iris_lama_tpu_torch.sdm import mapping as tmap
 from iris_lama_tpu_torch.sdm import pool as tpool
 from iris_lama_tpu_torch.utils import state as tstate
@@ -124,12 +131,44 @@ def test_dense_to_state_equal(both):
         np.testing.assert_array_equal(got[k], w_, err_msg=k)
 
 
-def test_mesh_raises(both):
+@pytest.mark.parametrize("world,crop", [(4, 0), (3, 6)])
+def test_sharded_rebuild_equals_single_device(both, world, crop):
+    """tests/test_map_rebuild.py::test_sharded_rebuild_equals_single_device
+    on the port: the scans over ``world`` gloo ranks (12 scans, padded to a
+    multiple of the ranks: 3 per rank at world 4, 4 at world 3), the grid's
+    rows in strips with halos, against the JAX package's 8-device sharded
+    rebuild of the same grid: counts, visits and meters bit-equal. The
+    grid's rows (``h - crop``) are no multiple of 3 and, cropped by 6,
+    no multiple of 4 either, so the strips are padded."""
     org, h, w = both["bounds"]
-    with pytest.raises(NotImplementedError, match="A8"):
-        treb.rebuild_dense(both["tcfg"],
-                           *(torch.as_tensor(a) for a in both["scans"]),
-                           org, h, w, mesh=object())
+    h -= crop
+    assert h % world or crop == 0
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(8), ("s",))
+    jcfg = JOptions(**OPTS).mapping_config()
+    want = jreb.rebuild_dense(jcfg, *(jnp.asarray(a) for a in both["scans"]),
+                              org, h, w, mesh=mesh)
+    got = G.run_ranks(ranks.rebuild, world,
+                      args=(OPTS, both["scans"], (org, h, w)),
+                      timeout=180)
+    for r, d in enumerate(got):
+        for k in ("occ", "vis", "dist"):
+            np.testing.assert_array_equal(d[k], np.asarray(getattr(want, k)),
+                                          err_msg=f"rank {r} {k}")
+
+
+def test_edt_strips_world2():
+    """edt_strips alone at world 2 (strips of 25 rows, R = 5) against the
+    port's and the JAX package's one-device edt2d; a strip shorter than
+    the radius raises on every rank before any exchange."""
+    rng = np.random.default_rng(4)
+    obst = rng.random((50, 37)) < 0.05
+    got = G.run_ranks(ranks.edt_strips, 2, args=(obst, 35, 5), timeout=120)
+    want = tdist_edt2d(torch.as_tensor(obst), 35, 5).numpy()
+    np.testing.assert_array_equal(
+        want, np.asarray(jdist.edt2d(jnp.asarray(obst), 35, 5)))
+    for d, short in got:
+        np.testing.assert_array_equal(d, want)
+        assert short
 
 
 def test_rebuild_matches_sequential_update_maps(both):
