@@ -29,7 +29,8 @@ Phases, one JSON line each:
    multiple of its tile, radii 1, 5, 10, and its large-radius kernel at R =
    65, 100 and 254; B1 on the scan's beam-ordered free-space stream, timed
    there, shuffled and with sentinels, alone and as the map update's pair
-   with the hits; B2 also at uint8, int16 and int32), with its device time
+   with the hits, the pair's yardsticks ``index_put_`` and ``index_add_``;
+   B2 also at uint8, int16 and int32), with its device time
    per call
    (torch.profiler) beside the plain version's, a one-call PyTorch
    yardstick's and the bytes/ops bound; beside them the CUDA-event time
@@ -78,9 +79,16 @@ Phases, one JSON line each:
    corner selection B2 on the scan's cells at a real pose (operands as the
    fused loop passes them: strided views), B4 and B5 also at uint8, int16
    and int32, and the value scatters B7 / B8 on a Slam2D deposit stream
-   into [448, 512], each bit-equal to its plain version, with times and
-   bounds as in phase 3 and, for B2 and B5, the launch floor (an empty
-   kernel of the same launch shape, csrc/floor.cu); B5 also at 1, 255,
+   into [448, 512] (B7 with values 1 and -3..3, B8 on the words unsorted
+   and sorted; also moved into [768, 1024], a larger grid, and with every
+   element on one cell over 20 calls), each bit-equal to its plain
+   version, with times and bounds as in phase 3 and, for B2, B5, B7 and
+   B8, the launch floor (an empty kernel of the same launch shape,
+   csrc/floor.cu; B7/B8's a cooperative launch, also with its one grid
+   barrier); B7/B8 also with their blocks, one device activity a call
+   (their device time per recorded activity: the profiler can drop an
+   event) and, beside ``zeros`` + ``index_put_(accumulate=True)``, a second
+   yardstick ``zeros`` + ``index_add_`` (atomics); B5 also at 1, 255,
    257, 1100, 2048, 2049, 3000 and 4096 beams, P = 1 and 3, cells off the
    window on every side, an all-masked scan, strided and contiguous
    operands, a grid at an odd byte offset and operands expanded with a
@@ -594,12 +602,13 @@ def memset_floor_ms(torch, dev, nbytes: int, blocks: int,
     return device_ms(torch, fn, 1000)[0]
 
 
-def deposit_library(torch, dev, streams, p: int, h: int, w: int):
+def deposit_library(torch, dev, streams, p: int, h: int, w: int,
+                    add: bool = False):
     """One PyTorch call computing a deposit: ``index_put_(accumulate=True)``
-    of ones into a zeroed buffer with one bin per cell of each output grid
-    and one dropped bin per grid. ``streams``: (ly, lx, grids) with ly, lx
-    [p, n] and grids the output grids (0: occ/counts, 1: vis) they add
-    to."""
+    (``add``: ``index_add_``, atomics on the card) of ones into a zeroed
+    buffer with one bin per cell of each output grid and one dropped bin
+    per grid. ``streams``: (ly, lx, grids) with ly, lx [p, n] and grids the
+    output grids (0: occ/counts, 1: vis) they add to."""
     hw1 = h * w + 1
     n_grids = max(g for *_, gs in streams for g in gs) + 1
     parts = []
@@ -613,8 +622,11 @@ def deposit_library(torch, dev, streams, p: int, h: int, w: int):
     ones = torch.ones(flat.numel(), dtype=torch.int32, device=dev)
 
     def call():
-        torch.zeros(p * n_grids * hw1, dtype=torch.int32,
-                    device=dev).index_put_((flat,), ones, accumulate=True)
+        buf = torch.zeros(p * n_grids * hw1, dtype=torch.int32, device=dev)
+        if add:
+            buf.index_add_(0, flat, ones)
+        else:
+            buf.index_put_((flat,), ones, accumulate=True)
 
     return call
 
@@ -1272,6 +1284,73 @@ def pf_phases(torch, dev) -> list:
     return pf_kernels
 
 
+def value_scatter_edges(torch, ly, lx, vals) -> dict:
+    """B7 and B8 beyond phase 9's grid, each ``torch.equal`` to its plain
+    version: the phase's stream moved into [768, 1024] (a larger grid), and
+    every element of it on one cell (20 calls of each); B7 with values 1
+    and ``vals``, B8 on the words unsorted and sorted. Returns each case's
+    grid."""
+    from iris_lama_tpu_torch.ops import scatter_pallas as sp
+    from iris_lama_tpu_torch.ops import scatter_sorted as ss
+    n = ly.numel()
+    ones = torch.ones_like(ly)
+    hot = torch.full_like(ly, 200)
+    out = {}
+    for name, shape, cy, cx, calls in (
+            ("multi_band", (768, 1024), ly + 160, lx + 300, 1),
+            ("hot_cell", (448, 512), hot, hot + 100, 20)):
+        for v in (ones, vals):
+            want = sp.scatter_add_2d_plain(cy, cx, v, shape)
+            for _ in range(calls):
+                got = sp.scatter_add_2d(cy, cx, v, shape)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"B7 {name} differs"
+        want = sp.scatter_add_2d_plain(cy, cx, ones, shape)
+        words = ss.pack_updates(cy, cx, ones)
+        for w in (words, torch.sort(words).values):
+            for _ in range(calls):
+                got = ss.scatter_add_sorted(w, shape)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), f"B8 {name} differs"
+        out[name] = {"hw": list(shape), "n": n, "calls": calls}
+    return out
+
+
+def value_scatter_launch(torch, dev, call, n: int, reps: int) -> dict:
+    """B7's or B8's launch for ``n`` elements: its blocks; from one profile
+    of ``reps`` calls, the device activities a call (one: the cooperative
+    launch, no memset) and the device time a call, taken per recorded
+    activity (the profiler can drop an event, never add one; a dropped
+    one would bias a mean over the calls low); ``kernel_ms`` as in
+    :func:`timings`; and the floors of that launch shape (csrc/floor.cu:
+    an empty cooperative kernel, and one that meets at one grid
+    barrier)."""
+    from iris_lama_tpu_torch.ops import _cuda, scatter_pallas as sp
+    reps = depth(reps, max(3, reps // 4))
+    blocks = sp.launch_blocks(n)
+    dp = devprof()
+    call()
+    rows = dp.cuda_rows(dp.profile_calls(call, reps))
+    events = dp.launch_count(rows)
+    assert 0 < events <= reps, f"{events} device activities in {reps} calls"
+    lib = _cuda.library("floor")
+    stream = _cuda.stream_handle(dev)
+
+    def floor(sync):
+        def fn():
+            _cuda.check(lib.launch_floor_cooperative(blocks, sp.THREADS, sync,
+                                                     stream),
+                        "launch_floor_cooperative")
+        return device_ms(torch, fn, 1000)[0]
+
+    return {"blocks": blocks, "threads": sp.THREADS,
+            "activities_per_call": events / reps,
+            "ms": dp.device_us(rows) / events / 1e3,
+            "ms_source": "profiler, per recorded activity",
+            "kernel_ms": cuda_time_ms(torch, call, reps),
+            "launch_floor_ms": floor(0), "barrier_floor_ms": floor(1)}
+
+
 def loc_setup(torch, dev) -> dict:
     """bench_loc.py's workload: the log (SimConfig(n_steps=200, seed=7,
     laps=1), 720 beams padded to 768), the fixed map that its Slam2D builds
@@ -1579,11 +1658,23 @@ def loc_phases(torch, dev) -> list:
             "B8 differs"
         assert torch.equal(got, scatter_pallas.scatter_add_2d_plain(
             sly, slx, ones, shape)), "B8 differs from the value scatter"
+    # beyond this grid: a larger grid, every element on one cell
+    value_edges = value_scatter_edges(torch, sly, slx, vals)
     flat = sly.long() * shape[1] + slx.long()
 
     def index_put_library():
         torch.zeros(shape[0] * shape[1], dtype=torch.int32,
                     device=dev).index_put_((flat,), ones, accumulate=True)
+
+    def index_add_library():
+        torch.zeros(shape[0] * shape[1], dtype=torch.int32,
+                    device=dev).index_add_(0, flat, ones)
+
+    def b7_call():
+        return scatter_pallas.scatter_add_2d(sly, slx, ones, shape)
+
+    def b8_call():
+        return scatter_sorted.scatter_add_sorted(packed_sorted, shape)
 
     grid_bytes = shape[0] * shape[1] * 4
     b7_bd = bound(n_s * 12 + grid_bytes, n_s)
@@ -1591,25 +1682,28 @@ def loc_phases(torch, dev) -> list:
           "source": "iris_lama_tpu_torch/csrc/deposit.cu",
           "replaces": "iris_lama_tpu/ops/scatter_pallas.py:28",
           "n": n_s, "hw": list(shape), "max_abs_err": 0,
-          **timings(torch, "", lambda: scatter_pallas.scatter_add_2d(
-              sly, slx, ones, shape), 300),
+          **value_scatter_launch(torch, dev, b7_call, n_s, 300),
           **timings(torch, "plain_", lambda: scatter_pallas.scatter_add_2d_plain(
               sly, slx, ones, shape), 300),
           **timings(torch, "library_", index_put_library, 100),
           "library_call": "zeros + index_put_(accumulate=True)",
+          **timings(torch, "index_add_", index_add_library, 100),
+          "index_add_call": "zeros + index_add_ on the flattened grid",
+          "edges": value_edges,
           "bound_ms": b7_bd[0], "bound_by": b7_bd[1]}
     b8_bd = bound(n_s * 4 + grid_bytes, n_s * 10)
     b8 = {"name": "scatter_add_sorted", "route": "cuda",
           "source": "iris_lama_tpu_torch/csrc/deposit.cu",
           "replaces": "iris_lama_tpu/ops/scatter_sorted.py:47",
           "n": n_s, "hw": list(shape), "max_abs_err": 0,
-          **timings(torch, "", lambda: scatter_sorted.scatter_add_sorted(
-              packed_sorted, shape), 300),
+          **value_scatter_launch(torch, dev, b8_call, n_s, 300),
           **timings(torch, "plain_",
                     lambda: scatter_sorted.scatter_add_sorted_plain(
                         packed_sorted, shape), 300),
           **timings(torch, "library_", index_put_library, 100),
           "library_call": "zeros + index_put_(accumulate=True)",
+          **timings(torch, "index_add_", index_add_library, 100),
+          "index_add_call": "zeros + index_add_ on the decoded cells",
           "bound_ms": b8_bd[0], "bound_by": b8_bd[1]}
     loc_kernels = [b4, *b4_widths, b5, *b5_widths, b2, b7, b8]
     for kern in loc_kernels:
@@ -4126,6 +4220,10 @@ def slam_phases(torch, dev) -> list:
             **timings(torch, "library_", pair_library, 20),
             "library_call": "zeros + index_put_(accumulate=True) over both "
                             "grids' bins",
+            **timings(torch, "index_add_", deposit_library(torch, dev, [
+                (idx.hit_ly[None], idx.hit_lx[None], (0, 1)),
+                (ly[None], lx[None], (1,))], 1, wu, wu, add=True), 100),
+            "index_add_call": "zeros + index_add_ over both grids' bins",
             "bound_ms": pair_bound[0], "bound_by": pair_bound[1]}
 
     wm = cfg.match_window_cells

@@ -44,8 +44,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "deposit": {"deposit_counts": (_P, _P, _L, _I, _I, _I, _P, _P),
                 "deposit_pair": (_P, _P, _L, _P, _P, _L, _I, _I, _I, _P, _P),
-                "scatter_add_2d": (_P, _P, _P, _L, _I, _I, _P, _P),
-                "scatter_add_sorted": (_P, _L, _I, _I, _P, _P)},
+                "scatter_add_2d": (_P, _P, _P, _L, _I, _I, _I, _P, _P),
+                "scatter_add_sorted": (_P, _L, _I, _I, _I, _P, _P)},
     "select4": {"select4_sq": (_P, _I, _I, _I, _P, _L, _P, _L, _I, _P, _P)},
     "edt": {"edt2d": (_P, _I, _I, _I, _I, _I, _P, _P, _P)},
     "gn_solve": {"gn_solve_batched": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
@@ -55,7 +55,8 @@ SIGNATURES = {
                                   _P, _P, _I, _F, _F, _F, _F, _I, _P, _P)},
     # an empty kernel: the launch floor (timed beside the kernels)
     "floor": {"launch_floor": (_I, _I, _P),
-              "memset_floor": (_P, _L, _I, _I, _P)},
+              "memset_floor": (_P, _L, _I, _I, _P),
+              "launch_floor_cooperative": (_I, _I, _I, _P)},
 }
 
 _libs: dict = {}

@@ -6,11 +6,14 @@ indices must lie in the grid, as the JAX function requires.
 
 The TPU kernel (iris_lama_tpu/ops/scatter_pallas.py:_scatter_kernel) kept
 the grid in VMEM and did one aligned (8, 128) tile read-modify-write per
-element. On the GPU it is a memset and one int32 ``atomicAdd`` per element
-(``csrc/deposit.cu``, beside B1's deposit), exact in any order.
-:func:`scatter_add_2d` launches it for CUDA tensors and uses
-:func:`scatter_add_2d_plain` for CPU tensors. Nothing in the JAX package
-calls it outside its own module and tests.
+element. On the GPU (``csrc/deposit.cu``, beside B1's deposit) it is one
+cooperative launch that zeroes the grid itself, meets at one grid barrier
+and adds with int32 atomics, a warp's runs of equal cells combined first;
+exact in any order. :func:`launch_blocks` sizes the launch; B8
+(``scatter_sorted.py``) takes the same. :func:`scatter_add_2d` launches
+the kernel for CUDA tensors and uses :func:`scatter_add_2d_plain` for CPU
+tensors. Nothing in the JAX package calls it outside its own module and
+tests.
 """
 
 from __future__ import annotations
@@ -18,6 +21,20 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+
+SMS = 132       # the H100 SXM's streaming multiprocessors
+THREADS = 256   # threads a block (csrc/deposit.cu: kScatterThreads)
+PER = 2         # elements a thread loads before the barrier (kScatterPer)
+
+
+def launch_blocks(n: int) -> int:
+    """Blocks of B7's and B8's cooperative launch for ``n`` elements: one
+    a streaming multiprocessor while one round of ``THREADS * PER``
+    elements a block holds the stream (its loads all in flight across the
+    barrier; fastest of 66-528 blocks on 38 k elements), four beyond
+    (fastest on 2.4 M; prof_torch_scatter.py, PERF.md). Every block must be
+    resident at once: the card holds 8 a multiprocessor at this size."""
+    return SMS if n <= SMS * THREADS * PER else 4 * SMS
 
 
 def scatter_add_2d_plain(ly, lx, val, shape):
@@ -32,7 +49,8 @@ def scatter_add_2d(ly, lx, val, shape):
     ``lx[t]``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (contiguous int32 streams of one length) or raise.
+    (contiguous int32 streams of one length, a grid below 2**31 cells) or
+    raise.
     """
     if ly.device.type == "cpu":
         return scatter_add_2d_plain(ly, lx, val, shape)
@@ -47,7 +65,8 @@ def scatter_add_2d(ly, lx, val, shape):
     lib = _cuda.library("deposit")
     _cuda.check(lib.scatter_add_2d(ly.data_ptr(), lx.data_ptr(),
                                    val.data_ptr(), ly.numel(), h, w,
-                                   out.data_ptr(), _cuda.stream_handle(dev)),
+                                   launch_blocks(ly.numel()), out.data_ptr(),
+                                   _cuda.stream_handle(dev)),
                 "scatter_add_2d")
     scatter_add_2d.launches += 1
     return out

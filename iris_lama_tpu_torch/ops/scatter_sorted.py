@@ -10,10 +10,13 @@ cell of an int32 grid ``shape = (H, W)``, ``H % 8 == 0`` and
 The TPU kernel (iris_lama_tpu/ops/scatter_sorted.py:_kernel) took the
 words sorted, accumulated one (8, 128) tile in a register and flushed it
 once per tile change. The sort and the flush were TPU scheduling: the
-function is the same for any order. On the GPU one thread per word decodes
-it and does one int32 ``atomicAdd`` (``csrc/deposit.cu``), exact in any
-order (:func:`scatter_add_2d_sorted` sorts as the JAX pipeline does; the
-result is the same unsorted). :func:`scatter_add_sorted` launches the kernel for
+function is the same for any order. On the GPU it is B7's cooperative
+launch (``csrc/deposit.cu``, :func:`scatter_pallas.launch_blocks`) on
+decoded words: the kernel zeroes the grid, one grid barrier, then int32
+atomics, the lanes of a warp holding a run of one cell summed first (a
+sorted run costs one atomic a warp); exact in any order
+(:func:`scatter_add_2d_sorted` sorts as the JAX pipeline does; the result
+is the same unsorted). :func:`scatter_add_sorted` launches the kernel for
 CUDA tensors and uses :func:`scatter_add_sorted_plain` for CPU tensors.
 Nothing in the JAX package calls it outside its own module and tests.
 """
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .scatter_pallas import launch_blocks
 
 
 def pack_updates(ly, lx, val):
@@ -69,7 +73,8 @@ def scatter_add_sorted(packed, shape):
     out = torch.empty((h, w), dtype=torch.int32, device=dev)
     lib = _cuda.library("deposit")
     _cuda.check(lib.scatter_add_sorted(packed.data_ptr(), packed.numel(), h,
-                                       w, out.data_ptr(),
+                                       w, launch_blocks(packed.numel()),
+                                       out.data_ptr(),
                                        _cuda.stream_handle(dev)),
                 "scatter_add_sorted")
     scatter_add_sorted.launches += 1

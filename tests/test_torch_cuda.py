@@ -652,27 +652,102 @@ def test_deposit_pair_kernel(cuda, rays, steps, p):
                                         free[1][:1].contiguous(), h, w)
 
 
-def test_value_scatters_match_plain(cuda):
-    """B7 and B8 on ~21 k elements into [448, 512], with duplicates."""
-    g = torch.Generator(device=cuda).manual_seed(10)
-    h, w, n = 448, 512, 21000
-    ly = torch.randint(0, h, (n,), generator=g, device=cuda,
-                       dtype=torch.int32)
-    lx = torch.randint(0, w, (n,), generator=g, device=cuda,
-                       dtype=torch.int32)
-    ly[: n // 4], lx[: n // 4] = 7, 9
-    val = torch.randint(-5, 6, (n,), generator=g, device=cuda,
-                        dtype=torch.int32)
-    assert torch.equal(scatter_pallas.scatter_add_2d(ly, lx, val, (h, w)),
-                       scatter_pallas.scatter_add_2d_plain(ly, lx, val,
-                                                           (h, w)))
-    bits = val.remainder(2)
-    packed = scatter_sorted.pack_updates(ly, lx, bits)
-    got = scatter_sorted.scatter_add_sorted(packed, (h, w))
-    assert torch.equal(got, scatter_sorted.scatter_add_sorted_plain(packed,
-                                                                    (h, w)))
-    assert torch.equal(got, scatter_pallas.scatter_add_2d_plain(ly, lx, bits,
-                                                                (h, w)))
+def value_case(dev, case):
+    """(ly, lx, val, shape) of a value-scatter case, from a seed: int32
+    streams; B8 takes ``val & 1`` packed."""
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    h, w, n = {"duplicates": (448, 512, 21000), "empty": (448, 512, 0),
+               "hot_cell": (448, 512, 43281),
+               "large_grid": (768, 1024, 150000),
+               "ragged_h": (1208, 640, 60000), "odd_grid": (449, 447, 30000),
+               "negative_out_of_grid": (448, 512, 40000)}[case]
+    ly, lx, val = ints(0, h, n), ints(0, w, n), ints(-5, 6, n)
+    if case == "duplicates":
+        ly[: n // 4], lx[: n // 4] = 7, 9
+    elif case == "hot_cell":
+        ly[:], lx[:], val[:] = 200, 300, 1
+    elif case == "large_grid":
+        # rays: runs of neighbouring cells, as the deposit sends them
+        ly = (ly[: n // 100, None] + torch.arange(
+            100, device=dev, dtype=torch.int32) // 3).clamp(max=h - 1)
+        lx = (lx[: n // 100, None] + torch.arange(
+            100, device=dev, dtype=torch.int32) // 2).clamp(max=w - 1)
+        ly, lx = ly.reshape(-1).contiguous(), lx.reshape(-1).contiguous()
+    elif case == "negative_out_of_grid":
+        ly, lx = ints(-4, h + 4, n), ints(-4, w + 4, n)
+        val = ints(-1000, 1, n)
+        # int32 wrap-around on one cell: 3 * 2**30 wraps to -2**30
+        ly[:3], lx[:3], val[:3] = 5, 6, 2 ** 30
+    return ly, lx, val, (h, w)
+
+
+VALUE_SCATTER_CASES = [
+    (case, kernel)
+    for case in ("duplicates", "empty", "hot_cell", "large_grid", "ragged_h",
+                 "odd_grid", "negative_out_of_grid")
+    for kernel in ("B7", "B8_unsorted", "B8_sorted")
+    # B8's grid is a multiple of (8, 128), its cells in the grid
+    if kernel == "B7" or case not in ("odd_grid", "negative_out_of_grid")]
+
+
+@pytest.mark.parametrize("case,kernel", VALUE_SCATTER_CASES)
+def test_value_scatters_match_plain(cuda, case, kernel):
+    """B7 and B8, one cooperative launch a call, ``torch.equal`` to the
+    plain versions (on the in-grid elements): duplicates, no element, every
+    element on one cell (20 calls), a larger grid (rays: runs of
+    neighbouring cells), H = 8 * 151, a cell count no multiple of 4,
+    negative values with int32 wrap-around and elements off the grid."""
+    ly, lx, val, shape = value_case(cuda, case)
+    inside = ((ly >= 0) & (ly < shape[0]) & (lx >= 0) & (lx < shape[1]))
+    if kernel == "B7":
+        fn = scatter_pallas.scatter_add_2d
+        args = (ly, lx, val, shape)
+        want = scatter_pallas.scatter_add_2d_plain(
+            ly[inside], lx[inside], val[inside], shape)
+    else:
+        words = scatter_sorted.pack_updates(ly, lx, val & 1)
+        if kernel == "B8_sorted":
+            words = torch.sort(words).values
+        fn = scatter_sorted.scatter_add_sorted
+        args = (words, shape)
+        want = scatter_sorted.scatter_add_sorted_plain(words, shape)
+        assert torch.equal(want, scatter_pallas.scatter_add_2d_plain(
+            ly, lx, val & 1, shape))
+    for _ in range(20 if case == "hot_cell" else 1):
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    if case == "hot_cell":
+        assert int(got[200, 300]) == (ly.numel() if kernel == "B7" else
+                                      int((val & 1).sum()))
+    if case == "negative_out_of_grid":
+        assert int(want[5, 6]) == -2 ** 30 + int(
+            val[3:][(ly[3:] == 5) & (lx[3:] == 6)].sum())
+
+
+def test_value_scatter_refuses_a_launch_it_cannot_hold(cuda):
+    """A cooperative launch of more blocks than the card holds at once, or
+    of none, is refused by the launcher, and the wrapper's check raises; so
+    is a grid of 2**31 cells or more."""
+    from iris_lama_tpu_torch.ops import _cuda
+    lib = _cuda.library("deposit")
+    ly = torch.zeros(4, dtype=torch.int32, device=cuda)
+    out = torch.empty((448, 512), dtype=torch.int32, device=cuda)
+    stream = _cuda.stream_handle(cuda)
+    for h, w, blocks in ((448, 512, 10 ** 6), (448, 512, 0),
+                         (2 ** 16, 2 ** 15, 132)):
+        err = lib.scatter_add_2d(ly.data_ptr(), ly.data_ptr(), ly.data_ptr(),
+                                 4, h, w, blocks, out.data_ptr(), stream)
+        with pytest.raises(RuntimeError):
+            _cuda.check(err, "scatter_add_2d")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("mode", ["solve", "fused"])
