@@ -766,6 +766,14 @@ def path_counts(launches: dict, shapes: dict) -> dict:
             for n, c in launches.items()}
 
 
+def host_reads(*sites) -> int:
+    """The port's host reads so far at ``sites`` (``utils/trace.py``'s
+    ``reads.<site>`` counters)."""
+    from iris_lama_tpu_torch.utils import trace
+    got = trace.counts()
+    return sum(got.get("reads." + s, 0) for s in sites)
+
+
 def device_launches(torch, fn) -> int:
     """The device activities (kernels, copies, fills) that ``fn``
     launches, counted by torch.profiler."""
@@ -1786,7 +1794,7 @@ def loc_phases(torch, dev) -> list:
         one_pass(mode, 9, 0)                       # warm-up, discarded
         for fn in fns.values():
             fn.launches = 0
-        reads0 = nlls_solver.host_read.count
+        reads0 = host_reads("loc_cell", "irls_stop")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reps = []
@@ -1810,7 +1818,7 @@ def loc_phases(torch, dev) -> list:
             "launches": launches,
             "launches_per_update": {n: v / updates
                                     for n, v in launches.items()},
-            "host_reads_per_update": (nlls_solver.host_read.count
+            "host_reads_per_update": (host_reads("loc_cell", "irls_stop")
                                       - reads0) / updates,
             "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
         # every device activity (kernels, copies, fills) of the first
@@ -2052,7 +2060,6 @@ def lo_phases(torch, dev) -> list:
     launches in phase 15."""
     from iris_lama_tpu_torch.algos.lidar_odometry_2d import LidarOdometry2D
     from iris_lama_tpu_torch.core import lie
-    from iris_lama_tpu_torch.nlls import solver as nlls_solver
     from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
     from iris_lama_tpu_torch.ops import select4
     from iris_lama_tpu_torch.sdm import mapping
@@ -2229,7 +2236,7 @@ def lo_phases(torch, dev) -> list:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _cuda.reset_launches(*fns.values())
-    reads0 = nlls_solver.host_read.count
+    reads0 = host_reads("refresh", "irls_stop")
     n_reps = bench_reps(LO_REPS)
     reps = [one_pass(rep) for rep in range(n_reps)]
     launches = {n: fn.launches for n, fn in fns.items()}
@@ -2248,8 +2255,8 @@ def lo_phases(torch, dev) -> list:
           "final_err_m": med_rep["final_err_m"], "path_len_m": path_len,
           "launches": launches,
           "launches_per_scan": {k: v / scans for k, v in launches.items()},
-          "host_reads_per_scan": (nlls_solver.host_read.count - reads0)
-          / scans,
+          "host_reads_per_scan": (host_reads("refresh", "irls_stop")
+                                  - reads0) / scans,
           "refreshes_per_rep": [p["refreshes"] for p in reps],
           "peak_patches": max(p["peak_patches"] for p in reps),
           "overflow": max(p["overflow"] for p in reps),
@@ -2532,7 +2539,6 @@ def graph_phases(torch, dev) -> list:
     import dataclasses
     from iris_lama_tpu_torch.algos import graph_slam2d as gmod
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.nlls import solver as nlls_solver
     from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
     from iris_lama_tpu_torch.ops import select4
     from iris_lama_tpu_torch.utils import state as state_mod
@@ -2667,11 +2673,11 @@ def graph_phases(torch, dev) -> list:
     torch.cuda.reset_peak_memory_stats(dev)
     _cuda.reset_launches(*fns.values())
     counts.update(rebuild=[0, 0], r50=0, coarse=0)
-    reads0 = nlls_solver.host_read.count
+    reads0 = host_reads("irls_stop")
     reps = [one_pass(rep, maps=True)[1]
             for rep in range(bench_reps(GRAPH_REPS))]
     launches = {n: fn.launches for n, fn in fns.items()}
-    reads = nlls_solver.host_read.count - reads0
+    reads = host_reads("irls_stop") - reads0
     syncs = sum(r["stats"].get("sync_n", 0) for r in reps)
     rates = sorted(r["scans_per_s"] for r in reps)
     med = sorted(reps, key=lambda r: r["scans_per_s"])[len(reps) // 2]
@@ -2789,7 +2795,6 @@ def pgo_phase(torch, dev) -> None:
     removes that turn; the final differences, raw and aligned, are printed
     beside the control's."""
     from iris_lama_tpu_torch.nlls import factor_graph as fg
-    from iris_lama_tpu_torch.nlls import solver as nlls_solver
     from iris_lama_tpu_torch.utils.evaluation import align_se2
 
     b, nodes, active, true = pgo_graph()
@@ -2821,14 +2826,14 @@ def pgo_phase(torch, dev) -> None:
     graph = b.finalize(dev)
     nd = torch.as_tensor(nodes, device=dev)
     act = torch.as_tensor(active, device=dev)
-    reads0 = nlls_solver.host_read.count
+    reads0 = host_reads("irls_stop")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(PGO_REPS):
         fg.optimize(nd, graph, act)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / PGO_REPS * 1e3
-    reads = (nlls_solver.host_read.count - reads0) / PGO_REPS
+    reads = (host_reads("irls_stop") - reads0) / PGO_REPS
     err = float(np.mean([np.linalg.norm(got[i, :2] - true[i].xy())
                          for i in range(0, PGO_NODES, 16)]))
     emit({"phase": "pgo", "nodes": PGO_NODES, "loop_edges": 32,
@@ -3461,17 +3466,23 @@ def refill_xy(store, stored: set, poses) -> np.ndarray:
 def tier_events(torch, store, spill, refill) -> dict:
     """Device activities and ms of one spill and one refill, forced after
     a run: ``spill()`` and ``refill()`` run one event each on the driver's
-    state."""
+    state (the ms on the host clock, under the profiler)."""
     out = {}
     for name, fn in (("spill", spill), ("refill", refill)):
         n_ev = store.spills + store.refills
         hits = store.cache_hit
-        launches = device_launches(torch, fn)
-        out[name] = {"device_activities": launches,
-                     "fired": store.spills + store.refills > n_ev,
+        took = []
+
+        def timed(fn=fn):
+            t0 = time.perf_counter()
+            fn()
+            took.append((time.perf_counter() - t0) * 1e3)
+
+        launches = device_launches(torch, timed)
+        fired = store.spills + store.refills > n_ev
+        out[name] = {"device_activities": launches, "fired": fired,
                      "keys_refilled": store.cache_hit - hits,
-                     "ms": store.event_ms[name][-1]
-                     if store.spills + store.refills > n_ev else None}
+                     "ms": took[-1] if fired else None}
     return out
 
 
@@ -3482,7 +3493,6 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
     import dataclasses
     from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.nlls import solver as nlls_solver
     from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
     from iris_lama_tpu_torch.ops import select4
     from iris_lama_tpu_torch.sdm import io as sdm_io
@@ -3509,22 +3519,23 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
         slam.set_prior(Pose2D(*data.poses_gt[0]))
         torch.cuda.synchronize()
         _cuda.reset_launches(*fns.values())
-        solver_reads = nlls_solver.host_read.count
+        solver_reads = host_reads("irls_stop")
+        tier_reads = host_reads("spill")
         reads_at = []
         t0 = time.perf_counter()
         acc = []
         for k in range(SPILL_SCANS):
-            r0 = slam._spill.host_reads if slam._spill else 0
+            r0 = host_reads("spill")
             if slam.update_prepadded(*staged[k], odoms[k]):
                 acc.append(k)
-            if slam._spill and slam._spill.host_reads > r0:
+            if host_reads("spill") > r0:
                 reads_at.append(k)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         runs[name] = dict(slam=slam, acc=acc, seconds=dt, reads_at=reads_at,
                           launches={n: fn.launches for n, fn in fns.items()},
-                          solver_reads=(nlls_solver.host_read.count
-                                        - solver_reads))
+                          solver_reads=host_reads("irls_stop") - solver_reads,
+                          tier_reads=host_reads("spill") - tier_reads)
     ref, sp_run = runs["reference"], runs["spill"]
     slam, big = sp_run["slam"], ref["slam"]
     sp = slam._spill
@@ -3551,10 +3562,8 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
             "memory_usage_bytes": slam.memory_usage(),
             "spills": sp.spills, "refills": sp.refills,
             "cache_hits": sp.cache_hit, "cache_misses": sp.cache_miss,
-            "spill_ms": list(sp.event_ms["spill"]),
-            "refill_ms": list(sp.event_ms["refill"]),
-            "tier_host_reads": sp.host_reads,
-            "tier_host_reads_per_update": (sp.host_reads
+            "tier_host_reads": sp_run["tier_reads"],
+            "tier_host_reads_per_update": (sp_run["tier_reads"]
                                            / len(sp_run["acc"])),
             "updates_with_tier_reads": len(sp_run["reads_at"])}
     # one more spill (low water at half the live patches) and one refill,
@@ -3633,15 +3642,17 @@ def pf_spill_phase(torch, dev) -> dict:
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         _cuda.reset_launches(*fns.values())
+        tier_reads = host_reads("spill")
         t0 = time.perf_counter()
         n_up = sum(bool(f.update_prepadded(*staged[k], data.odometry[k]))
                    for k in range(PF_SPILL_SCANS))
         f._flush_motion()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        tier_reads = host_reads("spill") - tier_reads
         m = f.pset.maps
         runs[name] = dict(
-            f=f, updates=n_up, seconds=dt,
+            f=f, updates=n_up, seconds=dt, tier_reads=tier_reads,
             launches={n: fn.launches for n, fn in fns.items()},
             peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
             before_mem_mb=base / 2 ** 20,
@@ -3667,9 +3678,7 @@ def pf_spill_phase(torch, dev) -> dict:
     overflow = int(f.pset.maps.table.overflow.max())
     tier = {"spills": sp.spills, "refills": sp.refills,
             "cache_hits": sp.cache_hit,
-            "spill_ms": list(sp.event_ms["spill"]),
-            "refill_ms": list(sp.event_ms["refill"]),
-            "tier_host_reads": sp.host_reads,
+            "tier_host_reads": sp_run["tier_reads"],
             "store_bytes_shared_once": sp.memory_usage(),
             "store_entries": sum(len(st) for st in sp.stores)}
 

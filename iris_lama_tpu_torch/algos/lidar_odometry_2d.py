@@ -13,8 +13,9 @@ step), an f32 distance window gathered from the pool around it, the
 generic GN IRLS match with Cauchy(0.15), the refresh gate, and on refresh
 ``mapping.update_maps`` on the pool. The JAX package decides the gate on
 the device (``lax.cond``); here the host reads the flag, one read a scan
-(``nlls.solver.host_read``), and runs the update when it is set. The
-pose, the last map-update pose and the trajectory stay on the device.
+(``utils.trace.host_read``, site ``refresh``), and runs the update when
+it is set. The pose, the last map-update pose and the trajectory stay on
+the device.
 
 The driver runs on the CUDA device unless constructed with
 ``device="cpu"``.
@@ -36,6 +37,7 @@ from ..nlls.robust import CAUCHY_SCAN
 from ..sdm import mapping, window as win_mod
 from ..sdm.geometry import MapGeometry
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
+from ..utils.trace import host_read
 from .slam2d import resolve_device
 
 REFRESH_M = 0.1       # lidar_odometry_2d.cpp:73-80
@@ -183,8 +185,8 @@ class LidarOdometry2D:
         if self.options.motion_prediction:
             self._delta_dev = lie.se2_compose(lie.se2_inverse(pose_prev),
                                               pose)
-        self.last_refresh = bool(nlls_solver.host_read(
-            refresh_due(self._map_odom_dev, pose)))
+        self.last_refresh = bool(host_read(
+            refresh_due(self._map_odom_dev, pose), "refresh"))
         if self.last_refresh:
             self.map, _ = mapping.update_maps(self.map, cfg, pose, points,
                                               mask, origin)

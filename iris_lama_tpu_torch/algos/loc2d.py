@@ -11,8 +11,8 @@ The distance map is read through a resident window: the maps are fixed, so
 the dense window is gathered from the patch pool only when the predicted
 pose leaves its safe zone, and each update slices the pose-centred match
 window out of it. The host reads the predicted pose cell once per update
-for that check (and the solver's stop flag at its checkpoints); both are
-counted by ``nlls.solver.host_read``.
+for that check (and the solver's stop flag at its checkpoints); both go
+through ``utils.trace.host_read`` (sites ``loc_cell`` and ``irls_stop``).
 
 ``match`` picks the scan matcher (the JAX package's environment switches
 become this constructor argument):
@@ -61,6 +61,7 @@ from ..sdm import pool as pool_mod
 from ..sdm import window as win_mod
 from ..sdm.geometry import MapGeometry, f32
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
+from ..utils.trace import host_read
 from .pf_slam2d import DrawSource
 from .slam2d import resolve_device
 
@@ -438,7 +439,7 @@ class Loc2D:
         anew when the pose cell lies outside its safe zone. Reads the pose
         cell on the host (one host read)."""
         geo, ws, w_res = self.geo, self._ws, self._w_res
-        cell = nlls_solver.host_read(geo.w2m(pose0[:2]))
+        cell = host_read(geo.w2m(pose0[:2]), "loc_cell")
         m = self._half_cells
         if self._org is None or not all(
                 m <= c - o < w_res - m for c, o in zip(cell, self._org)):

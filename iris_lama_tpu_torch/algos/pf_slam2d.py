@@ -46,7 +46,11 @@ apart on the resident path, synchronising at each phase boundary.
 
 The driver runs on the CUDA device unless constructed with
 ``device="cpu"``; re-orgs and the pool path's map updates loop over the
-particles in Python.
+particles in Python. Host reads of device data go through
+``utils.trace.host_read``; the update's layers are spanned
+(``lama.update``, ``lama.stage``, ``lama.motion``, ``lama.match``,
+``lama.resample``, ``lama.map_update``, ``lama.reorg.*``; see
+``utils/trace.py``) for a profiler that records.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ from ..sdm.geometry import MapGeometry, f32
 from ..sdm.pool import PatchTable
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
 from ..utils.summary import PhaseClock, Summary, device_sync
+from ..utils.trace import host_read, phase, span
 from .slam2d import resolve_device
 
 @dataclasses.dataclass(frozen=True)
@@ -327,27 +332,29 @@ def update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points, mask,
     (``parallel/group.py``), and ``info`` holds the values over all N plus
     ``exchange_bytes``, the bytes the exchange moved between ranks."""
     cfg = opts.mapping_config()
-    states, liks, iters = match_phase(opts, pset, points, mask)
-    _mark(clock, "solving")
+    with phase("lama.match", clock, "solving"):
+        states, liks, iters = match_phase(opts, pset, points, mask)
 
     def cat(t):
         return group_mod.all_gather_cat(t, mesh)
 
-    idx, pose, weight, weight_sum, nw, neff, do_resample = \
-        weights_and_resample(opts, cat(pset.weight), cat(pset.weight_sum),
-                             cat(states), cat(liks), u)
-    sl = group_mod.rows(idx.shape[0], mesh)
-    _mark(clock, "normalizing")
-    occ, vis, dist = pset.res_occ, pset.res_vis, pset.res_dist
-    # in place: one grid's temporary at a time
-    moved = group_mod.exchange_rows((occ, vis, dist), idx, mesh)
-    spill_lineage = (None if pset.spill_lineage is None
-                     else cat(pset.spill_lineage)[idx][sl])
-    _mark(clock, "resampling")
+    with phase("lama.resample", clock, "resampling"):
+        idx, pose, weight, weight_sum, nw, neff, do_resample = \
+            weights_and_resample(opts, cat(pset.weight),
+                                 cat(pset.weight_sum), cat(states),
+                                 cat(liks), u)
+        sl = group_mod.rows(idx.shape[0], mesh)
+        if clock is not None:
+            clock.mark("normalizing")
+        occ, vis, dist = pset.res_occ, pset.res_vis, pset.res_dist
+        # in place: one grid's temporary at a time
+        moved = group_mod.exchange_rows((occ, vis, dist), idx, mesh)
+        spill_lineage = (None if pset.spill_lineage is None
+                         else cat(pset.spill_lineage)[idx][sl])
     org = pset.res_org
-    mapping.resident_update(cfg, org, occ, vis, dist, pose[sl], points,
-                            mask, origin)
-    _mark(clock, "mapping")
+    with phase("lama.map_update", clock, "mapping"):
+        mapping.resident_update(cfg, org, occ, vis, dist, pose[sl], points,
+                                mask, origin)
     escaped = torch.sum(~mapping.resident_safe(
         cfg, org, cfg.geometry.w2m(pose[:, :2])))
     new = ParticleSet(pose[sl], weight[sl], weight_sum[sl], nw[sl],
@@ -363,11 +370,6 @@ def update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points, mask,
     return new, info
 
 
-def _mark(clock, name: str) -> None:
-    if clock is not None:
-        clock.mark(name)
-
-
 def pool_update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points,
                      mask, origin, mesh=None):
     """One PF update of the pool path on post-motion poses: match ->
@@ -377,22 +379,26 @@ def pool_update_step(opts: PFSlam2DOptions, pset: ParticleSet, u, points,
     :func:`update_step` (the pools' gather is the row exchange). Returns
     (pset, info)."""
     cfg = opts.mapping_config()
-    states, liks, iters = match_phase(opts, pset, points, mask)
+    with span("lama.match"):
+        states, liks, iters = match_phase(opts, pset, points, mask)
 
     def cat(t):
         return group_mod.all_gather_cat(t, mesh)
 
-    idx, pose, weight, weight_sum, nw, neff, do_resample = \
-        weights_and_resample(opts, cat(pset.weight), cat(pset.weight_sum),
-                             cat(states), cat(liks), u)
-    sl = group_mod.rows(idx.shape[0], mesh)
-    maps = pset.maps
-    moved = group_mod.exchange_rows(pool_arrays(maps), idx, mesh)
+    with span("lama.resample"):
+        idx, pose, weight, weight_sum, nw, neff, do_resample = \
+            weights_and_resample(opts, cat(pset.weight),
+                                 cat(pset.weight_sum), cat(states),
+                                 cat(liks), u)
+        sl = group_mod.rows(idx.shape[0], mesh)
+        maps = pset.maps
+        moved = group_mod.exchange_rows(pool_arrays(maps), idx, mesh)
     pose = pose[sl]
-    for i in range(pose.shape[0]):
-        m, _ = mapping.update_maps(_pool(maps, i), cfg, pose[i], points,
-                                   mask, origin)
-        _store_table(maps, i, m.table)
+    with span("lama.map_update"):
+        for i in range(pose.shape[0]):
+            m, _ = mapping.update_maps(_pool(maps, i), cfg, pose[i], points,
+                                       mask, origin)
+            _store_table(maps, i, m.table)
     new = ParticleSet(pose, weight[sl], weight_sum[sl], nw[sl], maps)
     iters = cat(iters)
     info = {"neff": neff, "resampled": do_resample,
@@ -494,7 +500,8 @@ def scroll(opts: PFSlam2DOptions, pset: ParticleSet, kp: int) -> ParticleSet:
     target = mapping.resident_org(cfg, _mean_anchor(cfg, pset.pose))
     new_org = pset.res_org + torch.clamp(target - pset.res_org,
                                          -kp * length, kp * length)
-    org_h, new_h = pset.res_org.tolist(), new_org.tolist()
+    org_h = host_read(pset.res_org, "reorg_origin")
+    new_h = host_read(new_org, "reorg_origin")
     for i in range(pset.pose.shape[0]):
         m, *grids = mapping.resident_scroll(
             _pool(pset.maps, i), cfg, org_h, pset.res_occ[i],
@@ -619,18 +626,25 @@ class PFSlam2D:
     def update(self, cloud: PointCloudXYZ, odometry: Pose2D,
                timestamp: float = 0.0) -> bool:
         """pf_slam2d.cpp:178-311."""
-        if self._max_beams == 0:
-            self._max_beams = beam_bucket(len(cloud.points))
-        points, mask, origin = pad_scan(cloud, self._max_beams)
-        return self.update_prepadded(self._tensor(points),
-                                     self._tensor(mask, torch.bool),
-                                     self._tensor(origin), odometry,
-                                     timestamp)
+        with span("lama.update"):
+            with span("lama.stage"):
+                if self._max_beams == 0:
+                    self._max_beams = beam_bucket(len(cloud.points))
+                points, mask, origin = pad_scan(cloud, self._max_beams)
+                staged = (self._tensor(points),
+                          self._tensor(mask, torch.bool),
+                          self._tensor(origin))
+            return self._update(*staged, odometry, timestamp)
 
     def update_prepadded(self, points, mask, origin, odometry: Pose2D,
                          timestamp: float = 0.0) -> bool:
         """Update from a pre-padded scan: points f32[B, 3], mask bool[B],
         origin f32[3] (tensors on the driver's device, or arrays)."""
+        with span("lama.update"):
+            return self._update(points, mask, origin, odometry, timestamp)
+
+    def _update(self, points, mask, origin, odometry: Pose2D,
+                timestamp: float) -> bool:
         t0 = time.perf_counter()
         points = torch.as_tensor(points, dtype=torch.float32,
                                  device=self.device)
@@ -646,7 +660,8 @@ class PFSlam2D:
             self._odom_reorg = odometry
             self.pset = particles_init(opts, self.pose_prior.se2_array(),
                                        self.device)
-            first_step(opts, self.pset, points, mask, origin)
+            with span("lama.map_update"):
+                first_step(opts, self.pset, points, mask, origin)
             self._reset_escapes()
             self.has_first_scan = True
             if self.summary is not None:
@@ -708,11 +723,14 @@ class PFSlam2D:
     def _flush_motion(self) -> None:
         """Apply the queued motion packets, one normal draw each."""
         n = self.options.particles
-        for od in self._odelta_queue:
-            self.pset = self.pset._replace(pose=draw_from_motion(
-                self.options, self._draw("normal", (n, 3)),
-                self._tensor(od), self.pset.pose))
-        self._odelta_queue = []
+        if self._odelta_queue:
+            with span("lama.motion"):
+                for od in self._odelta_queue:
+                    with span("lama.motion.draw"):
+                        eps = self._draw("normal", (n, 3))
+                    self.pset = self.pset._replace(pose=draw_from_motion(
+                        self.options, eps, self._tensor(od), self.pset.pose))
+            self._odelta_queue = []
         self._odom_motion = self.odom_
 
     def _step(self, points, mask, origin, clock=None) -> None:
@@ -728,8 +746,9 @@ class PFSlam2D:
             cfg = opts.mapping_config()
             safe = mapping.resident_safe(cfg, self.pset.res_org,
                                          cfg.geometry.w2m(self.pset.pose[:, :2]))
-            if not bool(torch.all(safe)):
-                self.pset = reorg(opts, self.pset)
+            if not host_read(torch.all(safe), "safe_zone"):
+                with span("lama.reorg.full"):
+                    self.pset = reorg(opts, self.pset)
                 self.n_reorgs += 1
         u = self._draw("uniform", ())
         self.pset, info = update_step(opts, self.pset, u, points, mask,
@@ -745,11 +764,14 @@ class PFSlam2D:
     def escaped_count(self) -> int:
         """Particle-updates that ran outside the resident safe zone — 0 in
         a healthy run (one device read)."""
-        return int(self._esc_total) if self._esc_total is not None else 0
+        if self._esc_total is None:
+            return 0
+        return int(host_read(self._esc_total, "escapes"))
 
     @property
     def _last_info(self) -> dict:
-        return {k: float(v) for k, v in self._last_info_dev.items()}
+        return {k: float(host_read(v, "info"))
+                for k, v in self._last_info_dev.items()}
 
     # -- host-gated re-orgs -------------------------------------------------
     def _pf_effective_trigger(self) -> float:
@@ -766,18 +788,20 @@ class PFSlam2D:
         d = float(np.linalg.norm((self._odom_reorg - odometry).xy()))
         if d < self._pf_effective_trigger():
             return
-        esc = int(self._esc_max)
+        esc = int(host_read(self._esc_max, "escapes"))
         self._esc_max.zero_()
         self._pf_harvest_escapes(esc)
         cfg = self.options.mapping_config()
         patch_m = cfg.geometry.patch_length * cfg.geometry.resolution
         if (self._pf_scroll_m > 0 and d + self.options.host_reorg_slack
                 <= self.options.scroll_kp * patch_m):
-            self.pset = scroll(self.options, self.pset,
-                               self.options.scroll_kp)
+            with span("lama.reorg.scroll"):
+                self.pset = scroll(self.options, self.pset,
+                                   self.options.scroll_kp)
             self.n_scrolls += 1
         else:
-            self.pset = reorg(self.options, self.pset)
+            with span("lama.reorg.full"):
+                self.pset = reorg(self.options, self.pset)
         self._odom_reorg = odometry
         self.n_reorgs += 1
 
@@ -831,12 +855,13 @@ class PFSlam2D:
 
     # -- accessors (pf_slam2d.h:188-254) ------------------------------------
     def best_particle_idx(self) -> int:
-        return int(torch.argmax(self.pset.weight_sum))
+        return int(host_read(torch.argmax(self.pset.weight_sum), "pose"))
 
     def pose(self) -> Pose2D:
         self._flush_motion()
         i = self.best_particle_idx()
-        return Pose2D.from_se2_array(self.pset.pose[i].cpu().numpy())
+        return Pose2D.from_se2_array(
+            host_read(self.pset.pose[i], "pose", numpy=True))
 
     def particle_map(self, idx: Optional[int] = None) -> mapping.SlamMapState:
         """One particle's map (the best particle by default) —
@@ -844,7 +869,8 @@ class PFSlam2D:
         pool, with its resident grids flushed in on the resident path."""
         i = self.best_particle_idx() if idx is None else idx
         ps = self.pset
-        pool = _pool(ps.maps, i if ps.lineage is None else int(ps.lineage[i]))
+        pool = _pool(ps.maps, i if ps.lineage is None
+                     else int(host_read(ps.lineage[i], "lineage")))
         m = mapping.SlamMapState(PatchTable(*(t.clone() for t in pool.table)),
                                  pool.occupied.clone(), pool.visited.clone(),
                                  pool.dist.clone())
@@ -864,7 +890,7 @@ class PFSlam2D:
         sp = self._pf_spill
         if sp is None or not sp.any_stored():
             return m, self.options.mapping_config()
-        si = (int(self.pset.spill_lineage[i])
+        si = (int(host_read(self.pset.spill_lineage[i], "lineage"))
               if self.pset.spill_lineage is not None else i)
         return sp.merged_map_particle(m, si)
 
@@ -875,7 +901,7 @@ class PFSlam2D:
         buffer and not counted, as in the JAX package."""
         m = self.pset.maps
         cell = sum(a.element_size() for a in (m.occupied, m.visited, m.dist))
-        total = (int(m.table.num_patches().sum())
+        total = (int(host_read(m.table.num_patches().sum(), "memory"))
                  * self.options.patch_size ** 2 * cell)
         if self._pf_spill is not None:
             total += self._pf_spill.memory_usage()
@@ -889,10 +915,9 @@ class PFSlam2D:
         no longer be the one without the tier (the JAX package applies
         it)."""
         ps = self.pset
-        self._sync_pose = Pose2D.from_se2_array(
-            ps.pose[torch.argmax(ps.weight_sum)].cpu().numpy())
+        self._sync_pose = Pose2D.from_se2_array(host_read(
+            ps.pose[torch.argmax(ps.weight_sum)], "spill", numpy=True))
         self._sync_odom = self._odom_motion
-        self._pf_spill.host_reads += 1
 
     def _pf_approx_pose(self, odometry: Pose2D) -> np.ndarray:
         """Estimated xy without a device read: the best particle's pose at
@@ -907,8 +932,7 @@ class PFSlam2D:
         """Apply ``spill_lineage`` to the host stores (one read), settle
         the pools' lineage on the device and reset both."""
         sp = self._pf_spill
-        sp.permute(self.pset.spill_lineage.cpu().numpy())
-        sp.host_reads += 1
+        sp.permute(host_read(self.pset.spill_lineage, "spill", numpy=True))
         n = self.options.particles
         self.pset = settle(self.pset)._replace(spill_lineage=torch.arange(
             n, dtype=torch.int32, device=self.device))
@@ -934,14 +958,14 @@ class PFSlam2D:
         if len(self._potential) - sp.stored_floor() > self._check_at:
             self._pf_sync_now()
             xy = self._pf_approx_pose(odometry)
-            n_max = int(self.pset.maps.table.num_patches().max())
-            sp.host_reads += 1
+            n_max = int(host_read(self.pset.maps.table.num_patches().max(),
+                                  "spill"))
             if n_max > sp.high:
                 self._pf_settle_stores()
                 maps, _ = sp.spill_batch(self.pset.maps, xy)
                 self.pset = self.pset._replace(maps=maps)
-                n_max = int(self.pset.maps.table.num_patches().max())
-                sp.host_reads += 1
+                n_max = int(host_read(
+                    self.pset.maps.table.num_patches().max(), "spill"))
             self._check_at = (len(self._potential) - sp.stored_floor()
                               + max(sp.high - n_max, 8))
 

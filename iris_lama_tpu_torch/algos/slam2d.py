@@ -30,7 +30,10 @@ path, synchronising at each phase boundary. Neither adds a wait when off.
 The driver runs on the CUDA device unless constructed with
 ``device="cpu"``; the pose, trajectory and map stay on the device and the
 host reads them only on request (and the IRLS stop flag, the escape
-counter and re-org origins at their checkpoints).
+counter and re-org origins at their checkpoints), each through
+``utils.trace.host_read``. The update's layers are spanned (``lama.update``,
+``lama.stage``, ``lama.match``, ``lama.map_update``, ``lama.reorg.*``; see
+``utils/trace.py``) for a profiler that records.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from ..sdm import mapping, window as win_mod
 from ..sdm.geometry import MapGeometry
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
 from ..utils.summary import PhaseClock, Summary, device_sync
+from ..utils.trace import host_read, phase, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,13 +208,13 @@ class Slam2D:
         """Current pose (reads the device pose when stale)."""
         if self._pose_host is None:
             self._pose_host = Pose2D.from_se2_array(
-                self._pose_dev.cpu().numpy())
+                host_read(self._pose_dev, "pose", numpy=True))
         return self._pose_host
 
     def trajectory(self) -> np.ndarray:
         """All matched poses so far, [n, 3] xyr — one device read."""
         n = min(self._n_updates, self.TRAJ_CAP)
-        t = self._traj[:n].cpu().numpy()
+        t = host_read(self._traj[:n], "trajectory", numpy=True)
         return np.stack([t[:, 0], t[:, 1], np.arctan2(t[:, 3], t[:, 2])], -1)
 
     def enough_motion(self, odometry: Pose2D) -> bool:
@@ -226,23 +230,30 @@ class Slam2D:
     def escaped_count(self) -> int:
         """Updates whose predicted pose left the resident safe zone before
         a re-org — 0 in a healthy run."""
-        return int(self._esc_dev)
+        return int(host_read(self._esc_dev, "escapes"))
 
     def update(self, cloud: PointCloudXYZ, odometry: Pose2D,
                timestamp: float = 0.0) -> bool:
         """slam2d.cpp:143-198."""
-        if self._max_beams == 0:
-            self._max_beams = beam_bucket(len(cloud.points))
-        points, mask, origin = pad_scan(cloud, self._max_beams)
-        return self.update_prepadded(self._tensor(points),
-                                     self._tensor(mask, torch.bool),
-                                     self._tensor(origin), odometry,
-                                     timestamp)
+        with span("lama.update"):
+            with span("lama.stage"):
+                if self._max_beams == 0:
+                    self._max_beams = beam_bucket(len(cloud.points))
+                points, mask, origin = pad_scan(cloud, self._max_beams)
+                staged = (self._tensor(points),
+                          self._tensor(mask, torch.bool),
+                          self._tensor(origin))
+            return self._update(*staged, odometry, timestamp)
 
     def update_prepadded(self, points, mask, origin, odometry: Pose2D,
                          timestamp: float = 0.0) -> bool:
         """Update from a pre-padded scan: points f32[B, 3], mask bool[B],
         origin f32[3] (tensors on the driver's device, or arrays)."""
+        with span("lama.update"):
+            return self._update(points, mask, origin, odometry, timestamp)
+
+    def _update(self, points, mask, origin, odometry: Pose2D,
+                timestamp: float) -> bool:
         t0 = time.perf_counter()
         points = torch.as_tensor(points, dtype=torch.float32,
                                  device=self.device)
@@ -341,16 +352,19 @@ class Slam2D:
             self._res_dist = torch.full((w, w), cfg.distance.max_sqdist,
                                         dtype=cfg.sq_dtype,
                                         device=self.device)
-            mapping.resident_update(cfg, self._res_org, self._res_occ,
-                                    self._res_vis, self._res_dist,
-                                    self._pose_dev, points, mask, origin)
-            if cfg.transient:
-                self._transient_reset(self._pose_dev, points, mask, origin)
+            with span("lama.map_update"):
+                mapping.resident_update(cfg, self._res_org, self._res_occ,
+                                        self._res_vis, self._res_dist,
+                                        self._pose_dev, points, mask, origin)
+                if cfg.transient:
+                    self._transient_reset(self._pose_dev, points, mask,
+                                          origin)
             self._res_dirty = True
         else:
-            self._map, _ = mapping.update_maps(self._map, cfg,
-                                               self._pose_dev, points, mask,
-                                               origin)
+            with span("lama.map_update"):
+                self._map, _ = mapping.update_maps(self._map, cfg,
+                                                   self._pose_dev, points,
+                                                   mask, origin)
         self._traj[0] = self._pose_dev
         self._n_updates = 1
         self.has_first_scan = True
@@ -407,10 +421,12 @@ class Slam2D:
         if (self._scroll_kp
                 and d + self.options.host_reorg_slack
                 <= self._scroll_kp * patch_m):
-            self._scroll(self._scroll_kp)
+            with span("lama.reorg.scroll"):
+                self._scroll(self._scroll_kp)
             self.n_scrolls += 1
         else:
-            self._reorg_full(self.cfg.geometry.w2m(self._pose_dev[:2]))
+            with span("lama.reorg.full"):
+                self._reorg_full(self.cfg.geometry.w2m(self._pose_dev[:2]))
         self._odom_reorg = odometry
         self.n_reorgs += 1
 
@@ -419,7 +435,7 @@ class Slam2D:
         last check ran with its pose outside the resident safe zone,
         tighten the re-org trigger; once no safe trigger distance remains,
         fall back to a per-scan safe-zone check followed by a re-org."""
-        esc = int(self._esc_dev)                 # cumulative counter
+        esc = int(host_read(self._esc_dev, "escapes"))   # cumulative
         if esc <= self._esc_seen:
             # 4 consecutive clean checks release one tightening step
             self._esc_clean += 1
@@ -467,12 +483,14 @@ class Slam2D:
         keys = win_mod.window_patch_keys(geo, org, wp)
         grid, slots = win_mod.gather_window(self._map.table, self._map.dist,
                                             keys, cfg.distance.max_dist)
-        res = match.solve_window(cfg.dist_to_sq(grid), org, geo,
-                                 cfg.distance.max_dist, points[:, :2], mask,
-                                 pose0, self.sopts)
-        self._map, _ = mapping.update_maps(self._map, cfg, res.state, points,
-                                           mask, origin, org,
-                                           window=(slots, grid))
+        with span("lama.match"):
+            res = match.solve_window(cfg.dist_to_sq(grid), org, geo,
+                                     cfg.distance.max_dist, points[:, :2],
+                                     mask, pose0, self.sopts)
+        with span("lama.map_update"):
+            self._map, _ = mapping.update_maps(self._map, cfg, res.state,
+                                               points, mask, origin, org,
+                                               window=(slots, grid))
         self.last_iterations = res.iterations
         return res.state
 
@@ -484,8 +502,9 @@ class Slam2D:
         safe = mapping.resident_safe(cfg, self._res_org, p0cell)
         if self._host_reorg:
             self._esc_dev += (~safe).to(torch.int32)
-        elif not bool(safe):
-            self._reorg_full(p0cell)
+        elif not host_read(safe, "safe_zone"):
+            with span("lama.reorg.full"):
+                self._reorg_full(p0cell)
             self.n_reorgs += 1
         org, dist = self._res_org, self._res_dist
         dist_m, m_org = dist, org
@@ -493,17 +512,17 @@ class Slam2D:
             start = torch.clamp(p0cell - org - ws_m // 2, 0, w_res - ws_m)
             dist_m = mapping.dyn_slice(dist, start[1], start[0], ws_m, ws_m)
             m_org = org + start
-        res = match.solve_window(dist_m, m_org, geo, cfg.distance.max_dist,
-                                 points[:, :2], mask, pose0, self.sopts)
-        if clock is not None:
-            clock.mark("solving")
-        mapping.resident_update(cfg, org, self._res_occ, self._res_vis,
-                                dist, res.state, points, mask, origin)
-        if cfg.transient:
-            box = self._transient_reset(res.state, points, mask, origin)
-            self._map = mapping.prune_transient_pool(self._map, cfg, *box)
-        if clock is not None:
-            clock.mark("mapping")
+        with phase("lama.match", clock, "solving"):
+            res = match.solve_window(dist_m, m_org, geo,
+                                     cfg.distance.max_dist, points[:, :2],
+                                     mask, pose0, self.sopts)
+        with phase("lama.map_update", clock, "mapping"):
+            mapping.resident_update(cfg, org, self._res_occ, self._res_vis,
+                                    dist, res.state, points, mask, origin)
+            if cfg.transient:
+                box = self._transient_reset(res.state, points, mask, origin)
+                self._map = mapping.prune_transient_pool(self._map, cfg,
+                                                         *box)
         self._res_dirty = True
         self.last_iterations = res.iterations
         return res.state
@@ -525,7 +544,7 @@ class Slam2D:
         pool's patch count without flushing the resident grids."""
         m = self._map
         cell = sum(a.element_size() for a in (m.occupied, m.visited, m.dist))
-        total = (int(m.table.num_patches())
+        total = (int(host_read(m.table.num_patches(), "memory"))
                  * self.cfg.geometry.patch_length ** 2 * cell)
         if self._resident and self._res_dist is not None:
             total += sum(g.numel() * g.element_size() for g in
@@ -547,10 +566,10 @@ class Slam2D:
 
     def _sync_now(self) -> None:
         """Pair the current device pose with its odometry (one read)."""
-        self._pose_host = None
-        self._sync_pose = self.pose()
+        self._pose_host = Pose2D.from_se2_array(
+            host_read(self._pose_dev, "spill", numpy=True))
+        self._sync_pose = self._pose_host
         self._sync_odom = self.odom_
-        self._spill.host_reads += 1
 
     def _spill_hooks(self, odometry: Pose2D) -> None:
         """Refill the upcoming window; spill when the pool nears capacity.
@@ -566,12 +585,11 @@ class Slam2D:
         if len(self._potential) - len(sp.store) > self._check_at:
             self._sync_now()
             xy = self._approx_pose(odometry)
-            n_active = int(self._map.table.num_patches())
-            sp.host_reads += 1
+            n_active = int(host_read(self._map.table.num_patches(), "spill"))
             if n_active > sp.high:
                 self._map = sp.spill(self._map, xy)
-                n_active = int(self._map.table.num_patches())
-                sp.host_reads += 1
+                n_active = int(host_read(self._map.table.num_patches(),
+                                         "spill"))
             # next check once the upper bound has grown past high water
             # again (at least 8 keys on: each check costs device reads)
             self._check_at = (len(self._potential) - len(sp.store)

@@ -14,6 +14,7 @@ from ..nlls import solver as nlls_solver
 from ..ops import gn_solve, match_eval
 from ..sdm import distance as dist_mod
 from ..sdm.geometry import MapGeometry
+from ..utils.trace import host_read
 
 
 def make_window_eval(grid, org_cell, geo: MapGeometry, max_dist,
@@ -186,7 +187,7 @@ def _solve_window_fused(grid, org_cell, geo, max_dist, points_xy, mask,
             s = torch.where(acc, ns, s)
             stop = torch.where(active, stop_now | ~ok, stop)
             it = it + take.to(torch.int32)
-        if not nlls_solver.host_read(~stop & (it < opts.max_iterations)):
+        if not host_read(~stop & (it < opts.max_iterations), "irls_stop"):
             break
     zero = torch.zeros((), device=dev)
     return nlls_solver.SolveResult(state=state, iterations=it, chi2=s[9],

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..core import lie
-from .solver import STOP_CHECK_EVERY, host_read
+from ..utils.trace import host_read
+from .solver import STOP_CHECK_EVERY
 
 
 class SE2Graph(NamedTuple):
@@ -357,7 +358,7 @@ def optimize(nodes, graph: SE2Graph, active_mask,
                                                    chi2_now), chi2)
             it = it + active.to(torch.int32)
             done = torch.where(active, new_done, done)
-        if not host_read(~done & (it < opts.max_iterations)):
+        if not host_read(~done & (it < opts.max_iterations), "irls_stop"):
             break
     return nodes, {"chi2": chi2, "iterations": it}
 

@@ -10,7 +10,7 @@ reference:
 
 One loop: each IRLS step is masked — a step taken after the loop stopped
 leaves every carried value unchanged — so the host reads the stop flag
-(:func:`host_read`, which counts such reads) only once per
+(``utils.trace.host_read``, site ``irls_stop``) only once per
 ``STOP_CHECK_EVERY`` steps and the loop body has no host read
 (a CUDA graph can capture it later). The results equal a plain while loop
 (the JAX package's while/scan/unroll modes agree bit for bit). The 3x3
@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.trace import host_read
 from .robust import RobustCost, UNIT
 
 # masked IRLS steps per host read of the stop flag
@@ -144,19 +145,9 @@ def solve(eval_fn: Callable, update_fn: Callable, state0,
             v = torch.where(take, new_v, v)
             stop = torch.where(active, stop_now | stop_after, stop)
             it = it + take.to(torch.int32)
-        if not host_read(~stop & (it < opts.max_iterations)):
+        if not host_read(~stop & (it < opts.max_iterations), "irls_stop"):
             break
     return SolveResult(state=state, iterations=it, chi2=chi2, r=r, J=J)
-
-
-def host_read(t):
-    """``t.tolist()`` (a Python bool for a 0-dim flag) — a host read, which
-    waits for the device; counted in ``host_read.count``."""
-    host_read.count += 1
-    return t.tolist()
-
-
-host_read.count = 0
 
 
 def covariance(eval_fn, robust: RobustCost, state):

@@ -45,7 +45,8 @@ from __future__ import annotations
 
 import torch
 
-from ..nlls.solver import STOP_CHECK_EVERY, host_read
+from ..nlls.solver import STOP_CHECK_EVERY
+from ..utils.trace import host_read
 from ..sdm.geometry import f32
 from . import _cuda, match_eval, select4
 
@@ -132,7 +133,7 @@ def solve_window_sq_plain(grid, org_cell, state0, points_xy, mask, *,
     sm = sums_at(st, cauchy_c)
     stop = torch.zeros(p, dtype=torch.bool, device=grid.device)
     it = torch.zeros(p, dtype=torch.int32, device=grid.device)
-    while host_read((~stop & (it < max_iter)).any()):
+    while host_read((~stop & (it < max_iter)).any(), "irls_stop"):
         for _ in range(STOP_CHECK_EVERY):
             active = ~stop & (it < max_iter)
             g_max = torch.maximum(torch.maximum(sm[6].abs(), sm[7].abs()),

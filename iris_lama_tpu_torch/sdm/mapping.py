@@ -46,6 +46,7 @@ import torch
 
 from ..core import lie
 from ..ops import scatter_matmul
+from ..utils.trace import host_read
 from . import pool as pool_mod
 from . import window as win_mod
 from .occupancy import probabilistic_saturate
@@ -581,7 +582,8 @@ def _flush_grids(state: SlamMapState, cfg: MappingConfig, keys,
 
 
 def _host_list(v) -> list:
-    return v.tolist() if isinstance(v, torch.Tensor) else list(v)
+    return (host_read(v, "reorg_origin") if isinstance(v, torch.Tensor)
+            else list(v))
 
 
 def resident_scroll(state: SlamMapState, cfg: MappingConfig, org,

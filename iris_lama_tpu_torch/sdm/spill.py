@@ -23,7 +23,9 @@ patch is the patch that never left.
 * host (:class:`HostSpillStore`, :class:`PFSpillStore`): the compressed
   dicts, victim selection by distance from the synced pose, the
   hit/spill/refill counters (the reference's cacheHit/cacheMiss,
-  sdm/map.h:264-268) and the host reads the tier makes (``host_reads``).
+  sdm/map.h:264-268). Its host reads go through ``utils.trace.host_read``
+  (site ``spill``); spills and refills are spanned ``lama.spill`` and
+  ``lama.refill``.
 
 Blobs hold the JAX package's bytes: uint16 counts (or float32 log-odds),
 uint16 visits, float32 meters, compressed by the same codec, so either
@@ -39,13 +41,13 @@ outside ``keep_radius``, which exceeds the window's reach.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict
 
 import numpy as np
 import torch
 
 from ..utils.codec import BufferCompressor
+from ..utils.trace import host_read, span
 from . import mapping as mapping_mod
 from . import pool as pool_mod
 from .geometry import PKEY_BITS
@@ -53,7 +55,7 @@ from .geometry import PKEY_BITS
 
 def _keys_np(keys) -> np.ndarray:
     if isinstance(keys, torch.Tensor):
-        keys = keys.detach().cpu().numpy()
+        keys = host_read(keys.detach(), "spill", numpy=True)
     return np.asarray(keys, np.int32).reshape(-1)
 
 
@@ -178,7 +180,8 @@ def _blocks_to_host(occ, vis, dist, present):
     parts = [occ.view(torch.int32) if float_occ else occ.to(torch.int32),
              vis.to(torch.int32), dist.view(torch.int32),
              present.to(torch.int32)]
-    h = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+    h = host_read(torch.cat([p.reshape(-1) for p in parts]), "spill",
+                  numpy=True)
     n = occ.numel()
     shape = tuple(occ.shape)
     occ_h = h[:n].reshape(shape)
@@ -208,8 +211,6 @@ class HostSpillStore:
         self.cache_miss = 0
         self.spills = 0
         self.refills = 0
-        self.host_reads = 0   # device-to-host reads of the tier (and driver)
-        self.event_ms = {"spill": [], "refill": []}
         # refill-window side in patches (PFSpillStore widens it to the
         # resident window)
         self._wp_refill = cfg.window_patches + 2 * margin_patches
@@ -311,45 +312,41 @@ class HostSpillStore:
     # -- events --------------------------------------------------------------
     def spill(self, state, pose_xy: np.ndarray):
         """Spill far patches to the host store; returns the new state."""
-        t0 = time.perf_counter()
-        active = snapshot_keys(state.table).cpu().numpy()
-        self.host_reads += 1
-        victims = self.select_victims(active, pose_xy)
-        if len(victims) == 0:
+        with span("lama.spill"):
+            active = host_read(snapshot_keys(state.table), "spill",
+                               numpy=True)
+            victims = self.select_victims(active, pose_xy)
+            if len(victims) == 0:
+                return state
+            state, *blocks = extract_patches(state, self.cfg, victims)
+            occ, vis, dist, present = _blocks_to_host(*blocks)
+            for i, k in enumerate(victims):
+                if present[i]:
+                    self.store[int(k)] = self._pack_blocks(occ[i], vis[i],
+                                                           dist[i])
+            self.spills += 1
             return state
-        state, *blocks = extract_patches(state, self.cfg, victims)
-        occ, vis, dist, present = _blocks_to_host(*blocks)
-        self.host_reads += 1
-        for i, k in enumerate(victims):
-            if present[i]:
-                self.store[int(k)] = self._pack_blocks(occ[i], vis[i],
-                                                       dist[i])
-        self.spills += 1
-        self.event_ms["spill"].append((time.perf_counter() - t0) * 1e3)
-        return state
 
     def refill(self, state, pose_xy: np.ndarray):
         """Re-inject the stored patches the next window could touch."""
-        t0 = time.perf_counter()
-        need = self.window_keys_np(pose_xy)
-        hits = [int(k) for k in need if int(k) in self.store]
-        if not hits:
+        with span("lama.refill"):
+            need = self.window_keys_np(pose_xy)
+            hits = [int(k) for k in need if int(k) in self.store]
+            if not hits:
+                return state
+            self.cache_hit += len(hits)
+            keys, occ, vis, dist = self._upload(
+                hits, [self.store[k] for k in hits], state.dist.device)
+            state, droppable = inject_patches(state, self.cfg, keys, occ, vis,
+                                              dist)
+            # drop the blobs whose content now lives on the device; keep any
+            # that found the pool full, for a later attempt
+            drop = host_read(droppable, "spill", numpy=True)
+            for i, k in enumerate(hits):
+                if drop[i]:
+                    del self.store[k]
+            self.refills += 1
             return state
-        self.cache_hit += len(hits)
-        keys, occ, vis, dist = self._upload(
-            hits, [self.store[k] for k in hits], state.dist.device)
-        state, droppable = inject_patches(state, self.cfg, keys, occ, vis,
-                                          dist)
-        # drop the blobs whose content now lives on the device; keep any
-        # that found the pool full, for a later attempt
-        drop = droppable.cpu().numpy()
-        self.host_reads += 1
-        for i, k in enumerate(hits):
-            if drop[i]:
-                del self.store[k]
-        self.refills += 1
-        self.event_ms["refill"].append((time.perf_counter() - t0) * 1e3)
-        return state
 
     def memory_usage(self) -> int:
         return sum(len(b) for b in self.store.values())
@@ -367,7 +364,8 @@ class HostSpillStore:
         if not self.store:
             return state, self.cfg
         dev = state.dist.device
-        dev_keys = snapshot_keys(state.table).cpu().numpy()
+        dev_keys = host_read(snapshot_keys(state.table), "spill",
+                             numpy=True)
         dev_keys = dev_keys[dev_keys >= 0]
         store_keys = np.asarray(sorted(self.store), np.int32)
         total = len(dev_keys) + len(store_keys)
@@ -438,73 +436,69 @@ class PFSpillStore(HostSpillStore):
     def spill_batch(self, maps, pose_xy: np.ndarray):
         """Spill far patches of every particle (pools settled). Returns
         (maps, spilled_any)."""
-        t0 = time.perf_counter()
-        active = snapshot_keys_batch(maps.table).cpu().numpy()
-        self.host_reads += 1
-        counts = (active >= 0).sum(1)
-        if int(counts.max()) - self.low <= 0:
-            return maps, False
-        union = np.unique(active[active >= 0]).astype(np.int32)
-        centers = self._key_centers(union)
-        d = np.linalg.norm(centers - np.asarray(pose_xy)[None, :], axis=1)
-        far = union[d > self.keep_radius_m()]
-        if len(far) == 0:
-            return maps, False
-        far = far[np.argsort(-d[d > self.keep_radius_m()])]   # farthest first
-        # the smallest farthest-first prefix that brings every particle to
-        # low water
-        member = np.stack([np.isin(far, row[row >= 0]) for row in active])
-        after = counts[:, None] - member.cumsum(axis=1)
-        ok = (after <= self.low).all(axis=0)
-        n_take = int(np.argmax(ok)) + 1 if ok.any() else len(far)
-        victims = np.sort(far[:n_take])
-        maps, *blocks = extract_patches_batch(maps, self.cfg, victims)
-        occ, vis, dist, present = _blocks_to_host(*blocks)
-        self.host_reads += 1
-        for i, st in enumerate(self.stores):
-            for m, k in enumerate(victims):
-                if present[i, m]:
-                    st[int(k)] = self._pack_blocks(occ[i, m], vis[i, m],
-                                                   dist[i, m])
-        self.spills += 1
-        self.event_ms["spill"].append((time.perf_counter() - t0) * 1e3)
-        return maps, True
+        with span("lama.spill"):
+            active = host_read(snapshot_keys_batch(maps.table), "spill",
+                               numpy=True)
+            counts = (active >= 0).sum(1)
+            if int(counts.max()) - self.low <= 0:
+                return maps, False
+            union = np.unique(active[active >= 0]).astype(np.int32)
+            centers = self._key_centers(union)
+            d = np.linalg.norm(centers - np.asarray(pose_xy)[None, :], axis=1)
+            far = union[d > self.keep_radius_m()]
+            if len(far) == 0:
+                return maps, False
+            # farthest first
+            far = far[np.argsort(-d[d > self.keep_radius_m()])]
+            # the smallest farthest-first prefix that brings every particle
+            # to low water
+            member = np.stack([np.isin(far, row[row >= 0]) for row in active])
+            after = counts[:, None] - member.cumsum(axis=1)
+            ok = (after <= self.low).all(axis=0)
+            n_take = int(np.argmax(ok)) + 1 if ok.any() else len(far)
+            victims = np.sort(far[:n_take])
+            maps, *blocks = extract_patches_batch(maps, self.cfg, victims)
+            occ, vis, dist, present = _blocks_to_host(*blocks)
+            for i, st in enumerate(self.stores):
+                for m, k in enumerate(victims):
+                    if present[i, m]:
+                        st[int(k)] = self._pack_blocks(occ[i, m], vis[i, m],
+                                                       dist[i, m])
+            self.spills += 1
+            return maps, True
 
     def refill_batch(self, maps, pose_xy: np.ndarray):
         """Re-inject every stored patch the resident window could touch,
         particle by particle (pools settled): one copy to the device of
         every particle's blocks, each particle's own keys only."""
-        t0 = time.perf_counter()
-        need = set(int(k) for k in self.window_keys_np(pose_xy))
-        hits_per = [sorted(need.intersection(st)) for st in self.stores]
-        if not any(hits_per):
+        with span("lama.refill"):
+            need = set(int(k) for k in self.window_keys_np(pose_xy))
+            hits_per = [sorted(need.intersection(st)) for st in self.stores]
+            if not any(hits_per):
+                return maps
+            self.cache_hit += sum(len(h) for h in hits_per)
+            flat = [k for h in hits_per for k in h]
+            blobs = [st[k] for st, h in zip(self.stores, hits_per) for k in h]
+            keys, occ, vis, dist = self._upload(flat, blobs, maps.dist.device)
+            drops, off = [], 0
+            for i, h in enumerate(hits_per):
+                if not h:
+                    continue
+                sl = slice(off, off + len(h))
+                st, drop = inject_patches(_view(maps, i), self.cfg, keys[sl],
+                                          occ[sl], vis[sl], dist[sl])
+                _store_table(maps, i, st.table)
+                drops.append(drop)
+                off += len(h)
+            drop = host_read(torch.cat(drops), "spill", numpy=True)
+            off = 0
+            for st, h in zip(self.stores, hits_per):
+                for j, k in enumerate(h):
+                    if drop[off + j]:
+                        del st[k]
+                off += len(h)
+            self.refills += 1
             return maps
-        self.cache_hit += sum(len(h) for h in hits_per)
-        flat = [k for h in hits_per for k in h]
-        keys, occ, vis, dist = self._upload(
-            flat, [st[k] for st, h in zip(self.stores, hits_per) for k in h],
-            maps.dist.device)
-        drops, off = [], 0
-        for i, h in enumerate(hits_per):
-            if not h:
-                continue
-            sl = slice(off, off + len(h))
-            st, drop = inject_patches(_view(maps, i), self.cfg, keys[sl],
-                                      occ[sl], vis[sl], dist[sl])
-            _store_table(maps, i, st.table)
-            drops.append(drop)
-            off += len(h)
-        drop = torch.cat(drops).cpu().numpy()
-        self.host_reads += 1
-        off = 0
-        for st, h in zip(self.stores, hits_per):
-            for j, k in enumerate(h):
-                if drop[off + j]:
-                    del st[k]
-            off += len(h)
-        self.refills += 1
-        self.event_ms["refill"].append((time.perf_counter() - t0) * 1e3)
-        return maps
 
     def memory_usage(self) -> int:
         """Compressed bytes, a blob shared by particles counted once."""

@@ -8,7 +8,8 @@ seed=7, laps=1), 720 beams, 5 cm cells), then for each match mode replays
 the log once through Loc2D.update_many_prepadded to warm up and once more
 under torch.profiler. The resident-window check and slice, the scan match,
 the covariance and the whole solve-and-covariance step are wrapped in
-profiler ranges by this script (the port carries no instrumentation); the
+profiler ranges by this script (the port's own spans cover Slam2D and
+PFSlam2D only); the
 covariance/RMSE evaluation is the step's remainder. Prints one JSON line
 per mode: wall time per update (profiler on), host time per range, device
 time by kernel name, the device's busy share of the window (kernel time /
@@ -38,7 +39,7 @@ def main() -> int:
     from iris_lama_tpu_torch.algos import loc2d
     from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.nlls import solver as nlls_solver
+    from iris_lama_tpu_torch.utils import trace
     from iris_lama_tpu_torch.utils import simulator
     from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
 
@@ -84,14 +85,14 @@ def main() -> int:
 
         one_pass()
         torch.cuda.synchronize()
-        reads = nlls_solver.host_read.count
+        reads = sum(trace.counts().values())
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             n = len(one_pass())
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        reads = nlls_solver.host_read.count - reads
+        reads = sum(trace.counts().values()) - reads
         kernels = sorted(((e.key, devprof.event_us(e), e.count)
                           for e in devprof.cuda_rows(prof)
                           if e.key not in names), key=lambda x: -x[1])

@@ -49,6 +49,7 @@ from iris_lama_tpu_torch.sdm import distance as tdist
 from iris_lama_tpu_torch.sdm import geometry as tgeo
 from iris_lama_tpu_torch.sdm import occupancy as tocc
 from iris_lama_tpu_torch.sdm import pool as tpool
+from iris_lama_tpu_torch.utils import trace
 from iris_lama_tpu_torch.utils.state import TABLE_FIELDS
 
 # the world of tests/test_gn_solve.py: 0.1 m cells, 96 x 96, cap 25
@@ -334,7 +335,7 @@ def test_fused_solve_matches_jax_fused():
                                      opts)
     topts = tsolver.SolverOptions(max_iterations=40, strategy="gn",
                                   robust=trobust.CAUCHY_SCAN)
-    reads = tsolver.host_read.count
+    reads = trace.counts().get("reads.irls_stop", 0)
     out = tmatch.solve_window(T(grid), T(ORG), TGEO, MAXD, T(pts), T(mask),
                               T(st0), topts, route="fused")
     assert int(out.iterations) == int(ref.iterations) >= 2
@@ -344,8 +345,8 @@ def test_fused_solve_matches_jax_fused():
                                atol=1e-6)
     # one host read per STOP_CHECK_EVERY masked steps
     steps = int(out.iterations) + 1
-    assert tsolver.host_read.count - reads == -(-steps //
-                                                tsolver.STOP_CHECK_EVERY)
+    assert (trace.counts()["reads.irls_stop"] - reads
+            == -(-steps // tsolver.STOP_CHECK_EVERY))
 
 
 # ---------------------------------------------------------------------------

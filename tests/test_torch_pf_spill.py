@@ -46,6 +46,7 @@ from iris_lama_tpu_torch.sdm import pool as tpool
 from iris_lama_tpu_torch.sdm import spill as tspill
 from iris_lama_tpu_torch.sdm.geometry import PKEY_BITS
 from iris_lama_tpu_torch.utils import state as tstate
+from iris_lama_tpu_torch.utils import trace
 from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
 
 N_USE = 232
@@ -99,6 +100,7 @@ def runs(corridor):
     b = _filter(data, _opts(capacity=768, use_compression=True))
     events = []   # (update, spilled, refilled, resampled)
     parted = None  # the first update after which a and b differ
+    reads0 = trace.counts().get("reads.spill", 0)    # only b has a tier
     for k in range(N_USE):
         if k == RELOAD_AT:
             saved = tstate.pf_to_numpy(b)
@@ -112,6 +114,7 @@ def runs(corridor):
                 torch.equal(getattr(a.pset, n), getattr(b.pset, n))
                 for n in ("pose", "weight", "res_org")):
             parted = k
+    spill_reads = trace.counts().get("reads.spill", 0) - reads0
     a._flush_motion()
     b._flush_motion()
     c = _filter(data, _opts(capacity=768, use_compression=True))
@@ -120,7 +123,7 @@ def runs(corridor):
         c.update_prepadded(*staged[k], data.odometry[k])
     c._flush_motion()
     return {"a": a, "b": b, "c": c, "events": events, "saved": saved,
-            "parted": parted}
+            "parted": parted, "spill_reads": spill_reads}
 
 
 def _content(state, max_dist):
@@ -172,7 +175,7 @@ def test_pf_spill_sync_keeps_reorg_anchor(runs):
     assert b.options.host_reorg and b._pf_trigger_m >= 0.5
     assert a.n_scrolls == b.n_scrolls == 0
     assert a.n_reorgs == b.n_reorgs >= N_USE // 2
-    assert b._pf_spill.host_reads > 0 and b._sync_pose is not None
+    assert runs["spill_reads"] > 0 and b._sync_pose is not None
     assert runs["parted"] is None, runs["parted"]
 
 
