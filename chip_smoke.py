@@ -30,21 +30,27 @@ Phases, one JSON line each:
    65, 100 and 254; B1 on the scan's beam-ordered free-space stream, timed
    there, shuffled and with sentinels, alone and as the map update's pair
    with the hits, the pair's yardsticks ``index_put_`` and ``index_add_``;
-   B2 also at uint8, int16 and int32), with its device time
-   per call
+   B2 also at uint8, int16 and int32; the whole solve B4, Slam2D's match
+   on the card, on the main path's own inputs after phase 4 and at every
+   width), with its device time per call
    (torch.profiler) beside the plain version's, a one-call PyTorch
    yardstick's and the bytes/ops bound; beside them the CUDA-event time
    per call of back-to-back calls (host enqueue included): ``kernel_ms``,
    ``plain_events_ms``, ``library_events_ms``;
 4. prefix — the first 60 scans of the main path on the CPU (plain
    versions) and on the card (kernels); trajectories within 1 mm / 1e-3
-   rad, resident grids compared cell by cell;
+   rad, resident grids compared cell by cell; every match of the card's
+   run recorded ([wm, wm] int8 sub-window, the 768-beam bucket and its
+   mask, the predicted pose, Slam2D's solver options) and solved again by
+   B4 and by its plain version: bit-equal state, iterations, chi2 and
+   likelihood, and the run's own result (phase 3's B4 entries);
 5. main_path — the Slam2D bench workload (synthetic office world,
    SimConfig(n_steps=440, seed=3), 720 beams, 5 cm cells) replayed through
    Slam2D.update_many_prepadded from device-staged scans, with every
    kernel's launch count set to 0 just before and read just after:
    scans/s, ATE (< 12 mm), re-orgs, zero escapes, launches > 0 (the
-   deposit through the pair);
+   deposit through the pair), one B4 launch a match (``match.solve`` of
+   utils.trace.counts) and no B2;
 6. pf_kernel — the particle filter's kernels at the bench_pf.py shapes (30
    particles, 720 beams padded to 768, 5 cm cells) on a real particle set:
    the batched Gauss-Newton solve B6 (also at uint8, int16 and int32 on
@@ -116,8 +122,8 @@ Phases, one JSON line each:
    at 4 cm over the first 6 updates of the phase 8 workload, on the CPU
    and on the card, launch counts set to 0 just before the card's run and
    read just after: the same accepted scans, resample decisions and best
-   particle, poses within 1 mm / 1e-3 rad, and B2 (Slam2D) or B6 (PF)
-   launched at that width;
+   particle, poses within 1 mm / 1e-3 rad, and B4 (Slam2D, one launch a
+   matched scan) or B6 (PF) launched at that width;
 13. lo_kernels — LidarOdometry2D's kernels on the bench_lidar.py workload's
    first scan and window (720 beams padded to 768, 5 cm cells, a 640 x 640
    window, 1 m rays of 22 steps, l2_max 1 m): B1's pair into [2, 640, 640]
@@ -1903,18 +1909,19 @@ def fine_phases(torch, dev) -> dict:
     (plain versions) and on the card (kernels), the launch counts set to 0
     just before the card's run and read just after: the same accepted
     scans, resample decisions and best particle, poses within 1 mm / 1e-3
-    rad, the window of the expected width, and B2 (Slam2D) or B6 (PF)
+    rad, the window of the expected width, and B4 (Slam2D) or B6 (PF)
     launched at that width. Returns {kernels-line name: launches}."""
     import dataclasses
     from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
     from iris_lama_tpu_torch.algos.slam2d import Slam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
     from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
-    from iris_lama_tpu_torch.ops import scatter_matmul, select4
+    from iris_lama_tpu_torch.ops import gn_solve, scatter_matmul, select4
     from iris_lama_tpu_torch.utils.evaluation import ate_rmse
 
     fns = (select4.select4_sq, gn_batch.solve_window_sq,
-           scatter_matmul.deposit_pair, edt_pallas.edt2d)
+           gn_solve.solve_window_sq, scatter_matmul.deposit_pair,
+           edt_pallas.edt2d)
     out = {}
 
     def pose_diff(a, g):
@@ -1950,7 +1957,7 @@ def fine_phases(torch, dev) -> dict:
         dxy, dth = pose_diff(tc, tg)
         gt = np.asarray([data.poses_gt[k] for k in acc_g])
         ate = ate_rmse(tg, gt)
-        n_b2 = select4.select4_sq.width_launches.get(width, 0)
+        n_b4 = gn_solve.solve_window_sq.width_launches.get(width, 0)
         emit({"phase": "fine_slam2d", "resolution": res, "dtype": dt_g,
               "scans": FINE_SCANS, "accepted": len(acc_g), "cpu_s": s_c,
               "card_s": s_g, "max_dxy_m": dxy, "max_dtheta_rad": dth,
@@ -1959,8 +1966,9 @@ def fine_phases(torch, dev) -> dict:
         assert dt_c == dt_g == f"torch.{width}", (dt_c, dt_g)
         assert dxy <= 1e-3 and dth <= 1e-3, f"Slam2D {res} m: poses differ"
         assert ate < ATE_BOUND_M and esc == 0, f"Slam2D {res} m: {ate}, {esc}"
-        assert n_b2 > 0, f"Slam2D {res} m: B2 at {width} never launched"
-        out[f"select4_sq_{width}"] = n_b2
+        assert n_b4 == len(acc_g) - 1, \
+            f"Slam2D {res} m: B4 at {width} launched {n_b4} times"
+        out[f"gn_solve_batched_slam2d_{width}"] = n_b4
 
     data, opts, padded = pf_workload()
     o = dataclasses.replace(opts, resolution=0.04)
@@ -2307,16 +2315,17 @@ def slam_option_phases(torch, dev) -> None:
     ``PREFIX_SCANS`` scans on the CPU and on the card (accepted scans,
     poses within 1 mm / 1e-3 rad, the map through a dense window around the
     last pose), then one full pass on the card with every kernel's launch
-    count set to 0 just before and read just after."""
+    count set to 0 just before and read just after (B4 matches, no B2)."""
     import dataclasses
     from iris_lama_tpu_torch.algos.slam2d import Slam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
-    from iris_lama_tpu_torch.ops import select4
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
+    from iris_lama_tpu_torch.ops import scatter_matmul
 
     data, opts, padded = slam_workload()
     fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+           "gn_solve_batched_slam2d": gn_solve.solve_window_sq,
+           "edt2d": edt_pallas.edt2d}
     for name, kw in (("slam2d_transient", dict(transient_map=True)),
                      ("slam2d_pool", dict(resident_window=False))):
         o = dataclasses.replace(opts, **kw)
@@ -2539,8 +2548,8 @@ def graph_phases(torch, dev) -> list:
     import dataclasses
     from iris_lama_tpu_torch.algos import graph_slam2d as gmod
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
-    from iris_lama_tpu_torch.ops import select4
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
+    from iris_lama_tpu_torch.ops import scatter_matmul
     from iris_lama_tpu_torch.utils import state as state_mod
     from iris_lama_tpu_torch.utils.evaluation import ate_rmse
 
@@ -2666,9 +2675,12 @@ def graph_phases(torch, dev) -> list:
     assert verify_err <= VERIFY_ATOL, f"graph_prefix: verification {verify_err}"
     del gc, gg, both, runs
 
-    # 19. the bench_graph.py workload on the card
+    # 19. the bench_graph.py workload on the card (the front end matches
+    # through B4; the verification and the coarse fallback on float
+    # windows, without B2)
     fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+           "gn_solve_batched_slam2d": gn_solve.solve_window_sq,
+           "edt2d": edt_pallas.edt2d}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _cuda.reset_launches(*fns.values())
@@ -2943,7 +2955,7 @@ def occupancy_phase(torch, dev) -> None:
 
 def file_workflow_phase(torch, dev, tmp: str) -> dict:
     """Phase 22: bench_loc.py's workload through files. Slam2D builds the
-    map on the card (B1's pair, B2, B3 at phase 3's shapes); the
+    map on the card (B1's pair, B4, B3 at phase 3's shapes); the
     frequency, simple and distance .smd files and the occupancy PNG are
     written from its maps, read back onto the card, written again (the
     same bytes) and written from the map moved to the CPU (the same
@@ -2961,7 +2973,8 @@ def file_workflow_phase(torch, dev, tmp: str) -> dict:
     from iris_lama_tpu_torch.utils import state
 
     slam_fns = {"deposit_pair": scatter_matmul.deposit_pair,
-                "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+                "gn_solve_batched_slam2d": gn_solve.solve_window_sq,
+                "edt2d": edt_pallas.edt2d}
     _cuda.reset_launches(*slam_fns.values())
     lw = loc_setup(torch, dev)
     slam_launches = {n: fn.launches for n, fn in slam_fns.items()}
@@ -3093,8 +3106,8 @@ def file_workflow_phase(torch, dev, tmp: str) -> dict:
     ru, mw = cfg.resident_update_cells, cfg.match_window_cells
     hs = ws = lc._ws                              # the match window's side
     return {"file_workflow_slam2d": path_counts(slam_launches, {
-                "deposit_pair": [2, ru, ru], "select4_sq": [mw, mw],
-                "edt2d": [ru, ru]}),
+                "deposit_pair": [2, ru, ru],
+                "gn_solve_batched_slam2d": [1, mw, mw], "edt2d": [ru, ru]}),
             "file_workflow_loc2d": path_counts(loc_launches, {
                 "gn_solve_batched": [1, hs, ws],
                 "select4_sq_loc2d": [hs, ws]})}
@@ -3493,8 +3506,8 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
     import dataclasses
     from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
-    from iris_lama_tpu_torch.ops import select4
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
+    from iris_lama_tpu_torch.ops import scatter_matmul
     from iris_lama_tpu_torch.sdm import io as sdm_io
     from iris_lama_tpu_torch.utils.evaluation import ate_rmse
 
@@ -3512,7 +3525,8 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
                                    resident_window=False,
                                    capacity=SPILL_REF_CAPACITY)
     fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+           "gn_solve_batched_slam2d": gn_solve.solve_window_sq,
+           "edt2d": edt_pallas.edt2d}
     runs = {}
     for name, o in (("reference", ref_opts), ("spill", opts)):
         slam = Slam2D(o, device=dev)
@@ -3606,7 +3620,8 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
         f"slam_spill: launches {sp_run['launches']}"
     w = opts.mapping_config().window_cells    # the pool-per-scan window
     return {"slam_spill": path_counts(sp_run["launches"], {
-        "deposit_pair": [2, w, w], "select4_sq": [w, w], "edt2d": [w, w]})}
+        "deposit_pair": [2, w, w], "gn_solve_batched_slam2d": [1, w, w],
+        "edt2d": [w, w]})}
 
 
 def pf_spill_phase(torch, dev) -> dict:
@@ -4130,16 +4145,142 @@ def smd3_roundtrip(torch, name: str, st, geo, tmp: str) -> dict:
             "cpu_bytes_equal": True, "read_back_equal": True}
 
 
+class MatchRecorder:
+    """Records the inputs and result of every ``solve_window`` call while
+    active (the module function is wrapped, and restored on exit)."""
+
+    def __init__(self, match_mod):
+        self.mod, self.calls = match_mod, []
+
+    def __enter__(self):
+        self.orig = self.mod.solve_window
+
+        def rec(grid, org_cell, geo, max_dist, points_xy, mask, state0,
+                opts, route="generic"):
+            res = self.orig(grid, org_cell, geo, max_dist, points_xy, mask,
+                            state0, opts, route=route)
+            self.calls.append({
+                "grid": grid.clone(), "org_cell": org_cell.clone(),
+                "geo": geo, "max_dist": max_dist,
+                "points_xy": points_xy.clone(), "mask": mask.clone(),
+                "state0": state0.clone(), "opts": opts, "route": route,
+                "state": res.state.clone(),
+                "iterations": res.iterations.clone(),
+                "chi2": res.chi2.clone()})
+            return res
+
+        self.mod.solve_window = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.solve_window = self.orig
+
+
+def b4_slam_entries(torch, dev, calls) -> list:
+    """B4 on Slam2D's own matches (phase 4's card prefix, recorded by
+    :class:`MatchRecorder`): every call's operands, as
+    ``match_surface_2d.solve_window`` passes them, solved by the kernel and
+    by its plain version, bit-equal in state, iterations, chi2 and the
+    likelihood's sum, and the kernel's state, iterations and chi2 equal to
+    what the run returned; timed on the last call (the largest map). Then
+    that call's window at every wider width: bit-equal to the plain version
+    and to the int8 result. Returns the kernels line's entries."""
+    from iris_lama_tpu_torch.match import match_surface_2d as match_mod
+    from iris_lama_tpu_torch.ops import gn_solve
+
+    def operands(c):
+        geo, opts = c["geo"], c["opts"]
+        args = (c["grid"][None], c["org_cell"].to(torch.int32).reshape(1, 2),
+                c["state0"].reshape(1, 4), c["points_xy"].contiguous(),
+                c["mask"])
+        kw = dict(max_dist=c["max_dist"], res=geo.resolution,
+                  scale=geo.scale, cell_offset=geo.cell_offset,
+                  cauchy_c=match_mod._cauchy_c(opts), eps1=opts.eps1,
+                  eps2=opts.eps2, max_iter=opts.max_iterations)
+        return args, kw
+
+    def bound_of(args, iters):
+        # bytes: the window once, the scan, the start and the rows;
+        # operations: ~60 per beam and evaluation (the start and each
+        # iteration's candidate), as phase 9's B4 entries count them
+        b = args[3].shape[0]
+        return bound(args[0].numel() * args[0].element_size() + b * 9 + 56,
+                     60 * b * (iters + 1))
+
+    names = ("state", "iterations", "chi2", "sum_d2")
+    iters, err = [], 0.0
+    for n, c in enumerate(calls):
+        assert c["route"] == "solve", f"B4 Slam2D call {n}: {c['route']}"
+        args, kw = operands(c)
+        got = gn_solve.solve_window_sq(*args, **kw, want_lik=True)
+        want = gn_solve.solve_window_sq_plain(*args, **kw, want_lik=True)
+        run = gn_solve.solve_window_sq(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, float((got[0] - want[0]).abs().max()))
+        for name, a, w_ in zip(names, got, want):
+            assert torch.equal(a, w_), f"B4 Slam2D call {n}: {name} differs"
+        for name, a in zip(names, run[:3]):
+            assert torch.equal(a[0], c[name]), \
+                f"B4 Slam2D call {n}: {name} differs from the run's"
+        iters.append(int(got[1][0]))
+    args, kw = operands(calls[-1])
+    _, h, w = args[0].shape
+    b = args[3].shape[0]
+    bd = bound_of(args, iters[-1])
+    common = {"route": "cuda",
+              "source": "iris_lama_tpu_torch/csrc/gn_solve.cu",
+              "replaces": "iris_lama_tpu/ops/gn_solve.py:104",
+              "library_ms": None,
+              "library_call": "none: no single PyTorch call computes an "
+                              "IRLS solve"}
+    entries = [{
+        "name": "gn_solve_batched_slam2d", **common,
+        "shape": [1, h, w, b], "dtype": "int8",
+        "valid_beams": int(args[4].sum()),
+        "variant": "shared" if gn_solve.staged(h, w, b) else "global",
+        "calls_checked": len(calls), "iters": iters, "max_abs_err": err,
+        "launch_floor_ms": b5_floor_ms(torch, dev, 1, b),
+        **timings(torch, "", lambda: gn_solve.solve_window_sq(*args, **kw),
+                  300),
+        **timings(torch, "plain_", lambda: gn_solve.solve_window_sq_plain(
+            *args, **kw), 5),
+        "bound_ms": bd[0], "bound_by": bd[1]}]
+    ref8 = gn_solve.solve_window_sq(*args, **kw, want_lik=True)
+    for width in WIDTHS:
+        args_w = (widened(torch, args[0], width), *args[1:])
+        got_w = gn_solve.solve_window_sq(*args_w, **kw, want_lik=True)
+        want_w = gn_solve.solve_window_sq_plain(*args_w, **kw, want_lik=True)
+        torch.cuda.synchronize()
+        for name, a, w_, i8 in zip(names, got_w, want_w, ref8):
+            assert torch.equal(a, w_) and torch.equal(a, i8), \
+                f"B4 Slam2D {width} {name} differs"
+        bd = bound_of(args_w, int(got_w[1][0]))
+        entries.append({
+            "name": f"gn_solve_batched_slam2d_{width}", **common,
+            "shape": [1, h, w, b], "dtype": width, "max_abs_err": 0.0,
+            **timings(torch, "", lambda: gn_solve.solve_window_sq(
+                *args_w, **kw), 100),
+            **timings(torch, "plain_", lambda: gn_solve.solve_window_sq_plain(
+                *args_w, **kw), 3),
+            "bound_ms": bd[0], "bound_by": bd[1]})
+    return entries
+
+
 def slam_phases(torch, dev) -> list:
     """Phases 3-5: the kernels against their plain versions at the main
     path's shapes, the CPU/card prefix, the Slam2D bench workload.
-    Returns the kernels line's entries of B1, B2 and B3."""
+    Returns the kernels line's entries of B1, B2, B3 and B4 (the main path
+    matches through B4, one launch a matched update; B2 at this shape
+    serves the generic route's callers, Slam2D on the CPU or under LM, and
+    reads 0 launches here)."""
     from iris_lama_tpu_torch.algos.slam2d import Slam2D
     from iris_lama_tpu_torch.core import lie
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
-    from iris_lama_tpu_torch.ops import select4
+    from iris_lama_tpu_torch.match import match_surface_2d as match_mod
+    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
+    from iris_lama_tpu_torch.ops import scatter_matmul, select4
     from iris_lama_tpu_torch.sdm import mapping
+    from iris_lama_tpu_torch.utils import trace
     from iris_lama_tpu_torch.utils.cloud import beam_bucket
 
     # the main path's data: the bench workload's scans and options
@@ -4369,7 +4510,8 @@ def slam_phases(torch, dev) -> list:
     t0 = time.perf_counter()
     cpu_slam, cpu_acc = run("cpu", PREFIX_SCANS)
     t_cpu = time.perf_counter() - t0
-    gpu_slam, gpu_acc = run(dev, PREFIX_SCANS)
+    with MatchRecorder(match_mod) as rec:
+        gpu_slam, gpu_acc = run(dev, PREFIX_SCANS)
     torch.cuda.synchronize()
     assert cpu_acc == gpu_acc, "prefix: accepted scans differ"
     tc, tg = cpu_slam.trajectory(), gpu_slam.trajectory()
@@ -4393,32 +4535,49 @@ def slam_phases(torch, dev) -> list:
     # check; here a handful of such cells may differ.
     assert sum(grids.values()) <= 1e-3 * gpu_slam._res_occ.numel(), \
         f"prefix: resident grids differ {grids}"
+    # B4 on the matches the card's prefix made (one a scan after the first)
+    assert len(rec.calls) == len(gpu_acc) - 1, len(rec.calls)
+    b4 = b4_slam_entries(torch, dev, rec.calls)
+    for k in b4:
+        emit({"phase": "kernel", **k})
+    kernels += b4
 
     # 5. the main path on the card ------------------------------------------
     staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
               for p in padded]
     fns = {"deposit_pair": scatter_matmul.deposit_pair,
            "deposit_counts": scatter_matmul.deposit_counts,
-           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
+           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d,
+           "gn_solve_batched_slam2d": gn_solve.solve_window_sq}
     _cuda.reset_launches(*fns.values())
+    c0 = trace.counts()
     passes = []
     for p in range(bench_reps(3)):
         passes.append(slam_pass(torch, dev, data, opts, staged, p))
     launches = {n: fn.launches for n, fn in fns.items()}
+    matches = {k: trace.counts().get(k, 0) - c0.get(k, 0)
+               for k in ("match.solve", "match.generic", "reads.irls_stop")}
     rates = sorted(p["scans_per_s"] for p in passes)
     updates = sum(p["updates"] for p in passes)
     emit({"phase": "main_path", "passes": passes,
           "median_scans_per_s": rates[len(rates) // 2],
           "launches": launches,
           "launches_per_scan": {k: v / updates for k, v in launches.items()},
+          "matches": matches,
           "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20})
     for p in passes:
         assert p["ate_m"] < ATE_BOUND_M, f"ATE {p['ate_m']:.4f} m"
         assert p["escaped"] == 0, "updates escaped the resident safe zone"
     # the map update deposits through the pair; deposit_counts stays B1's
-    # interface for other callers
-    assert all(launches[n] > 0 for n in ("deposit_pair", "select4_sq",
-                                         "edt2d")), f"launches {launches}"
+    # interface for other callers; every match is one launch of B4's whole
+    # solve (no host read of a stop flag), so no B2
+    assert all(launches[n] > 0 for n in ("deposit_pair", "edt2d")), \
+        f"launches {launches}"
+    assert (launches["gn_solve_batched_slam2d"] == matches["match.solve"]
+            >= updates), f"launches {launches}, matches {matches}"
+    assert matches["match.generic"] == matches["reads.irls_stop"] == 0, \
+        f"matches {matches}"
+    assert launches["select4_sq"] == 0, f"launches {launches}"
 
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)

@@ -12,6 +12,12 @@ and the re-org trigger tightens on escapes, down to a per-scan safe-zone
 check. A transient map (slam2d.cpp:323-373) resets the window patches and
 deletes the pool patches outside the scan's expanded box after every scan.
 
+The scan match takes ``match_route``, set once from the device and the
+options: on the card, GN with the Cauchy (or a unit) cost on the integer
+squared-distance window is one launch of kernel B4 (``"solve"``: the whole
+IRLS loop, no host read of its stop flag); LM, another robust cost, a
+float window and every CPU run take the generic IRLS (``"generic"``).
+
 ``resident_window=False`` takes the pool-per-scan path instead (the JAX
 package's ``_make_step``): each scan gathers an f32 distance window from
 the pool, matches on its squared-distance form and applies the scan with
@@ -29,8 +35,8 @@ path, synchronising at each phase boundary. Neither adds a wait when off.
 
 The driver runs on the CUDA device unless constructed with
 ``device="cpu"``; the pose, trajectory and map stay on the device and the
-host reads them only on request (and the IRLS stop flag, the escape
-counter and re-org origins at their checkpoints), each through
+host reads them only on request (and the generic IRLS's stop flag, the
+escape counter and re-org origins at their checkpoints), each through
 ``utils.trace.host_read``. The update's layers are spanned (``lama.update``,
 ``lama.stage``, ``lama.match``, ``lama.map_update``, ``lama.reorg.*``; see
 ``utils/trace.py``) for a profiler that records.
@@ -145,6 +151,11 @@ class Slam2D:
         self.options = options
         self.cfg = options.mapping_config()
         self.sopts = options.solver_options()
+        # B4 on the card wherever it serves (see the module docstring), as
+        # the JAX package takes its whole-solve kernel on the accelerator
+        self.match_route = (
+            "solve" if self.device.type == "cuda" and match.route_serves(
+                "solve", self.sopts, self.cfg.sq_dtype) else "generic")
         self._map = mapping.slam_map_init(self.cfg, self.device)
         self.odom_ = Pose2D()
         self.has_first_scan = False
@@ -486,7 +497,8 @@ class Slam2D:
         with span("lama.match"):
             res = match.solve_window(cfg.dist_to_sq(grid), org, geo,
                                      cfg.distance.max_dist, points[:, :2],
-                                     mask, pose0, self.sopts)
+                                     mask, pose0, self.sopts,
+                                     route=self.match_route)
         with span("lama.map_update"):
             self._map, _ = mapping.update_maps(self._map, cfg, res.state,
                                                points, mask, origin, org,
@@ -515,7 +527,8 @@ class Slam2D:
         with phase("lama.match", clock, "solving"):
             res = match.solve_window(dist_m, m_org, geo,
                                      cfg.distance.max_dist, points[:, :2],
-                                     mask, pose0, self.sopts)
+                                     mask, pose0, self.sopts,
+                                     route=self.match_route)
         with phase("lama.map_update", clock, "mapping"):
             mapping.resident_update(cfg, org, self._res_occ, self._res_vis,
                                     dist, res.state, points, mask, origin)

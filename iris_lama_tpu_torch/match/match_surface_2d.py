@@ -14,7 +14,7 @@ from ..nlls import solver as nlls_solver
 from ..ops import gn_solve, match_eval
 from ..sdm import distance as dist_mod
 from ..sdm.geometry import MapGeometry
-from ..utils.trace import host_read
+from ..utils.trace import count, host_read
 
 
 def make_window_eval(grid, org_cell, geo: MapGeometry, max_dist,
@@ -88,20 +88,26 @@ def solve_window(grid, org_cell, geo, max_dist, points_xy, mask,
     evaluation. The two kernel routes take a squared-distance window of
     any width ``DistanceConfig.sq_dtype`` picks (int8, uint8, int16,
     int32), the GN strategy and a Cauchy or unit robust cost, and raise
-    ValueError otherwise (no silent change of solver). ``r`` and ``J`` of
-    their result are 0-dim zeros.
+    ValueError otherwise (no silent change of solver; :func:`route_serves`
+    asks without raising). ``r`` and ``J`` of their result are 0-dim
+    zeros. Each call counts one under ``match.<route>``
+    (``utils.trace.counts``).
     """
     if route == "generic":
+        count("match.generic")
         eval_fn = make_window_eval(grid, org_cell, geo, max_dist, points_xy,
                                    mask)
         return nlls_solver.solve(eval_fn, update_state, state0, opts)
     check_kernel_route(route, opts, grid.dtype)
+    count("match." + route)
     if route == "fused":
         return _solve_window_fused(grid, org_cell, geo, max_dist, points_xy,
                                    mask, state0, opts)
+    # B4 takes contiguous operands; a scan's xy columns are a view
     st, it, chi2, _ = gn_solve.solve_window_sq(
         grid[None], org_cell.to(torch.int32).reshape(1, 2),
-        state0.reshape(1, 4), points_xy, mask, max_dist=max_dist,
+        state0.reshape(1, 4), points_xy.contiguous(), mask,
+        max_dist=max_dist,
         res=geo.resolution, scale=geo.scale, cell_offset=geo.cell_offset,
         cauchy_c=_cauchy_c(opts), eps1=opts.eps1, eps2=opts.eps2,
         max_iter=opts.max_iterations)
@@ -110,23 +116,39 @@ def solve_window(grid, org_cell, geo, max_dist, points_xy, mask,
                                    chi2=chi2[0], r=zero, J=zero)
 
 
-def check_kernel_route(route: str, opts, dtype=torch.int8) -> None:
-    """Raise ValueError unless ``route`` is one of :data:`ROUTES` and, for
-    the kernel routes, the options and window dtype are theirs."""
+def _refusal(route: str, opts, dtype):
+    """Why ``route`` cannot serve ``opts`` on a window of ``dtype``, or
+    None when it can."""
     if route not in ROUTES:
-        raise ValueError(f"route {route!r}: expected one of {ROUTES}")
+        return f"route {route!r}: expected one of {ROUTES}"
     if route == "generic":
-        return
+        return None
     if opts.strategy != "gn":
-        raise ValueError(f"route {route!r} runs Gauss-Newton; strategy "
-                         f"{opts.strategy!r} needs route 'generic'")
+        return (f"route {route!r} runs Gauss-Newton; strategy "
+                f"{opts.strategy!r} needs route 'generic'")
     if opts.robust.kind not in ("cauchy", "unit"):
-        raise ValueError(f"route {route!r} weighs by Cauchy or unit; "
-                         f"robust cost {opts.robust.kind!r} needs route "
-                         "'generic'")
+        return (f"route {route!r} weighs by Cauchy or unit; robust cost "
+                f"{opts.robust.kind!r} needs route 'generic'")
     if dtype not in SQ_DTYPES:
-        raise ValueError(f"route {route!r} reads an integer squared-distance "
-                         f"window (int8, uint8, int16, int32), got {dtype}")
+        return (f"route {route!r} reads an integer squared-distance window "
+                f"(int8, uint8, int16, int32), got {dtype}")
+    return None
+
+
+def route_serves(route: str, opts, dtype=torch.int8) -> bool:
+    """Whether ``route`` (one of :data:`ROUTES`) can serve the solver
+    options ``opts`` on a window of ``dtype``: ``"generic"`` always; the
+    kernel routes GN with a Cauchy or unit cost on an integer
+    squared-distance window."""
+    return _refusal(route, opts, dtype) is None
+
+
+def check_kernel_route(route: str, opts, dtype=torch.int8) -> None:
+    """Raise ValueError, saying why, unless :func:`route_serves` holds
+    (both read :func:`_refusal`)."""
+    why = _refusal(route, opts, dtype)
+    if why is not None:
+        raise ValueError(why)
 
 
 def _cauchy_c(opts) -> float:

@@ -47,6 +47,11 @@ safe-zone check once no re-org trigger is safe), ``reorg_origin`` (a band
 scroll's window origins), ``pose`` (the published pose), ``spill`` (the
 spill tier's reads), and ``lineage``, ``memory``, ``info``,
 ``trajectory``, ``loc_cell`` and ``refresh`` off the update path.
+:func:`count` adds to any other counter: ``match.<route>`` counts the
+calls of ``match_surface_2d.solve_window`` by route (``generic``,
+``solve``: kernel B4's whole solve in one launch, ``fused``), so on
+Slam2D's path ``match.solve`` equals the matched updates where the card
+and the options take B4.
 """
 
 from __future__ import annotations
@@ -97,11 +102,17 @@ def host_read(t: torch.Tensor, site: str, numpy: bool = False):
     """``t.tolist()`` (``numpy=True``: ``t.cpu().numpy()``): a read of
     device data on the host, which waits for the device. Spanned as
     ``lama.read.<site>`` and counted under ``reads.<site>``."""
-    _COUNTS["reads." + site] += 1
+    count("reads." + site)
     with span("lama.read." + site):
         return t.cpu().numpy() if numpy else t.tolist()
 
 
+def count(key: str) -> None:
+    """Add one to the counter ``key`` (a plain host integer)."""
+    _COUNTS[key] += 1
+
+
 def counts() -> dict:
-    """A copy of the process's counters (``reads.<site>``: host reads)."""
+    """A copy of the process's counters (``reads.<site>``: host reads;
+    ``match.<route>``: scan matches by route)."""
     return dict(_COUNTS)

@@ -95,22 +95,33 @@ def test_slam2d_on_card_matches_cpu(cuda):
                          trans_thresh=0.2, rot_thresh=0.2, capacity=1024,
                          scroll_kp=5)
     padded = [pad_scan(c, beam_bucket(120)) for c in data.clouds]
-    before = (scatter_matmul.deposit_pair.launches,
-              select4.select4_sq.launches, edt_pallas.edt2d.launches)
     runs = []
     for dev in ("cpu", cuda):
         slam = Slam2D(opts, device=dev)
         slam.set_prior(Pose2D(*data.poses_gt[0]))
         staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
                   for p in padded]
+        before = _slam_launches()
         acc = slam.update_many_prepadded(staged, data.odometry)
-        runs.append((acc, slam.trajectory(), slam.escaped_count()))
-    (acc_c, tc, esc_c), (acc_g, tg, esc_g) = runs
+        launched = [a - b for a, b in zip(_slam_launches(), before)]
+        runs.append((acc, slam.trajectory(), slam.escaped_count(),
+                     slam.match_route, launched))
+    (acc_c, tc, esc_c, route_c, _), (acc_g, tg, esc_g, route_g, n) = runs
     assert acc_c == acc_g and esc_c == esc_g == 0
     assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
-    after = (scatter_matmul.deposit_pair.launches,
-             select4.select4_sq.launches, edt_pallas.edt2d.launches)
-    assert all(a > b for a, b in zip(after, before))
+    # the card matches each update after the first scan in one B4 launch
+    assert (route_c, route_g) == ("generic", "solve")
+    assert n[0] > 0 and n[2] > 0, n
+    assert (n[1], n[3]) == (0, len(acc_g) - 1), n
+    lm = Slam2D(Slam2DOptions(strategy="lm"), device=cuda)
+    assert lm.match_route == "generic"
+
+
+def _slam_launches():
+    """Launches so far of B1's pair, B2, B3 and B4."""
+    return (scatter_matmul.deposit_pair.launches,
+            select4.select4_sq.launches, edt_pallas.edt2d.launches,
+            gn_solve.solve_window_sq.launches)
 
 
 # ---------------------------------------------------------------------------
@@ -906,8 +917,9 @@ def test_lidar_odometry_on_card_matches_cpu(cuda):
 def test_slam2d_options_on_card_match_cpu(cuda, kw, monkeypatch):
     """Slam2D's transient map and pool-per-scan path over the first 30
     scans of bench.py's workload (720 beams, 5 cm) on the card and on the
-    CPU: the same accepted scans, poses within 1 mm, and B1, B2 and B3
-    launched on the card. Then the card again, its scan matches replaced
+    CPU: the same accepted scans, poses within 1 mm, and B1 and B3 launched
+    on the card, with one B4 launch a matched update and no B2 (the card's
+    route). Then the card again, its scan matches replaced
     by the CPU run's poses: the pool (tables and cell arrays) bit-equal to
     the CPU's. (Free-running, an ulp of pose may move a ray's cell, and
     with it a patch in or out of a transient map; on the small 0.1 m,
@@ -921,8 +933,6 @@ def test_slam2d_options_on_card_match_cpu(cuda, kw, monkeypatch):
     opts = Slam2DOptions(resolution=0.05, max_range=10.0, trans_thresh=0.05,
                          rot_thresh=0.05, capacity=8192, max_iter=50, **kw)
     padded = [pad_scan(c, beam_bucket(720)) for c in data.clouds[:30]]
-    before = (scatter_matmul.deposit_pair.launches,
-              select4.select4_sq.launches, edt_pallas.edt2d.launches)
 
     def run(dev):
         slam = Slam2D(opts, device=dev)
@@ -932,13 +942,16 @@ def test_slam2d_options_on_card_match_cpu(cuda, kw, monkeypatch):
         acc = slam.update_many_prepadded(staged, data.odometry[:30])
         return acc, slam
 
-    (acc_c, cpu), (acc_g, gpu) = run("cpu"), run(cuda)
+    acc_c, cpu = run("cpu")
+    before = _slam_launches()
+    acc_g, gpu = run(cuda)
+    n = [a - b for a, b in zip(_slam_launches(), before)]
     tc, tg = cpu.trajectory(), gpu.trajectory()
     assert acc_c == acc_g and len(acc_c) > 10
     assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
-    after = (scatter_matmul.deposit_pair.launches,
-             select4.select4_sq.launches, edt_pallas.edt2d.launches)
-    assert all(a > b for a, b in zip(after, before))
+    assert gpu.match_route == "solve"
+    assert n[0] > 0 and n[2] > 0, n
+    assert (n[1], n[3]) == (0, len(acc_g) - 1), n
 
     poses = iter(cpu._traj[1:len(acc_c)].to(cuda))
 
@@ -955,6 +968,52 @@ def test_slam2d_options_on_card_match_cpu(cuda, kw, monkeypatch):
         forced_run.map)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_slam2d_routes_agree_at_its_shape(cuda, monkeypatch):
+    """Slam2D's own match shape on the card: a Hokuyo UST-10LX scan (1,081
+    beams in the 1,280-beam bucket) on the [488, 488] int8 sub-window of
+    5 cm cells, over the first 30 scans of the office loop. At every
+    matched update the generic IRLS and B4's "solve" route, on the same
+    window and start pose, land within the benchmark check's limits (2 mm,
+    0.5 mrad), and the "solve" route reads no stop flag on the host."""
+    from iris_lama_tpu_torch.match import match_surface_2d
+    from iris_lama_tpu_torch.utils import trace
+    data = simulator.simulate(simulator.SimConfig(
+        n_steps=440, seed=3,
+        laser=simulator.LaserSpec(n_beams=1081, max_range=10.0)))
+    opts = Slam2DOptions(resolution=0.05, max_range=10.0, trans_thresh=0.05,
+                         rot_thresh=0.05, capacity=8192)
+    padded = [pad_scan(c, beam_bucket(1081)) for c in data.clouds[:30]]
+    solve = match_surface_2d.solve_window
+    shapes, gaps = set(), []
+
+    def both(grid, org, geo, max_dist, pts, mask, state0, sopts, route):
+        generic = solve(grid, org, geo, max_dist, pts, mask, state0, sopts,
+                        route="generic")
+        reads = trace.counts().get("reads.irls_stop", 0)
+        res = solve(grid, org, geo, max_dist, pts, mask, state0, sopts,
+                    route=route)
+        assert trace.counts().get("reads.irls_stop", 0) == reads
+        shapes.add((route, tuple(grid.shape), grid.dtype, pts.shape[0]))
+        gaps.append(torch.stack([res.state, generic.state]).cpu().numpy())
+        return res
+
+    monkeypatch.setattr(match_surface_2d, "solve_window", both)
+    slam = Slam2D(opts, device=cuda)
+    slam.set_prior(Pose2D(*data.poses_gt[0]))
+    staged = [tuple(torch.as_tensor(a, device=cuda) for a in p)
+              for p in padded]
+    acc = slam.update_many_prepadded(staged, data.odometry[:30])
+    assert shapes == {("solve", (488, 488), torch.int8, 1280)}, shapes
+    assert len(gaps) == len(acc) - 1 > 20
+    st = np.stack(gaps)                              # [n, 2, 4]
+    dxy = np.abs(st[:, 0, :2] - st[:, 1, :2]).max()
+    ang = np.arctan2(st[..., 3], st[..., 2])
+    dth = np.abs(np.angle(np.exp(1j * (ang[:, 0] - ang[:, 1])))).max()
+    print(f"generic against solve over {len(gaps)} updates: "
+          f"max {dxy:.3e} m, {dth:.3e} rad")
+    assert dxy <= 0.002 and dth <= 0.0005, (dxy, dth)
 
 
 def _graph_key_scans(dev, n_keys=8):
@@ -1024,31 +1083,31 @@ def _graph_opts():
 def test_graph_slam_on_card_matches_cpu(cuda):
     """The first 40 scans of bench_graph.py's workload through the per-scan
     GraphSlam2D path on the card and on the CPU: the same key-pose update
-    indices, key poses within 1 mm / 1e-3 rad, B1, B2 and B3 launched."""
+    indices, key poses within 1 mm / 1e-3 rad, B1, B3 and B4 (the front
+    end's Slam2D matches) launched on the card, and no B2 (the
+    verification matches on float windows, which B2 does not read)."""
     from iris_lama_tpu_torch.algos.graph_slam2d import GraphSlam2D
     data = simulator.simulate(simulator.SimConfig(
         n_steps=40, seed=8,
         laser=simulator.LaserSpec(n_beams=720, max_range=10.0),
         odom_trans_noise=0.02, odom_rot_noise=0.004))
     padded = [pad_scan(c, beam_bucket(720)) for c in data.clouds]
-    before = (scatter_matmul.deposit_pair.launches,
-              select4.select4_sq.launches, edt_pallas.edt2d.launches)
     runs = []
     for dev in ("cpu", cuda):
         gs = GraphSlam2D(_graph_opts(), device=dev)
         gs.set_prior(Pose2D(*data.poses_gt[0]))
+        before = _slam_launches()
         for k, p in enumerate(padded):
             gs.update_prepadded(*p, data.odometry[k], float(k))
         runs.append(gs.key_poses)
+    n = [a - b for a, b in zip(_slam_launches(), before)]
     kc, kg = runs
     assert [k.timestamp for k in kc] == [k.timestamp for k in kg]
     pc = np.asarray([k.pose.xyr() for k in kc])
     pg = np.asarray([k.pose.xyr() for k in kg])
     assert np.abs(pc[:, :2] - pg[:, :2]).max() <= 1e-3
     assert np.abs(np.angle(np.exp(1j * (pc[:, 2] - pg[:, 2])))).max() <= 1e-3
-    after = (scatter_matmul.deposit_pair.launches,
-             select4.select4_sq.launches, edt_pallas.edt2d.launches)
-    assert all(a > b for a, b in zip(after, before))
+    assert n[0] > 0 and n[2] > 0 and n[3] > 0 and n[1] == 0, n
 
 
 def test_graph_verification_batch_on_both_devices(cuda):

@@ -196,6 +196,28 @@ def test_kernel_routes_refuse_what_they_cannot_serve(route):
         tmatch.check_kernel_route(route, gn)
 
 
+@pytest.mark.parametrize("dtype", [*tmatch.SQ_DTYPES, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("kind", ["cauchy", "unit", "huber"])
+@pytest.mark.parametrize("strategy", ["gn", "lm"])
+def test_route_serves_agrees_with_check(strategy, kind, dtype):
+    """``route_serves`` holds exactly where ``check_kernel_route`` does not
+    raise: "generic" always, the kernel routes for GN with a Cauchy or
+    unit cost on an integer squared-distance window."""
+    opts = tsolver.SolverOptions(strategy=strategy,
+                                 robust=trobust.RobustCost(kind, 0.15))
+    kernel = (strategy == "gn" and kind in ("cauchy", "unit")
+              and dtype in tmatch.SQ_DTYPES)
+    for route in tmatch.ROUTES:
+        serves = tmatch.route_serves(route, opts, dtype)
+        assert serves == (route == "generic" or kernel), route
+        if serves:
+            tmatch.check_kernel_route(route, opts, dtype)
+        else:
+            with pytest.raises(ValueError):
+                tmatch.check_kernel_route(route, opts, dtype)
+
+
 # ---------------------------------------------------------------------------
 # B5: the fused evaluation, and the fused solve loop
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 from iris_lama_tpu_torch.algos import pf_slam2d as tpf
 from iris_lama_tpu_torch.algos import slam2d as tslam
 from iris_lama_tpu_torch.core.pose import Pose2D
+from iris_lama_tpu_torch.match import match_surface_2d as tmatch
 from iris_lama_tpu_torch.utils import simulator as tsim
 from iris_lama_tpu_torch.utils import summary as tsummary
 from iris_lama_tpu_torch.utils import trace
@@ -155,11 +156,32 @@ def test_irls_stop_spans_equal_reads(data, driver):
     _, spans = _traced(lambda: _run(f, data))
     after = trace.counts()
     for key, value in after.items():
+        if not key.startswith("reads."):
+            continue
         site = key[len("reads."):]
         rise = value - before.get(key, 0)
         assert len(spans.get("lama.read." + site, ())) == rise, site
     if driver == "slam2d":
         assert after["reads.irls_stop"] > before.get("reads.irls_stop", 0)
+
+
+@pytest.mark.parametrize("strategy", ["gn", "lm"])
+def test_slam2d_match_route_on_the_cpu(data, strategy):
+    """On the CPU Slam2D matches through the generic IRLS: ``match_route``
+    reads "generic", ``match.generic`` rises by one a matched update (every
+    integrated update after the first scan) and ``match.solve`` stays. B4
+    would serve GN on its window, never LM."""
+    slam = _slam(strategy=strategy)
+    assert slam.match_route == "generic"
+    assert tmatch.route_serves("solve", slam.sopts,
+                               slam.cfg.sq_dtype) == (strategy == "gn")
+    before = trace.counts()
+    _run(slam, data, 12)
+    after = trace.counts()
+    assert slam._n_updates > 3
+    assert (after["match.generic"] - before.get("match.generic", 0)
+            == slam._n_updates - 1)
+    assert after.get("match.solve", 0) == before.get("match.solve", 0)
 
 
 def test_pf_draw_spans_equal_packets(data):
