@@ -9,7 +9,8 @@ The pieces:
 * the front end is the port's resident-window Slam2D with
   ``transient_map=True``;
 * key-pose gate (:199-207) — gates on the *matched slam pose* delta like the
-  reference. The matched poses land in the front end's trajectory ring;
+  reference. The matched poses land in the front end's trajectory ring
+  (update k at row k % ``Slam2D.TRAJ_CAP``);
   once per sync window (``sync_updates`` accepted scans, or one
   ``sync_scans`` slice of a replay) :func:`key_scan` replays the gate over
   up to 64 of them, reading the ring's block in one host read (the one read
@@ -46,7 +47,21 @@ it), ``process_pending`` (harvests; ``coarse`` within it), ``optimize`` and
 ``rebuild`` (:meth:`GraphSlam2D.generate_occupancy_map`), and ``sync``
 around each sync round (``sync_n``: the rounds). The timers read
 no device: on the card a phase's time is its host enqueue time plus the
-waits of the host reads inside it.
+waits of the host reads inside it. Each phase is also the span
+``lama.graph.<phase>`` (``utils/trace.py``), with the same boundaries.
+
+Counters (``trace.count``): ``graph.keys`` (key poses created),
+``graph.queries`` (candidate searches), ``graph.rows_verified`` ((query,
+candidate) rows dispatched), ``graph.coarse_jobs``, ``graph.loops_accepted``,
+``graph.optimizes`` and ``graph.publishes`` (map rebuilds). Host reads go
+through ``trace.host_read`` at the sites ``key_gate`` (the gate's block),
+``verify`` and ``coarse`` (a harvested batch), ``pgo_nodes`` (the optimised
+key poses); the LM's stop flag reads at ``pgo_stop``.
+
+``observer``, when set, is handed every event of the key poses, the loop
+closure and the pose graph as it happens, in host data GraphSlam2D holds
+anyway (see :meth:`GraphSlam2D._note`): a record for a check that follows
+the machinery from the outside.
 
 The driver runs on the CUDA device unless constructed with
 ``device="cpu"``.
@@ -73,6 +88,7 @@ from ..sdm import distance as dist_mod
 from ..sdm import mapping, pool as pool_mod, window as win_mod
 from ..sdm.geometry import MapGeometry
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
+from ..utils.trace import count, host_read, span
 from .slam2d import Slam2D, Slam2DOptions
 
 HUBER_MATCH = RobustCost("huber", 0.15)   # graph_slam2d.cpp:327, 363
@@ -135,7 +151,8 @@ def key_scan(traj, k0: int, n: int, last_key, kd: float, ka: float):
     """
     cap = traj.shape[0]
     start = min(max(int(k0), 0), cap - KEY_SCAN_S)
-    block = traj[start:start + KEY_SCAN_S].to("cpu")
+    block = torch.from_numpy(host_read(traj[start:start + KEY_SCAN_S],
+                                       "key_gate", numpy=True))
     last = torch.as_tensor(last_key, dtype=torch.float32).to("cpu")
     fired = []
     for i in range(min(int(n), KEY_SCAN_S)):
@@ -194,6 +211,8 @@ class GraphSlam2D:
         # lags while scans sit in the buffer)
         self._live_pend: List[tuple] = []
         self._gate_odom = None
+        # None, or a callable handed each event of the machinery (_note)
+        self.observer = None
 
     # -- public API ----------------------------------------------------------
     def set_prior(self, prior: Pose2D) -> None:
@@ -316,6 +335,29 @@ class GraphSlam2D:
             self._sync(keys_now=True)
         return accepted
 
+    def _note(self, event: str, **fields) -> None:
+        """Hand ``observer`` one event (a name and a dict of fields; no
+        device read), when one is set:
+
+        * ``key``: ``id``, ``timestamp``, ``pose`` and ``raw`` (Pose2D,
+          the corrected and the slam-frame pose) of a new key pose;
+        * ``factor``: ``i``, ``j``, ``measurement`` (f32 [4], as the graph
+          holds it) and ``loop`` of a factor added (a prior has i == j);
+        * ``dispatch``: ``queries`` (the keys searched), ``accdist`` (the
+          distance the search radius grew from) and ``rows``, each
+          ``(query, candidate, ref, cand)`` with both poses (Pose2D) in the
+          slam frame, in rank order, of a verification dispatched;
+        * ``coarse``: ``jobs``, each ``(query, candidate, ref, cand)``, of a
+          coarse batch dispatched;
+        * ``harvest``: ``kind`` (``"verify"`` or ``"coarse"``), ``pairs``
+          (``(query, candidate)`` a row) and ``packed`` (f32 [n, 5]: each
+          row's matched state and RMSE) of a batch read;
+        * ``optimize``: ``start`` (f32 [n, 4]: the key poses the LM starts
+          from) and ``out`` (its result; None when not finite).
+        """
+        if self.observer is not None:
+            self.observer(event, fields)
+
     def _timed(self, name):
         st = self.stats
 
@@ -323,7 +365,8 @@ class GraphSlam2D:
         def cm():
             t0 = time.perf_counter()
             try:
-                yield
+                with span("lama.graph." + name):
+                    yield
             finally:
                 st[name] = st.get(name, 0.0) + (time.perf_counter() - t0)
                 st[name + "_n"] = st.get(name + "_n", 0) + 1
@@ -383,15 +426,22 @@ class GraphSlam2D:
         """Run every gate replay handed over and create its fired key
         poses. Returns the query ids due for loop-closure verification."""
         _, gate, _ = self._programs()
+        cap = self.slam.TRAJ_CAP
         new_queries = []
         while self._keyscan_pending:
             k_lo, take = self._keyscan_pending.pop(0)
             with self._timed("key_scan"):
-                data, self._last_key = gate(self.slam._traj, k_lo, take,
-                                            self._last_key)
+                # update k sits at ring row k % cap; a block that runs past
+                # the ring's end is read as its two pieces joined
+                r0, traj = k_lo % cap, self.slam._traj
+                if r0 + KEY_SCAN_S > cap:
+                    traj = torch.cat([traj[r0:],
+                                      traj[:r0 + KEY_SCAN_S - cap]])
+                    r0 = 0
+                data, self._last_key = gate(traj, r0, take, self._last_key)
                 data = data.numpy()
             for row in data[:int(data[-1, 0])]:
-                q = self._create_key(int(row[0]),
+                q = self._create_key(k_lo + int(row[0]) - r0,
                                      Pose2D.from_se2_array(row[1:5]))
                 if q is not None:
                     new_queries.append(q)
@@ -411,6 +461,7 @@ class GraphSlam2D:
         if keyid == 0:
             self._builder.add_prior(0, corrected.se2_array(),
                                     (0.01, 0.01, 0.01))
+            factor = (0, 0, self._builder.priors[-1][1])
         else:
             prev = self._key_poses[-1]
             step = float(np.linalg.norm((prev.raw_pose - raw).xy()))
@@ -419,8 +470,13 @@ class GraphSlam2D:
             between = prev.pose - corrected
             self._builder.add_between(keyid - 1, keyid, between.se2_array(),
                                       (0.25, 0.25, 0.15))
+            factor = self._builder.betweens[-1][:3]
         self._key_poses.append(KeyPose(keyid, corrected, raw, points, mask,
                                        origin, t))
+        count("graph.keys")
+        self._note("key", id=keyid, timestamp=t, pose=corrected, raw=raw)
+        self._note("factor", i=factor[0], j=factor[1], measurement=factor[2],
+                   loop=False)
         if (keyid < opts.key_pose_head_delay or
                 keyid < opts.ignore_n_chain_poses):
             return None
@@ -434,7 +490,9 @@ class GraphSlam2D:
         opts = self.options
         inv_corr = self.correction.inverse()
         rows = []   # (qid, cid, ref_pose_raw, cand_pose_raw), rank order
+        accdist = self.accdist
         for qid in query_ids:
+            count("graph.queries")
             # adaptive radius (cpp:236-237)
             r = min(self.accdist, 100.0) / 100.0
             radius = (opts.loop_search_max_distance ** r *
@@ -445,12 +503,15 @@ class GraphSlam2D:
             for cid in cands:
                 cand_pose = inv_corr + self._key_poses[cid].pose
                 rows.append((qid, cid, ref_pose, cand_pose))
+        self._note("dispatch", queries=query_ids, accdist=accdist,
+                   rows=rows)
         if not rows:
             return
         correlate, _, _ = self._programs()
         dev = self.device
         for off in range(0, len(rows), VERIFY_CHUNK):
             chunk = rows[off:off + VERIFY_CHUNK]
+            count("graph.rows_verified", len(chunk))
             cand_poses = np.stack([c[3].se2_array() for c in chunk])
             hypos = np.stack([Pose2D(c[2].x(), c[2].y(),
                                      c[3].rotation()).se2_array()
@@ -477,7 +538,11 @@ class GraphSlam2D:
         while self._pending and (drain or processed < n0):
             item = self._pending.pop(0)
             processed += 1
-            packed = item["dev"].cpu().numpy()       # one read per batch
+            packed = host_read(item["dev"], item["kind"],  # one per batch
+                               numpy=True)
+            self._note("harvest", kind=item["kind"], packed=packed,
+                       pairs=[r[:2] for r in item.get("rows",
+                                                      item.get("jobs"))])
             if item["kind"] == "verify":
                 per_q: dict = {}
                 for i, row in enumerate(item["rows"]):
@@ -519,6 +584,8 @@ class GraphSlam2D:
             return
         jobs = self._coarse_jobs
         self._coarse_jobs = []
+        count("graph.coarse_jobs", len(jobs))
+        self._note("coarse", jobs=[j[:4] for j in jobs])
         _, _, coarse = self._programs()
         dev = self.device
         for off in range(0, len(jobs), COARSE_CHUNK):
@@ -550,7 +617,10 @@ class GraphSlam2D:
         between = matched - ref_pose
         self._builder.add_between(cand_id, qid, between.se2_array(),
                                   (0.5, 0.5, 0.1), huber_k=0.1)
+        self._note("factor", i=cand_id, j=qid, loop=True,
+                   measurement=self._builder.betweens[-1][2])
         self._links.append((cand_id, qid))
+        count("graph.loops_accepted")
         self._factor_queue += 1
         self.factordist = 0.0
 
@@ -587,10 +657,14 @@ class GraphSlam2D:
             nodes[i] = kp.pose.se2_array()
         active = np.zeros(n_pad, bool)
         active[:n] = True
+        count("graph.optimizes")
         out, _ = fg.optimize(torch.as_tensor(nodes, device=dev), graph,
                              torch.as_tensor(active, device=dev))
-        out = out.cpu().numpy()
-        if not np.isfinite(out[:n]).all():
+        out = host_read(out, "pgo_nodes", numpy=True)
+        finite = bool(np.isfinite(out[:n]).all())
+        self._note("optimize", start=nodes[:n],
+                   out=out[:n] if finite else None)
+        if not finite:
             return
         for i in range(n):
             self._key_poses[i] = self._key_poses[i]._replace(
@@ -621,6 +695,7 @@ class GraphSlam2D:
                                   capacity=4 * self.slam.cfg.capacity)
         if not self._key_poses:
             return mapping.slam_map_init(cfg, self.device)
+        count("graph.publishes")
         with self._timed("rebuild"):
             poses = np.asarray([kp.pose.se2_array()
                                 for kp in self._key_poses], np.float32)

@@ -143,7 +143,7 @@ def resolve_device(device=None) -> torch.device:
 class Slam2D:
     """Host driver; mirrors the reference public API (slam2d.h:127-176)."""
 
-    TRAJ_CAP = 16384   # device-side trajectory capacity
+    TRAJ_CAP = 16384   # device-side trajectory ring: update k at row k % cap
 
     def __init__(self, options: Slam2DOptions = Slam2DOptions(),
                  device=None):
@@ -172,6 +172,7 @@ class Slam2D:
         self._scroll_kp = 0
         self._pose_dev = self._tensor(Pose2D().se2_array())
         self._pose_host: Optional[Pose2D] = Pose2D()
+        self._pose_se2: Optional[np.ndarray] = None   # as read, f32 [4]
         self._traj = torch.zeros((self.TRAJ_CAP, 4), dtype=torch.float32,
                                  device=self.device)
         self._n_updates = 0
@@ -214,18 +215,36 @@ class Slam2D:
     def set_prior(self, prior: Pose2D) -> None:
         self._pose_dev = self._tensor(prior.se2_array())
         self._pose_host = prior
+        self._pose_se2 = None
 
     def pose(self) -> Pose2D:
         """Current pose (reads the device pose when stale)."""
         if self._pose_host is None:
-            self._pose_host = Pose2D.from_se2_array(
-                host_read(self._pose_dev, "pose", numpy=True))
+            self._pose_host = Pose2D.from_se2_array(self.pose_se2())
         return self._pose_host
+
+    def pose_se2(self) -> np.ndarray:
+        """Current pose as Slam2D holds it: f32 (tx, ty, cos, sin),
+        read from the device when stale (the read :meth:`pose` makes)."""
+        if self._pose_se2 is None:
+            self._pose_se2 = host_read(self._pose_dev, "pose", numpy=True)
+        return self._pose_se2
+
+    def resident_window(self):
+        """(origin cell [2], squared-distance window [w, w]) of the
+        resident window as it stands, the tensors themselves; None off the
+        resident path or before the first scan."""
+        if self._res_dist is None:
+            return None
+        return self._res_org, self._res_dist
 
     def trajectory(self) -> np.ndarray:
         """All matched poses so far, [n, 3] xyr — one device read."""
-        n = min(self._n_updates, self.TRAJ_CAP)
-        t = host_read(self._traj[:n], "trajectory", numpy=True)
+        n = self._n_updates
+        t = host_read(self._traj[:min(n, self.TRAJ_CAP)], "trajectory",
+                      numpy=True)
+        if n > self.TRAJ_CAP:                  # the ring's oldest row first
+            t = np.roll(t, -(n % self.TRAJ_CAP), axis=0)
         return np.stack([t[:, 0], t[:, 1], np.arctan2(t[:, 3], t[:, 2])], -1)
 
     def enough_motion(self, odometry: Pose2D) -> bool:
@@ -481,10 +500,9 @@ class Slam2D:
             pose = self._resident_step(pose0, points, mask, origin, clock)
         else:
             pose = self._pool_step(pose0, points, mask, origin)
-        k = min(self._n_updates, self.TRAJ_CAP - 1)
-        self._traj[k] = pose
+        self._traj[self._n_updates % self.TRAJ_CAP] = pose
         self._pose_dev = pose
-        self._pose_host = None
+        self._pose_host = self._pose_se2 = None
         self._n_updates += 1
 
     def _pool_step(self, pose0, points, mask, origin):
@@ -495,16 +513,21 @@ class Slam2D:
         grid, slots = win_mod.gather_window(self._map.table, self._map.dist,
                                             keys, cfg.distance.max_dist)
         with span("lama.match"):
-            res = match.solve_window(cfg.dist_to_sq(grid), org, geo,
-                                     cfg.distance.max_dist, points[:, :2],
-                                     mask, pose0, self.sopts,
-                                     route=self.match_route)
+            res = self._match(cfg.dist_to_sq(grid), org, points, mask, pose0)
         with span("lama.map_update"):
             self._map, _ = mapping.update_maps(self._map, cfg, res.state,
                                                points, mask, origin, org,
                                                window=(slots, grid))
         self.last_iterations = res.iterations
         return res.state
+
+    def _match(self, window, org, points, mask, pose0):
+        """The front end's scan match on a squared-distance window whose
+        cell (0, 0) is ``org``, from the predicted pose ``pose0``."""
+        cfg = self.cfg
+        return match.solve_window(window, org, cfg.geometry,
+                                  cfg.distance.max_dist, points[:, :2], mask,
+                                  pose0, self.sopts, route=self.match_route)
 
     def _resident_step(self, pose0, points, mask, origin, clock=None):
         cfg, geo = self.cfg, self.cfg.geometry
@@ -525,10 +548,7 @@ class Slam2D:
             dist_m = mapping.dyn_slice(dist, start[1], start[0], ws_m, ws_m)
             m_org = org + start
         with phase("lama.match", clock, "solving"):
-            res = match.solve_window(dist_m, m_org, geo,
-                                     cfg.distance.max_dist, points[:, :2],
-                                     mask, pose0, self.sopts,
-                                     route=self.match_route)
+            res = self._match(dist_m, m_org, points, mask, pose0)
         with phase("lama.map_update", clock, "mapping"):
             mapping.resident_update(cfg, org, self._res_occ, self._res_vis,
                                     dist, res.state, points, mask, origin)

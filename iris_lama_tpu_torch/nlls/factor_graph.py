@@ -18,8 +18,8 @@ in the JAX package). Retraction is x <- x * exp(delta).
 
 The optimizer loop masks each step once the loop is done, and the host
 reads the stop flag once per ``STOP_CHECK_EVERY`` steps (as
-``nlls/solver.py`` does); nodes, damping, chi2 and the iteration count
-come out as a plain while loop gives them.
+``nlls/solver.py`` does; read site ``pgo_stop``); nodes, damping, chi2 and
+the iteration count come out as a plain while loop gives them.
 
 Losses: diagonal sigmas scale residual rows (DiagonalLoss::Sigmas); Huber
 on the residual norm for loop-closure factors (sam::HuberLoss::Huber(0.1),
@@ -358,7 +358,7 @@ def optimize(nodes, graph: SE2Graph, active_mask,
                                                    chi2_now), chi2)
             it = it + active.to(torch.int32)
             done = torch.where(active, new_done, done)
-        if not host_read(~done & (it < opts.max_iterations), "irls_stop"):
+        if not host_read(~done & (it < opts.max_iterations), "pgo_stop"):
             break
     return nodes, {"chi2": chi2, "iterations": it}
 

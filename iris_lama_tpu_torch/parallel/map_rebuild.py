@@ -25,6 +25,9 @@ rebuild is split over the ranks, as the JAX package's sharded branch is:
    from each neighbouring strip (:func:`edt_strips`; the edge strips get
    obstacle-free halos), runs B3 on its strip with the halos, and an
    all-gather assembles the field: bit-equal to the one-device EDT.
+
+Spans (``utils/trace.py``): ``lama.rebuild`` (rasterize and EDT) and
+``lama.rebuild.pack`` (the grids read, site ``rebuild``, and packed).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ..sdm import pool as pool_mod
 from ..sdm.distance import edt2d
 from ..sdm.geometry import MapGeometry, f32
 from ..sdm.raycast import ray_cells
+from ..utils.trace import host_read, span
 from . import group as group_mod
 
 
@@ -134,6 +138,13 @@ def rebuild_dense(cfg, poses, points, masks, origins, org_cell, h: int,
     same scans) the scans split over the ranks for the rasterize and the
     grid's rows for the EDT; every rank returns the whole result, equal to
     the one-device rebuild's."""
+    with span("lama.rebuild"):
+        return _rebuild_dense(cfg, poses, points, masks, origins, org_cell,
+                              h, w, mesh)
+
+
+def _rebuild_dense(cfg, poses, points, masks, origins, org_cell, h: int,
+                   w: int, mesh) -> DenseRebuild:
     dcfg = cfg.distance
     dev = poses.device
     org = torch.as_tensor(np.asarray(org_cell), dtype=torch.int32,
@@ -177,13 +188,17 @@ def dense_to_state(cfg, dense: DenseRebuild) -> mapping_mod.SlamMapState:
     device (host path, as in the JAX package: rebuilds are rare offline
     events). The pool's capacity is ``cfg.capacity``, doubled until every
     patch with content fits."""
+    with span("lama.rebuild.pack"):
+        return _dense_to_state(cfg, dense)
+
+
+def _dense_to_state(cfg, dense: DenseRebuild) -> mapping_mod.SlamMapState:
     geo = cfg.geometry
     length = geo.patch_length
     dev = dense.occ.device
-    occ = dense.occ.cpu().numpy()
-    vis = dense.vis.cpu().numpy()
-    dist = dense.dist.cpu().numpy()
-    org = dense.org_cell.cpu().numpy()
+    occ, vis, dist, org = (host_read(t, "rebuild", numpy=True) for t in
+                           (dense.occ, dense.vis, dense.dist,
+                            dense.org_cell))
     h, w = occ.shape
     ny, nx = h // length, w // length
     d2_max = cfg.distance.max_dist

@@ -257,7 +257,7 @@ def slam_from_numpy(slam, d: dict) -> None:
         slam._res_dist = _tensor(d["res_dist"], cfg.sq_dtype, dev)
         slam._res_dirty = True
     slam._pose_dev = _tensor(d["pose"], torch.float32, dev)
-    slam._pose_host = None
+    slam._pose_host = slam._pose_se2 = None
     if not slam._built:
         slam._build_programs()
     slam.has_first_scan = True
@@ -267,7 +267,7 @@ def slam_from_numpy(slam, d: dict) -> None:
                         if "odom_reorg" in d else slam.odom_)
     n = int(d.get("n_updates", 1))
     slam._n_updates = n
-    slam._traj[min(n, slam.TRAJ_CAP) - 1] = slam._pose_dev
+    slam._traj[(n - 1) % slam.TRAJ_CAP] = slam._pose_dev
     slam._esc_dev.fill_(int(d.get("escaped", 0)))
     slam._esc_seen = int(d.get("escaped", 0))
     if _has_spill(slam, slam._spill, d):

@@ -37,11 +37,20 @@ its ``lama.update``:
   ``lama.motion.draw`` a packet (the normal draw and its copy), and
   ``lama.resample`` (weights, Neff, the resample and the rows' gather);
 - the spill tier: ``lama.spill`` and ``lama.refill``;
+- GraphSlam2D: ``lama.graph.<phase>`` around each of its timed phases
+  (``front_end``, ``sync``, ``key_scan``, ``close_loops`` with
+  ``correlate``, ``process_pending`` with ``coarse``, ``optimize``,
+  ``rebuild``); the map rebuild ``lama.rebuild`` (rasterize and EDT) and
+  ``lama.rebuild.pack`` (the dense grids packed into a pool);
 - ``lama.read.<site>``: each host read of device data (:func:`host_read`).
 
 Counters. :func:`host_read` counts each read under ``reads.<site>``: plain
 host integers of the process, always on, read by :func:`counts` without a
-device read. The sites: ``irls_stop`` (an IRLS loop's stop flag),
+device read. The sites: ``irls_stop`` (a scan match's IRLS stop flag),
+``pgo_stop`` (the pose-graph LM's stop flag), ``key_gate``, ``verify``,
+``coarse`` and ``pgo_nodes`` (GraphSlam2D's gate block, harvested
+verification and coarse batches, optimised key poses), ``rebuild`` (the
+rebuilt grids read for packing),
 ``escapes`` (the safe-zone escape counters), ``safe_zone`` (the per-update
 safe-zone check once no re-org trigger is safe), ``reorg_origin`` (a band
 scroll's window origins), ``pose`` (the published pose), ``spill`` (the
@@ -51,7 +60,9 @@ spill tier's reads), and ``lineage``, ``memory``, ``info``,
 calls of ``match_surface_2d.solve_window`` by route (``generic``,
 ``solve``: kernel B4's whole solve in one launch, ``fused``), so on
 Slam2D's path ``match.solve`` equals the matched updates where the card
-and the options take B4.
+and the options take B4; ``graph.*`` counts GraphSlam2D's key poses,
+searches, verified rows, coarse jobs, accepted loops, optimisations and
+map rebuilds (``algos/graph_slam2d.py``).
 """
 
 from __future__ import annotations
@@ -107,9 +118,9 @@ def host_read(t: torch.Tensor, site: str, numpy: bool = False):
         return t.cpu().numpy() if numpy else t.tolist()
 
 
-def count(key: str) -> None:
-    """Add one to the counter ``key`` (a plain host integer)."""
-    _COUNTS[key] += 1
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``key`` (a plain host integer)."""
+    _COUNTS[key] += n
 
 
 def counts() -> dict:

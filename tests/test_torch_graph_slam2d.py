@@ -414,6 +414,71 @@ def test_port_graph_slam_loop():
     assert np.ptp(kp_xy[:, 0]) > 15
 
 
+def test_observer_records_the_machinery_and_changes_nothing():
+    """``GraphSlam2D.observer`` is handed every key pose, factor,
+    dispatched and harvested batch and optimisation, in the program's own
+    values, and a run with an observer gives the poses of one without."""
+    cfg = simulator.SimConfig(
+        n_steps=300, seed=8,
+        laser=simulator.LaserSpec(n_beams=120, max_range=8.0),
+        odom_trans_noise=0.02, odom_rot_noise=0.004)
+    data = simulator.simulate(cfg)
+
+    def run(observer):
+        gs = tgraph.GraphSlam2D(tgraph.GraphSlam2DOptions(
+            slam=Slam2DOptions(resolution=0.1, patch_size=16, max_range=8.0,
+                               trans_thresh=0.25, rot_thresh=0.25,
+                               capacity=4096, transient_map=True),
+            ignore_n_chain_poses=10, key_pose_head_delay=3,
+            loop_closure_scan_rmse=0.12), device="cpu")
+        gs.observer = observer
+        gs.set_prior(Pose2D(*data.poses_gt[0]))
+        poses = [gs.pose().xyr() for k in range(cfg.n_steps)
+                 if gs.update(data.clouds[k], Pose2D(*data.odometry[k].xyr()),
+                              data.timestamps[k])]
+        gs.optimize_pose_graph()
+        return gs, np.asarray(poses)
+
+    events = []
+    gs, poses = run(lambda e, f: events.append((e, f)))
+    _, plain_poses = run(None)
+    np.testing.assert_array_equal(poses, plain_poses)
+
+    def of(name):
+        return [f for e, f in events if e == name]
+
+    kps = gs.key_poses
+    assert [(k["id"], k["timestamp"]) for k in of("key")] == \
+        [(kp.id, kp.timestamp) for kp in kps]
+    np.testing.assert_array_equal([k["raw"].xyr() for k in of("key")],
+                                  [kp.raw_pose.xyr() for kp in kps])
+    facs = of("factor")
+    b = gs._builder
+    assert [(f["i"], f["j"]) for f in facs if f["i"] == f["j"]] == \
+        [(p[0], p[0]) for p in b.priors]
+    assert [(f["i"], f["j"], f["loop"]) for f in facs if f["i"] != f["j"]] \
+        == [(e[0], e[1], e[4] > 0) for e in b.betweens]
+    np.testing.assert_array_equal(
+        [f["measurement"] for f in facs if f["i"] != f["j"]],
+        [e[2] for e in b.betweens])
+    assert [(f["i"], f["j"]) for f in facs if f["loop"]] == gs.links
+    assert len(gs.links) >= 1
+    # every dispatched row and coarse job is harvested once, in its kind
+    for kind, name, key in (("verify", "dispatch", "rows"),
+                            ("coarse", "coarse", "jobs")):
+        sent = [r[:2] for d in of(name) for r in d[key]]
+        got = [p for h in of("harvest") if h["kind"] == kind
+               for p in h["pairs"]]
+        assert sorted(sent) == sorted(got) and sent, kind
+    assert all(h["packed"].shape == (len(h["pairs"]), 5)
+               for h in of("harvest"))
+    opt = of("optimize")
+    assert len(opt) >= 2 and opt[-1]["out"] is not None
+    np.testing.assert_array_equal(
+        [Pose2D.from_se2_array(o).xyr() for o in opt[-1]["out"]],
+        [kp.pose.xyr() for kp in kps])
+
+
 def test_port_generate_coarse_distance_map():
     cfg = simulator.SimConfig(
         n_steps=80, seed=10,
@@ -477,3 +542,40 @@ def test_options_plain_defaults():
     assert (o.sync_updates, o.live_chunk, o.sync_scans) == (8, 1, 32)
     assert o.slam.transient_map
     assert dataclasses.replace(o, live_chunk=3).live_chunk == 3
+
+
+def test_trajectory_ring_past_its_capacity(monkeypatch):
+    """Past ``Slam2D.TRAJ_CAP`` updates the front end's trajectory is a
+    ring (update k at row k % cap): with a ring of 96 rows, whose 64-row
+    gate blocks then run past its end, the key poses (update, raw pose)
+    equal those of a run whose ring never fills, and ``trajectory()``
+    gives the last 96 matched poses, oldest first."""
+    cfg = simulator.SimConfig(
+        n_steps=200, seed=8,
+        laser=simulator.LaserSpec(n_beams=60, max_range=8.0),
+        odom_trans_noise=0.02, odom_rot_noise=0.004)
+    data = simulator.simulate(cfg)
+
+    def run():
+        gs = tgraph.GraphSlam2D(tgraph.GraphSlam2DOptions(
+            slam=Slam2DOptions(resolution=0.1, patch_size=16, max_range=8.0,
+                               trans_thresh=0.05, rot_thresh=0.05,
+                               capacity=4096, transient_map=True),
+            ignore_n_chain_poses=1000, key_pose_distance=0.5),
+            device="cpu")
+        gs.set_prior(Pose2D(*data.poses_gt[0]))
+        for k in range(cfg.n_steps):
+            gs.update(data.clouds[k], Pose2D(*data.odometry[k].xyr()),
+                      data.timestamps[k])
+        kps = gs.key_poses
+        return (gs.slam, [kp.timestamp for kp in kps],
+                np.array([kp.raw_pose.xyr() for kp in kps]))
+
+    slam, ts, raw = run()
+    traj = slam.trajectory()
+    monkeypatch.setattr(Slam2D, "TRAJ_CAP", 96)
+    ring, ts_ring, raw_ring = run()
+    assert ring._n_updates == slam._n_updates > 2 * 96
+    assert ts_ring == ts and len(ts) > 8
+    np.testing.assert_array_equal(raw_ring, raw)
+    np.testing.assert_array_equal(ring.trajectory(), traj[-96:])

@@ -4,8 +4,11 @@ With no profiler a span is one shared no-op context; under
 ``torch.profiler`` the drivers' spans nest inside each update's
 ``lama.update``, each host read is one ``lama.read.<site>`` span and one
 count, the PF draws one ``lama.motion.draw`` a queued odometry packet, and
-the resample and re-org spans come exactly when those run. Poses and maps
-are bit-identical with the profiler on and off.
+the resample and re-org spans come exactly when those run; GraphSlam2D's
+phases are ``lama.graph.<phase>`` spans, its work is counted under
+``graph.*`` and its reads under their own sites, the pose graph's LM under
+``pgo_stop``. Poses and maps are bit-identical with the profiler on and
+off.
 """
 
 import numpy as np
@@ -13,6 +16,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from iris_lama_tpu_torch.algos import graph_slam2d as tgraph
 from iris_lama_tpu_torch.algos import pf_slam2d as tpf
 from iris_lama_tpu_torch.algos import slam2d as tslam
 from iris_lama_tpu_torch.core.pose import Pose2D
@@ -282,3 +286,62 @@ def test_profiler_leaves_results_bit_identical(data, driver):
     assert spans["lama.update"]
     for a, b in zip(off, on):
         np.testing.assert_array_equal(a, b)
+
+
+GRAPH_PHASES = ("front_end", "sync", "key_scan", "close_loops", "correlate",
+                "process_pending", "optimize", "rebuild")
+
+
+def test_graph_slam2d_spans_counters_and_read_sites():
+    """A GraphSlam2D run that verifies loop candidates, optimises and
+    publishes its map: each timed phase is a ``lama.graph.<phase>`` span
+    as often as ``stats`` counts it, the work is counted under
+    ``graph.*``, its host reads under ``key_gate``, ``verify``,
+    ``pgo_nodes`` and ``rebuild`` (each with its span), and the LM's stop
+    flag under ``pgo_stop``: the optimisation adds no ``irls_stop``
+    read."""
+    data = tsim.simulate(tsim.SimConfig(
+        n_steps=90, seed=8, laser=tsim.LaserSpec(n_beams=120,
+                                                  max_range=8.0),
+        odom_trans_noise=0.02, odom_rot_noise=0.004))
+    g = tgraph.GraphSlam2D(tgraph.GraphSlam2DOptions(
+        slam=tslam.Slam2DOptions(resolution=0.1, patch_size=16,
+                                 max_range=8.0, trans_thresh=0.25,
+                                 rot_thresh=0.25, capacity=4096,
+                                 transient_map=True),
+        ignore_n_chain_poses=4, key_pose_head_delay=1,
+        loop_max_candidates=2), device="cpu")
+    before = trace.counts()
+
+    def run():
+        _run(g, data, 90)
+        g.generate_occupancy_map()
+
+    _, spans = _traced(run)
+    mid, stats = trace.counts(), dict(g.stats)
+    g.optimize_pose_graph()
+    after = trace.counts()
+
+    def rise(key, a=before, b=mid):
+        return b.get(key, 0) - a.get(key, 0)
+
+    for phase in GRAPH_PHASES:
+        assert (len(spans.get("lama.graph." + phase, ()))
+                == stats.get(phase + "_n", 0)), phase
+    assert _inside(spans["lama.graph.key_scan"], spans["lama.graph.sync"])
+    assert rise("graph.keys") == len(g._key_poses) > 10
+    assert rise("graph.queries") > 0
+    assert rise("graph.rows_verified") > 0
+    assert rise("graph.optimizes") == stats.get("optimize_n", 0)
+    assert rise("graph.publishes") == 1
+    assert rise("graph.loops_accepted") == len(g._links)
+    # a coarse batch holds one to four jobs and is read once
+    assert (rise("reads.coarse") <= rise("graph.coarse_jobs")
+            <= 4 * rise("reads.coarse"))
+    for site in ("key_gate", "verify", "pgo_nodes", "rebuild"):
+        assert rise("reads." + site) == len(spans["lama.read." + site]) > 0, \
+            site
+    assert len(spans["lama.rebuild"]) == len(spans["lama.rebuild.pack"]) == 1
+    assert rise("reads.pgo_stop", mid, after) > 0
+    assert rise("reads.irls_stop", mid, after) == 0
+    assert rise("reads.pgo_nodes", mid, after) == 1
