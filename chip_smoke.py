@@ -60,7 +60,10 @@ Phases, one JSON line each:
    largest window it stages in shared memory and on windows at odd byte
    offsets, at every width, max_iter 0, 1 and 50, with and without the
    likelihood; the batched EDT also at P = 3, on border-only masks and at
-   ragged shapes;
+   ragged shapes; the motion kernel on a queue of 21 packets (the
+   benchmark's ~21 packets an update), bit-equal to 21 eager
+   ``draw_from_motion`` calls, with its launch floor and the host ms of a
+   whole flush beside the per-packet loop it replaced;
 7. pf_prefix — the first 24 PFSlam2D updates of that workload on the CPU
    (plain versions) and on the card (kernels), one seed, through the run's
    first band scroll: the same resample indices, best particle, scrolls
@@ -75,7 +78,8 @@ Phases, one JSON line each:
    seed=5), its PFSlam2DOptions) through PFSlam2D.update_prepadded from
    device-staged scans, three fresh filters, launch counts set to 0 just
    before and read just after: updates/s, final error (< 5 cm), re-orgs,
-   escapes, peak memory, match iterations, launches per update;
+   escapes, peak memory, match iterations, launches per update (one motion
+   launch an update);
 9. loc_kernel — Loc2D's kernels at the bench_loc.py shapes (720 beams
    padded to 768, 5 cm cells, 576 x 576 match windows of the bench map):
    the whole solve B4 at one particle and at eight with a scan each (and
@@ -319,6 +323,7 @@ PREFIX_SCANS = 60
 PF_PREFIX = 24                 # PF updates compared CPU vs card
 PF_SCROLL_SCAN = 22            # the bench_pf.py run's first re-org: a scroll
 PF_ERR_BOUND_M = 0.05          # bench_pf.py:109
+PF_MOTION_PACKETS = 21         # packets an update behind pf30's 0.5 m gate
 LOC_PREFIX = 60                # Loc2D updates compared CPU vs card
 LOC_ERR_BOUND_M = 0.01         # bench_loc.py:127
 LOC_PASSES = 1                 # Loc2D passes a rep (bench_loc.py: 3)
@@ -923,6 +928,90 @@ def pf_kernel_inputs(torch, dev, data, opts, staged) -> dict:
             "cap": cfg.distance.max_sqdist}
 
 
+def motion_queue(k: int, seed: int = 0) -> np.ndarray:
+    """float32 [k, 4] odometry increments (x, y, cos, sin) as the
+    benchmark's 40 Hz stream queues them behind the PF's gate: ~2.5 cm
+    steps with small turns."""
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    rng = np.random.default_rng(seed)
+    return np.stack([Pose2D(rng.normal(0.025, 0.002), rng.normal(0.0, 0.001),
+                            rng.normal(0.0, 0.005)).se2_array()
+                     for _ in range(k)]).astype(np.float32)
+
+
+def pf_motion_entry(torch, dev, pf, k: int = PF_MOTION_PACKETS) -> dict:
+    """Phase 6's motion entry: the motion kernel (``ops/motion.py``) on
+    ``pf``'s 30 particles and a queue of ``k`` packets, bit-equal to ``k``
+    eager ``draw_from_motion`` calls on the card; its device time beside
+    the eager chain's, the launch floor of its launch shape and its bound;
+    and the host ms of a whole flush (draws, staging, copy, launch) beside
+    the per-packet loop it replaced (a pageable copy of each draw and
+    packet, then the eager chain), each drained by a synchronise."""
+    from iris_lama_tpu_torch.algos.pf_slam2d import draw_from_motion
+    from iris_lama_tpu_torch.ops import motion
+
+    opts, n = pf.options, pf.options.particles
+    queue = motion_queue(k)
+    gen = torch.Generator().manual_seed(7)
+    eps = torch.randn((k, n, 3), generator=gen).to(dev)
+    packets = torch.as_tensor(queue, device=dev)
+    poses = pf.pset.pose.contiguous()
+
+    def kernel():
+        return motion.apply_queue(opts, eps, packets, poses)
+
+    def eager():
+        out = poses
+        for j in range(k):
+            out = draw_from_motion(opts, eps[j], packets[j], out)
+        return out
+
+    got, want = kernel(), eager()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert torch.equal(got, want), f"motion kernel differs: {err}"
+
+    def loop_flush():
+        out = pf.pset.pose
+        for od in queue:
+            out = draw_from_motion(opts, pf._draw("normal", (n, 3)),
+                                   pf._tensor(od), out)
+        return out
+
+    def queued_flush():
+        pf._odelta_queue = list(queue)
+        pf._flush_motion()
+
+    host = {}
+    for name, fn in (("flush", queued_flush), ("loop_flush", loop_flush)):
+        times = []
+        for _ in range(depth(30, 8)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        host[f"{name}_host_ms"] = float(np.median(times))
+    # bytes: the poses in and out, the draws and packets; operations: ~60
+    # arithmetic a packet and particle plus atan2f, cosf and sinf (~30
+    # each)
+    bd = bound(32 * n + (12 * n + 16) * k, 150 * n * k)
+    return {"name": "motion", "route": "cuda",
+            "source": "iris_lama_tpu_torch/csrc/motion.cu",
+            "replaces": "none (the eager chain of "
+                        "algos/pf_slam2d.py:draw_from_motion, a packet "
+                        "at a time)",
+            "shape": [k, n], "max_abs_err": err,
+            "launch_floor_ms": launch_floor_ms(torch, dev, -(-n // 128),
+                                               128),
+            **timings(torch, "", kernel, 200),
+            **timings(torch, "plain_", eager, 20),
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call applies a queue "
+                            "of motion packets",
+            "bound_ms": bd[0], "bound_by": bd[1], **host}
+
+
 def pf_phases(torch, dev) -> list:
     """Phases 6-8 (PFSlam2D, the bench_pf.py workload): B6 and the batched
     B1 / B3 against their plain versions at the PF shapes, the first
@@ -932,7 +1021,7 @@ def pf_phases(torch, dev) -> list:
     from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
     from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch, gn_solve
-    from iris_lama_tpu_torch.ops import scatter_matmul
+    from iris_lama_tpu_torch.ops import motion, scatter_matmul
     from iris_lama_tpu_torch.sdm import mapping
 
     data, opts, padded = pf_workload()
@@ -1123,7 +1212,9 @@ def pf_phases(torch, dev) -> list:
            "library_call": "none: no single PyTorch call computes a capped "
                            "EDT",
            "bound_ms": b3_bound[0], "bound_by": b3_bound[1]}
-    pf_kernels = [b6, *b6_widths, b1b, pair_b, b3b]
+    # the motion step: the queue of a benchmark update in one launch
+    pf_kernels = [b6, *b6_widths, b1b, pair_b, b3b,
+                  pf_motion_entry(torch, dev, pf)]
     for kern in pf_kernels:
         emit({"phase": "pf_kernel", **kern})
     del pf, ps, grids, b6_args, cases, idx, obst, kin
@@ -1267,7 +1358,8 @@ def pf_phases(torch, dev) -> list:
     fns = {"deposit_pair_batched": scatter_matmul.deposit_pair,
            "deposit_counts_batched": scatter_matmul.deposit_counts,
            "edt2d_batched": edt_pallas.edt2d,
-           "gn_batch_solve": gn_batch.solve_window_sq}
+           "gn_batch_solve": gn_batch.solve_window_sq,
+           "motion": motion.apply_queue}
     _cuda.reset_launches(*fns.values())
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated(dev)
@@ -1289,10 +1381,12 @@ def pf_phases(torch, dev) -> list:
         assert p["final_err_m"] < PF_ERR_BOUND_M, \
             f"PF final error {p['final_err_m']:.4f} m"
         assert p["reorgs"] >= 1, "PF: no re-org"
-    # the map update deposits through the pair
+    # the map update deposits through the pair; each update's motion
+    # queue goes in one launch
     assert all(launches[n] > 0 for n in ("deposit_pair_batched",
                                          "edt2d_batched", "gn_batch_solve")
                ), f"launches {launches}"
+    assert launches["motion"] == updates, f"launches {launches}"
     for kern in pf_kernels:
         kern["launches"] = launches.get(kern["name"], 0)
     return pf_kernels

@@ -2,7 +2,9 @@
 
 reference: include/lama/pf_slam2d.h, src/pf_slam2d.cpp. Every particle owns
 a map. Per odometry packet every particle draws motion noise
-(drawFromMotion, :365-391); per accepted scan every particle is scan-matched
+(drawFromMotion, :365-391), applied to the queued packets at the next
+accepted scan (on the card all of them in one launch, ``ops/motion.py``);
+per accepted scan every particle is scan-matched
 on its own squared-distance window — all particles in one launch of kernel
 B6 (``ops/gn_batch.py``), which also returns the likelihood's residual SSE
 (:393-437) — then the weights are normalised with Neff (:511-535),
@@ -67,7 +69,7 @@ from ..core import lie
 from ..core.pose import Pose2D
 from ..nlls.robust import CAUCHY_SCAN
 from ..nlls.solver import SolverOptions
-from ..ops import gn_batch
+from ..ops import gn_batch, motion
 from ..parallel import group as group_mod
 from ..sdm import mapping
 from ..sdm import window as win_mod
@@ -75,7 +77,7 @@ from ..sdm.geometry import MapGeometry, f32
 from ..sdm.pool import PatchTable
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
 from ..utils.summary import PhaseClock, Summary, device_sync
-from ..utils.trace import host_read, phase, span
+from ..utils.trace import count, host_read, phase, span
 from .slam2d import resolve_device
 
 @dataclasses.dataclass(frozen=True)
@@ -721,17 +723,50 @@ class PFSlam2D:
                 if self.update_prepadded(*staged[k], odoms[k])]
 
     def _flush_motion(self) -> None:
-        """Apply the queued motion packets, one normal draw each."""
-        n = self.options.particles
-        if self._odelta_queue:
+        """Apply the queued motion packets, one normal draw each, in queue
+        order. On a CUDA device the whole queue goes in one copy and one
+        launch (``ops.motion``); elsewhere packet by packet
+        (:func:`draw_from_motion`). Both give the same poses. Counted
+        under ``motion.<route>`` (``kernel`` or ``plain``) and
+        ``motion.packets``."""
+        queue = self._odelta_queue
+        if queue:
+            route = "kernel" if self.device.type == "cuda" else "plain"
             with span("lama.motion"):
-                for od in self._odelta_queue:
-                    with span("lama.motion.draw"):
-                        eps = self._draw("normal", (n, 3))
-                    self.pset = self.pset._replace(pose=draw_from_motion(
-                        self.options, eps, self._tensor(od), self.pset.pose))
+                if route == "kernel":
+                    pose = self._motion_kernel(queue)
+                else:
+                    pose = self.pset.pose
+                    for od in queue:
+                        with span("lama.motion.draw"):
+                            eps = self._draw("normal",
+                                             (self.options.particles, 3))
+                        pose = draw_from_motion(self.options, eps,
+                                                self._tensor(od), pose)
+                self.pset = self.pset._replace(pose=pose)
+            count("motion." + route)
+            count("motion.packets", len(queue))
             self._odelta_queue = []
         self._odom_motion = self.odom_
+
+    def _motion_kernel(self, queue: list):
+        """The queue's poses on the card: the packets [K, 4] and the draws
+        [K, N, 3], drawn in queue order, staged in one host buffer, pinned
+        for a CUDA device (PyTorch's caching host allocator keeps it until
+        its copy has run), one asynchronous copy, one launch."""
+        n, k = self.options.particles, len(queue)
+        host = torch.empty(k * (4 + 3 * n), dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        buf[:4 * k] = np.concatenate(queue)
+        draws = buf[4 * k:].reshape(k, n, 3)
+        src = self._draws or self._generator_draw
+        for j in range(k):
+            with span("lama.motion.draw"):
+                draws[j] = np.asarray(src("normal", (n, 3)))
+        dev = host.to(self.device, non_blocking=True)
+        return motion.apply_queue(self.options, dev[4 * k:].view(k, n, 3),
+                                  dev[:4 * k].view(k, 4), self.pset.pose)
 
     def _step(self, points, mask, origin, clock=None) -> None:
         opts = self.options

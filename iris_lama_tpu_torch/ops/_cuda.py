@@ -29,11 +29,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# flags of one source on top of NVCC_FLAGS: the Gauss-Newton kernels keep
-# every float operation separately rounded, as their plain PyTorch versions
-# do
+# flags of one source on top of NVCC_FLAGS: the Gauss-Newton kernels and
+# the PF's motion step keep every float operation separately rounded, as
+# their plain PyTorch versions do
 _NO_FMA = ("-fmad=false",)
-SOURCE_FLAGS = {"gn_solve": _NO_FMA, "match_eval": _NO_FMA}
+SOURCE_FLAGS = {"gn_solve": _NO_FMA, "match_eval": _NO_FMA,
+                "motion": _NO_FMA}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +54,8 @@ SIGNATURES = {
                                       _I, _I, _P, _P)},
     "match_eval": {"gn_eval_sq": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _I, _F, _F, _F, _F, _I, _P, _P)},
+    "motion": {"motion_apply": (_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                                _F, _P, _P)},
     # an empty kernel: the launch floor (timed beside the kernels)
     "floor": {"launch_floor": (_I, _I, _P),
               "memset_floor": (_P, _L, _I, _I, _P),

@@ -60,7 +60,10 @@ spill tier's reads), and ``lineage``, ``memory``, ``info``,
 calls of ``match_surface_2d.solve_window`` by route (``generic``,
 ``solve``: kernel B4's whole solve in one launch, ``fused``), so on
 Slam2D's path ``match.solve`` equals the matched updates where the card
-and the options take B4; ``graph.*`` counts GraphSlam2D's key poses,
+and the options take B4; ``motion.<route>`` counts PFSlam2D's flushes of
+a non-empty motion queue by route (``kernel``: the whole queue in one
+launch on the card, ``plain``: packet by packet) and ``motion.packets``
+the packets they applied; ``graph.*`` counts GraphSlam2D's key poses,
 searches, verified rows, coarse jobs, accepted loops, optimisations and
 map rebuilds (``algos/graph_slam2d.py``).
 """
@@ -125,5 +128,6 @@ def count(key: str, n: int = 1) -> None:
 
 def counts() -> dict:
     """A copy of the process's counters (``reads.<site>``: host reads;
-    ``match.<route>``: scan matches by route)."""
+    ``match.<route>``: scan matches by route; ``motion.*``: PF motion
+    flushes and packets)."""
     return dict(_COUNTS)

@@ -12,14 +12,17 @@ import pytest
 import torch
 
 from iris_lama_tpu_torch.algos import loc2d
-from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D, PFSlam2DOptions
+from iris_lama_tpu_torch.algos.pf_slam2d import (PFSlam2D, PFSlam2DOptions,
+                                                 draw_from_motion)
 from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
 from iris_lama_tpu_torch.core.pose import Pose2D
 from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, gn_solve
-from iris_lama_tpu_torch.ops import match_eval, scatter_matmul
+from iris_lama_tpu_torch.ops import match_eval, motion, scatter_matmul
 from iris_lama_tpu_torch.ops import scatter_pallas, scatter_sorted, select4
 from iris_lama_tpu_torch.utils import simulator, state
 from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+
+import test_torch_pf_motion as motion_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -832,6 +835,99 @@ def test_pf_on_card_matches_cpu(cuda):
     assert np.abs(dth).max() <= 1e-3
     assert np.array_equal(lc, lg)
     assert all(f.launches > b for f, b in zip(fns, before))
+
+
+def _eager_motion(opts, eps, queue, poses):
+    """K eager ``draw_from_motion`` calls on the operands' device."""
+    for j in range(queue.shape[0]):
+        poses = draw_from_motion(opts, eps[j], queue[j], poses)
+    return poses
+
+
+@pytest.mark.parametrize("n", [30, 512])
+@pytest.mark.parametrize("k", [1, 21, 64])
+def test_motion_kernel_bit_exact(cuda, k, n):
+    """The PF's motion kernel against K eager ``draw_from_motion`` calls
+    on the card, bit for bit: packets of zero motion, a negative dx, turns
+    to within an ulp of +-pi (the yaw wrap) and a pure rotation, then
+    small steps; one launch whatever K."""
+    opts = PFSlam2DOptions(particles=n)
+    gen = torch.Generator().manual_seed(1000 * k + n)
+    queue = torch.as_tensor(motion_cases.packets(k, seed=n), device=cuda)
+    eps = torch.randn((k, n, 3), generator=gen).to(cuda)
+    poses = motion_cases.start_poses(n).to(cuda)
+    before = motion.apply_queue.launches
+    got = motion.apply_queue(opts, eps, queue, poses)
+    assert motion.apply_queue.launches == before + 1
+    want = _eager_motion(opts, eps, queue, poses)
+    assert got.is_contiguous() and got.data_ptr() != poses.data_ptr()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_motion_kernel_refuses_what_it_does_not_take(cuda):
+    opts = PFSlam2DOptions(particles=4)
+    poses = torch.zeros((4, 4), device=cuda)
+    queue = torch.zeros((2, 4), device=cuda)
+    with pytest.raises(ValueError):
+        motion.apply_queue(opts, torch.zeros((2, 5, 3), device=cuda), queue,
+                           poses)
+    with pytest.raises(ValueError):
+        motion.apply_queue(opts, torch.zeros((2, 4, 3)), queue.cpu(),
+                           poses.cpu())
+    with pytest.raises(TypeError):
+        motion.apply_queue(opts, torch.zeros((2, 4, 3), device=cuda),
+                           queue.double(), poses)
+
+
+def test_pf_motion_flush_is_one_copy_and_one_launch(cuda):
+    """A flush of 21 queued packets on the card (30 particles): the poses
+    of 21 eager ``draw_from_motion`` calls on the same generator draws, bit
+    for bit, from one host-to-device copy and one launch of the motion
+    kernel, with no wait on the card; ``motion.kernel`` advances by one a
+    flush and ``motion.packets`` by 21."""
+    from torch.profiler import ProfilerActivity, profile
+    from iris_lama_tpu_torch.utils import devprof, trace
+    n, k, flushes = 30, 21, 3
+    opts = PFSlam2DOptions(particles=n, seed=motion_cases.SEED)
+    pf = PFSlam2D(opts, device=cuda)
+    start = motion_cases.start_poses(n).to(cuda)
+    pf.pset = motion_cases._Poses(start)
+    queue = list(motion_cases.packets(k))
+    pf._odelta_queue = list(queue)
+    pf._flush_motion()
+    gen = torch.Generator().manual_seed(motion_cases.SEED)
+    eps = torch.stack([torch.randn((n, 3), generator=gen)
+                       for _ in range(k)]).to(cuda)
+    want = _eager_motion(opts, eps, torch.as_tensor(np.stack(queue),
+                                                    device=cuda), start)
+    assert torch.equal(pf.pset.pose, want)
+    counts = trace.counts()
+    launches = motion.apply_queue.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(flushes):
+            pf._odelta_queue = list(queue)
+            pf._flush_motion()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    runtime = {r.key: r.count for r in rows if r.key.startswith("cuda")}
+    assert runtime.get("cudaMemcpyAsync") == flushes, runtime
+    # the profiler's and the test's own device synchronisations only: no
+    # stream waits on a copy
+    waits = {key for key in runtime if "Synchronize" in key}
+    assert waits == {"cudaDeviceSynchronize"}, runtime
+    assert motion.apply_queue.launches == launches + flushes
+    device = {r.key: r.count for r in devprof.cuda_rows(prof)}
+    kernels = sum(c for key, c in device.items() if "motion_kernel" in key)
+    copies = sum(c for key, c in device.items() if "Memcpy HtoD" in key)
+    assert 1 <= kernels <= flushes and 1 <= copies <= flushes, device
+    assert kernels + copies == sum(device.values()), device
+    after = trace.counts()
+    assert after.get("motion.kernel", 0) - counts.get("motion.kernel", 0) \
+        == flushes
+    assert after["motion.packets"] - counts["motion.packets"] == k * flushes
+    assert after.get("motion.plain", 0) == counts.get("motion.plain", 0)
 
 
 # ---------------------------------------------------------------------------
