@@ -46,11 +46,11 @@ Phases, one JSON line each:
    likelihood, and the run's own result (phase 3's B4 entries);
 5. main_path — the Slam2D bench workload (synthetic office world,
    SimConfig(n_steps=440, seed=3), 720 beams, 5 cm cells) replayed through
-   Slam2D.update_many_prepadded from device-staged scans, with every
-   kernel's launch count set to 0 just before and read just after:
-   scans/s, ATE (< 12 mm), re-orgs, zero escapes, launches > 0 (the
-   deposit through the pair), one B4 launch a match (``match.solve`` of
-   utils.trace.counts) and no B2;
+   Slam2D.update_many_prepadded from device-staged scans: scans/s, ATE (<
+   12 mm), re-orgs, zero escapes, no IRLS stop flag read on the host;
+   then the kernels of one more, untimed pass (rep 0's: a counted pass,
+   below): launches > 0 (the deposit through the pair), one B4 launch a
+   matched update and no B2 over the whole pass;
 6. pf_kernel — the particle filter's kernels at the bench_pf.py shapes (30
    particles, 720 beams padded to 768, 5 cm cells) on a real particle set:
    the batched Gauss-Newton solve B6 (also at uint8, int16 and int32 on
@@ -76,10 +76,10 @@ Phases, one JSON line each:
    bit-equal;
 8. pf_main_path — the bench_pf.py workload (SimConfig(n_steps=120,
    seed=5), its PFSlam2DOptions) through PFSlam2D.update_prepadded from
-   device-staged scans, three fresh filters, launch counts set to 0 just
-   before and read just after: updates/s, final error (< 5 cm), re-orgs,
-   escapes, peak memory, match iterations, launches per update (one motion
-   launch an update);
+   device-staged scans, three fresh filters: updates/s, final error (< 5
+   cm), re-orgs, escapes, peak memory, match iterations; then launches per
+   update of one more, untimed pass (rep 0's, counted): one motion launch
+   an update;
 9. loc_kernel — Loc2D's kernels at the bench_loc.py shapes (720 beams
    padded to 768, 5 cm cells, 576 x 576 match windows of the bench map):
    the whole solve B4 at one particle and at eight with a scan each (and
@@ -115,19 +115,20 @@ Phases, one JSON line each:
    in each match mode (generic, sq, solve, fused) through
    Loc2D.update_many_prepadded from device-staged scans: 3 reps of one
    fresh pass (bench_loc.py runs 3; cut to keep the run's time) after a
-   warm-up pass, launch counts set to 0 just before and read
-   just after: updates/s (median rep), mean error (< 1 cm), launches and
-   host reads per update, peak memory, and the device activities per update
-   of the first 41 scans of one more (profiled) pass; then one pass of the
+   warm-up pass: updates/s (median rep), mean error (< 1 cm), host reads
+   per update, peak memory, and the kernels' launches and all device
+   activities per update of the first 41 scans of one more (profiled)
+   pass; then one pass of the
    live Loc2D.update API, the time of one global-localisation round and of the
    covariance (loc_extra);
 12. fine_slam2d, fine_pf — Slam2D at 4 cm cells (uint8 windows) and 3 cm
    (int16) over the first 40 scans of the phase 5 workload, and PFSlam2D
    at 4 cm over the first 6 updates of the phase 8 workload, on the CPU
-   and on the card, launch counts set to 0 just before the card's run and
-   read just after: the same accepted scans, resample decisions and best
+   and on the card, each card run made again, untimed, under the
+   profiler: the same accepted scans, resample decisions and best
    particle, poses within 1 mm / 1e-3 rad, and B4 (Slam2D, one launch a
-   matched scan) or B6 (PF) launched at that width;
+   matched scan) or B6 (PF) launched at that width (the element type in
+   the kernel's name);
 13. lo_kernels — LidarOdometry2D's kernels on the bench_lidar.py workload's
    first scan and window (720 beams padded to 768, 5 cm cells, a 640 x 640
    window, 1 m rays of 22 steps, l2_max 1 m): B1's pair into [2, 640, 640]
@@ -147,21 +148,21 @@ Phases, one JSON line each:
    max_range=10.0, capacity=4096)) through LidarOdometry2D.update_prepadded
    from device-staged scans: a 100-scan warm-up, then 3 reps of the 1,600
    scans (bench_lidar.py runs 5), each rep's first scan moved by rep·1e-4
-   m as there, launch counts set to 0 just before the reps and read just
-   after: scans/s (median rep), drift m/100 m per rep and the median (< 8,
-   bench_lidar.py's bound on a device), diverged reps (> 3x the median),
-   the final error, launches and host reads per scan, refreshes, the
-   pool's peak patch count and overflow (0), peak memory; then device
-   activities and device time a scan over 100 scans of a profiled pass
-   (lo_profiled);
+   m as there: scans/s (median rep), drift m/100 m per rep and the median
+   (< 8, bench_lidar.py's bound on a device), diverged reps (> 3x the
+   median), the final error, host reads per scan, refreshes, the pool's
+   peak patch count and overflow (0), peak memory; then device
+   activities, the kernels' launches and device time a scan over 100
+   scans of a profiled pass (lo_profiled);
 16. slam2d_transient, slam2d_pool — the phase 5 workload with
    ``transient_map=True`` and with ``resident_window=False``: the first 60
    scans on the CPU and on the card compared as in phase 4 (the maps
    through the dense window around the last pose), then one full pass on
-   the card: scans/s, ATE (the pool path < 12 mm; the transient map
-   within 1 mm of the JAX package's 18.71 mm on this workload,
+   the card: scans/s, ATE (the pool path < 12 mm; the transient map within
+   1 mm of the JAX package's 18.71 mm on this workload,
    ref_slam2d_options.py: it forgets what the loop would close on), zero
-   escapes, and B1, B2 and B3 launched;
+   escapes, and B1, B3 and B4 launched in one more, untimed pass
+   (counted);
 17. graph_kernels — GraphSlam2D's map rebuild and coarse fields on the
    key poses of a warm-up pass of the bench_graph.py workload
    (SimConfig(n_steps=300, seed=8), 720 beams padded to 768, 5 cm cells):
@@ -178,16 +179,18 @@ Phases, one JSON line each:
 19. graph_main_path — the bench_graph.py workload through
    GraphSlam2D.update_many_prepadded from device-staged scans: a warm-up
    pass, then 3 reps (each rep's prior moved by rep·1e-4 m, as there),
-   launch counts set to 0 just before the reps and read just after, each
-   rep followed by generate_occupancy_map and generate_coarse_distance_map:
-   scans/s (median rep) and spread, key-pose ATE (< 0.15 m) and loop
-   closures (>= 4) of the median rep (bench_graph.py's bounds), key poses,
-   optimizes, the ``stats`` phase counters, solver host reads a sync,
-   B1/B2/B3 launches (each > 0, and each phase 17 shape's), peak memory,
-   the maps' times and patch counts, beside the JAX package's figures on
-   the same workload (ref_graph_slam2d.py, on the CPU); then device
-   activities, device time and the ``stats`` split of the first 150 scans
-   of one more pass under torch.profiler (graph_profiled);
+   each rep followed by generate_occupancy_map and
+   generate_coarse_distance_map: scans/s (median rep) and spread,
+   key-pose ATE (< 0.15 m) and loop closures (>= 4) of the median rep
+   (bench_graph.py's bounds), key poses, optimizes, the ``stats`` phase
+   counters, solver host reads a sync, peak memory, the maps' times and
+   patch counts, beside the JAX package's figures on the same workload
+   (ref_graph_slam2d.py, on the CPU); each phase 17 shape's launches (the
+   warm-up pass's coarse fallback, the last rep's two maps made again),
+   counted on the profiler's trace; B1/B3/B4 launches (each > 0) of one
+   more, untimed pass (rep 0's, counted); then device activities, device
+   time and the ``stats`` split of the first 150 scans of one more pass
+   under torch.profiler (graph_profiled);
 20. pgo — bench_pgo.py's 512-node graph with 32 loop closures: ms per
    solve over 5 solves after one, the mean error of every 16th node (<
    3 cm), nodes within 1e-3 of the CPU port's at the end of the
@@ -209,7 +212,8 @@ Phases, one JSON line each:
    of the map's box; write -> read -> write gives the same bytes), and a
    fresh Loc2D(match="solve") (B4 and B2 at phase 9's shapes) localises
    the 199 updates on the loaded maps (mean error < 1 cm): write and read
-   times, file sizes, launches;
+   times, file sizes, both drivers' launches (each run under the
+   profiler);
 23. pf_pool_kernel, pf_pool_prefix, pf_pool_main_path — PFSlam2D with
    ``resident_window=False`` on the phase 8 workload: B6 on every
    particle's pool window (``[30,512,512]``), B1's pair and B3 on one
@@ -218,9 +222,9 @@ Phases, one JSON line each:
    updates on the CPU and on the card under phase 7's bounds and control
    (every particle's pool through the resident window compared), and the
    resident path on the card, which the pool path equals bit for bit;
-   one pass on the card with launch counts set to 0 just before and read
-   just after: updates/s, final error (< 5 cm), launches per update,
-   device activities per update, peak memory.
+   one pass on the card: updates/s, final error (< 5 cm), peak memory;
+   the kernels' launches and all device activities per update of one
+   more, untimed pass (counted).
 
 24. slam_spill — Slam2D with the host spill tier (``use_compression``,
    capacity SPILL_CAPACITY) over the first SPILL_SCANS scans of the
@@ -232,7 +236,8 @@ Phases, one JSON line each:
    the unbounded run above the bound, no overflow, spills, refills and
    cache hits fired, ``full_map()`` through a .smd file with more patches
    than the live pool; patches, store bytes, each spill's and refill's
-   ms, host reads per update, scans/s of both runs, ATE, launches;
+   ms, host reads per update, scans/s of both runs, ATE, launches (each
+   run made again, untimed, and counted);
 25. pf_spill — PFSlam2D with the per-particle spill tier over the first
    PF_SPILL_SCANS scans of tests/test_pf_spill.py's corridor route
    (n_steps=400) at 720 beams and 5 cm, bench_pf.py's options (30
@@ -241,7 +246,8 @@ Phases, one JSON line each:
    distance grids ``torch.equal``, the same best particle, its merged map
    equal to the unbounded particle map key by key, pools at or below high
    water at the end, no overflow, spills and refills fired; updates/s,
-   re-orgs, store bytes (shared blobs once), memory, launches;
+   re-orgs, store bytes (shared blobs once), memory, launches (each run
+   made again, untimed, and counted);
 26. summary_slam2d, summary_pf — bench.py's first SUMMARY_SCANS scans and
    bench_pf.py's first 60 updates with ``create_summary`` and
    ``detailed_summary``, the trajectories (particles) ``torch.equal`` to
@@ -277,8 +283,9 @@ Phases, one JSON line each:
    rank's share (B6 on 128 pool windows and on 128 resident sub-windows,
    the pair and B3 on 128 resident update windows, the pair over 18 of the
    rebuild's key scans, B3 on a rebuild strip with its halos), with times
-   and bounds as in phase 3. Each rank then runs, each part's launch
-   counts set to 0 just before and read just after: the PF pool path at
+   and bounds as in phase 3. Each rank then runs, each part but GN-CG
+   made again from the same start after its timed run, untimed, for its
+   launches on the rank's device trace: the PF pool path at
    bench_pf_scale.py's size (512 particles, 720 beams, 5 cm, capacity
    512, max_iter 16; the first scan, then 3 updates, one in the run of
    every group, the last with its weights spread so that it resamples and
@@ -294,9 +301,17 @@ Phases, one JSON line each:
    bench_graph.py's rebuild through ``generate_occupancy_map(mesh=...)``,
    bit-equal. A rank that fails or hangs fails the phase.
 
+Launches are counted on torch.profiler's device trace, by the kernel names
+of ``utils/devprof.py``. A counted pass (phases 5, 8, 16, 19, 23-25) is
+one more pass of the phase's workload by a fresh driver, untimed, each
+COUNT_WINDOW scans of it a profile of its own (phases 5 and 8: the pass
+made twice, each window's larger count kept), since the profiler drops
+stretches of long profiles (PERF.md §7).
+
 Each group ends with a ``group`` line (its seconds). Then the ``kernels``
-line (each entry's ``launches`` from its main path's
-run; phase 28's new shapes count the world-4 ranks' launches; phases 22,
+line (each entry's ``launches`` from its main path's counted pass; phase
+28's
+new shapes count the world-4 ranks' launches; phases 22,
 24, 25 and 28's counts under ``path_launches``, each with the
 shape that path sent the kernel, which may differ from the shape the
 entry's times were measured at) and, last,
@@ -792,6 +807,44 @@ def device_launches(torch, fn) -> int:
     return dp.launch_count(dp.cuda_rows(dp.profile_calls(fn)))
 
 
+COUNT_WINDOW = 20              # scans a profile of a counted pass holds
+
+
+def counted_pass(make, feed, n: int, kernels: dict, tries: int = 1,
+                 window: int = COUNT_WINDOW) -> tuple:
+    """The kernels that one untimed pass of a fresh driver launched,
+    counted on torch.profiler's device trace by name (``kernels`` as
+    ``devprof.launches_by_window`` takes them): ``make()`` returns the
+    driver, ``feed(driver, a, b)`` gives it scans a..b-1 and returns the
+    accepted ones. Each ``window`` scans are a profile of their own (the
+    profiler drops stretches of long profiles, PERF.md §7); with ``tries``
+    > 1 the pass is made that many times, the same work each time, and each
+    window's count is the largest seen. Returns (the accepted scans, the
+    launches)."""
+    def windows():
+        drv = make()
+        return [functools.partial(feed, drv, a, min(a + window, n))
+                for a in range(0, n, window)]
+    outs, launches = devprof().launches_by_window(windows, kernels, tries)
+    return [k for w in outs for k in w], launches
+
+
+def one_by_one(staged, odoms):
+    """``counted_pass``'s ``feed`` for a driver that takes the
+    device-staged scans one ``update_prepadded`` call each."""
+    return lambda drv, a, b: [k for k in range(a, b)
+                              if drv.update_prepadded(*staged[k], odoms[k])]
+
+
+def fresh(cls, opts, dev, pose):
+    """A new driver ``cls(opts, device=dev)`` with its prior at ``pose``
+    (x, y, theta)."""
+    from iris_lama_tpu_torch.core.pose import Pose2D
+    drv = cls(opts, device=dev)
+    drv.set_prior(Pose2D(*pose))
+    return drv
+
+
 @functools.lru_cache(maxsize=None)
 def slam_workload():
     """bench.py's Slam2D workload: (data, options, scans padded to 768)."""
@@ -1020,8 +1073,8 @@ def pf_phases(torch, dev) -> list:
     from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
     from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch, gn_solve
-    from iris_lama_tpu_torch.ops import motion, scatter_matmul
+    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, gn_solve
+    from iris_lama_tpu_torch.ops import scatter_matmul
     from iris_lama_tpu_torch.sdm import mapping
 
     data, opts, padded = pf_workload()
@@ -1355,34 +1408,35 @@ def pf_phases(torch, dev) -> list:
     del cpu_pf, gpu_pf, ctl_pf
 
     # 8. the bench_pf.py workload on the card -------------------------------
-    fns = {"deposit_pair_batched": scatter_matmul.deposit_pair,
-           "deposit_counts_batched": scatter_matmul.deposit_counts,
-           "edt2d_batched": edt_pallas.edt2d,
-           "gn_batch_solve": gn_batch.solve_window_sq,
-           "motion": motion.apply_queue}
-    _cuda.reset_launches(*fns.values())
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     passes = []
     for rep in range(bench_reps(3)):
         passes.append(pf_pass(torch, dev, data, opts, staged, rep))
-    launches = {n: fn.launches for n, fn in fns.items()}
-    updates = sum(p["updates"] for p in passes)
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    # the kernels of one more pass, rep 0's, untimed (counted_pass)
+    dp = devprof()
+    acc, launches = counted_pass(
+        lambda: fresh(PFSlam2D, opts, dev, data.poses_gt[0]),
+        one_by_one(staged, data.odometry), len(staged),
+        {"deposit_pair_batched": dp.DEPOSIT, "edt2d_batched": dp.EDT,
+         "gn_batch_solve": dp.GN_SOLVE, "motion": dp.MOTION}, tries=2)
+    updates = sum(k > 0 for k in acc)      # after the first, as timed
     rates = sorted(p["updates_per_s"] for p in passes)
     emit({"phase": "pf_main_path", "passes": passes,
           "median_updates_per_s": rates[len(rates) // 2],
-          "launches": launches,
+          "counted_updates": updates, "launches": launches,
           "launches_per_update": {n: v / updates
                                   for n, v in launches.items()},
-          "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
-          "before_mem_mb": base_mem / 2 ** 20})
+          "peak_mem_mb": peak_mb, "before_mem_mb": base_mem / 2 ** 20})
     for p in passes:
         assert p["final_err_m"] < PF_ERR_BOUND_M, \
             f"PF final error {p['final_err_m']:.4f} m"
         assert p["reorgs"] >= 1, "PF: no re-org"
-    # the map update deposits through the pair; each update's motion
-    # queue goes in one launch
+    # the counted pass did rep 0's work; the map update deposits through
+    # the pair; each update's motion queue goes in one launch
+    assert updates == passes[0]["updates"], (updates, passes[0]["updates"])
     assert all(launches[n] > 0 for n in ("deposit_pair_batched",
                                          "edt2d_batched", "gn_batch_solve")
                ), f"launches {launches}"
@@ -1869,11 +1923,9 @@ def loc_phases(torch, dev) -> list:
     del maps_cpu
 
     # 11. the bench_loc.py workload on the card, every match mode ----------
-    fns = {"gn_solve_batched": gn_solve.solve_window_sq,
-           "gn_eval_sq": match_eval.gn_eval_sq,
-           "select4_sq": select4.select4_sq,
-           "scatter_add_2d": scatter_pallas.scatter_add_2d,
-           "scatter_add_sorted": scatter_sorted.scatter_add_sorted}
+    dp = devprof()
+    kernels = {"gn_solve_batched": dp.GN_SOLVE, "gn_eval_sq": dp.GN_EVAL,
+               "select4_sq": dp.SELECT4}
 
     def one_pass(mode, rep, p, scans=n_steps):
         lc = loc2d.Loc2D(opts, maps=maps, device=dev, match=mode)
@@ -1892,8 +1944,6 @@ def loc_phases(torch, dev) -> list:
     modes = {}
     for mode in loc2d.MATCH_MODES:
         one_pass(mode, 9, 0)                       # warm-up, discarded
-        for fn in fns.values():
-            fn.launches = 0
         reads0 = host_reads("loc_cell", "irls_stop")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1910,26 +1960,26 @@ def loc_phases(torch, dev) -> list:
             reps.append({"updates_per_s": n_tot / t_tot,
                          "mean_err_m": err_sum / n_tot, "updates": n_tot,
                          "seconds": t_tot, "gathers": gathers})
-        launches = {n: fn.launches for n, fn in fns.items()}
         updates = sum(r["updates"] for r in reps)
         rates = sorted(r["updates_per_s"] for r in reps)
         modes[mode] = {
             "reps": reps, "median_updates_per_s": rates[len(rates) // 2],
-            "launches": launches,
-            "launches_per_update": {n: v / updates
-                                    for n, v in launches.items()},
             "host_reads_per_update": (host_reads("loc_cell", "irls_stop")
                                       - reads0) / updates,
             "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
-        # every device activity (kernels, copies, fills) of the first
-        # LOC_PROFILED scans of one more pass, counted by the profiler (whose
-        # overhead on a whole pass of the generic modes is ~75 s), after the
-        # launch counts were read
-        box = []
-        n_dev = device_launches(
-            torch, lambda: box.append(one_pass(mode, 8, 0,
-                                               depth(LOC_PROFILED, 20))))
-        modes[mode]["device_launches_per_update"] = n_dev / box[0][2]
+        # the kernels and every device activity (kernels, copies, fills) of
+        # the first LOC_PROFILED scans of one more pass, counted by the
+        # profiler (whose overhead on a whole pass of the generic modes is
+        # ~75 s)
+        counted, launches = dp.launches_by_name(
+            lambda: one_pass(mode, 8, 0, depth(LOC_PROFILED, 20)),
+            {**kernels, "all": ""}, tries=2)
+        n_dev = launches.pop("all")
+        modes[mode].update(
+            launches=launches,
+            launches_per_update={n: v / counted[2]
+                                 for n, v in launches.items()},
+            device_launches_per_update=n_dev / counted[2])
         emit({"phase": "loc_main_path", "mode": mode, **modes[mode]})
         for r in reps:
             assert r["mean_err_m"] < LOC_ERR_BOUND_M, \
@@ -1988,7 +2038,7 @@ def loc_phases(torch, dev) -> list:
                          "share_of_solve_update": cov_ms["kernel_ms"]
                          * rate / 1e3},
           "map_mb": map_mb, "seconds": time.perf_counter() - t_start})
-    for kern in loc_kernels:      # summed over phase 11's match modes
+    for kern in loc_kernels:      # summed over phase 11's profiled passes
         counter = kern["name"].removesuffix("_loc2d")
         kern["launches"] = sum(m["launches"].get(counter, 0)
                                for m in modes.values())
@@ -2000,22 +2050,25 @@ def fine_phases(torch, dev) -> dict:
     Slam2D at 4 cm cells (uint8 windows) and 3 cm (int16) over the first
     ``FINE_SCANS`` scans of the phase 5 workload, and PFSlam2D at 4 cm over
     the first ``FINE_PF`` updates of the phase 8 workload, each on the CPU
-    (plain versions) and on the card (kernels), the launch counts set to 0
-    just before the card's run and read just after: the same accepted
-    scans, resample decisions and best particle, poses within 1 mm / 1e-3
-    rad, the window of the expected width, and B4 (Slam2D) or B6 (PF)
-    launched at that width. Returns {kernels-line name: launches}."""
+    (plain versions) and on the card (kernels), the card's runs under the
+    profiler: the same accepted scans, resample decisions and best
+    particle, poses within 1 mm / 1e-3 rad, the window of the expected
+    width, and B4 (Slam2D) or B6 (PF) launched at that width (the element
+    type in the kernel's name). Returns {kernels-line name: launches}."""
     import dataclasses
     from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
     from iris_lama_tpu_torch.algos.slam2d import Slam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
-    from iris_lama_tpu_torch.ops import gn_solve, scatter_matmul, select4
     from iris_lama_tpu_torch.utils.evaluation import ate_rmse
 
-    fns = (select4.select4_sq, gn_batch.solve_window_sq,
-           gn_solve.solve_window_sq, scatter_matmul.deposit_pair,
-           edt_pallas.edt2d)
+    dp = devprof()
+
+    def kernels(width):
+        """Phase 12's counts: B4/B6 at every width and at ``width``."""
+        return {"select4_sq": dp.SELECT4, "gn_solve": dp.GN_SOLVE,
+                f"gn_solve_{width}": dp.typed(dp.GN_SOLVE, width),
+                "deposit_pair": dp.DEPOSIT, "edt2d": dp.EDT}
+
     out = {}
 
     def pose_diff(a, g):
@@ -2030,28 +2083,28 @@ def fine_phases(torch, dev) -> dict:
         for device in ("cpu", dev):
             staged = [tuple(torch.as_tensor(a, device=device) for a in p)
                       for p in padded[:FINE_SCANS]]
-            slam = Slam2D(o, device=device)
-            slam.set_prior(Pose2D(*data.poses_gt[0]))
-            if device != "cpu":
-                torch.cuda.synchronize()
-                _cuda.reset_launches(*fns)
+
+            def run():
+                slam = Slam2D(o, device=device)
+                slam.set_prior(Pose2D(*data.poses_gt[0]))
+                return slam, slam.update_many_prepadded(
+                    staged, data.odometry[:FINE_SCANS])
+
             t0 = time.perf_counter()
-            acc = slam.update_many_prepadded(staged,
-                                             data.odometry[:FINE_SCANS])
+            slam, acc = run()
             if device != "cpu":
                 torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+            if device != "cpu":
+                # a fresh driver's run again, untimed, under the profiler
+                _, counts = dp.launches_by_name(run, kernels(width), tries=2)
             runs.append((acc, slam.trajectory(), str(slam._res_dist.dtype),
                          slam.escaped_count(), dt))
-        counts = {f.__module__.rsplit(".", 1)[1] + "." + f.__name__:
-                  dict(f.width_launches, all=f.launches)
-                  if hasattr(f, "width_launches") else f.launches
-                  for f in fns}
         (acc_c, tc, dt_c, _, s_c), (acc_g, tg, dt_g, esc, s_g) = runs
         dxy, dth = pose_diff(tc, tg)
         gt = np.asarray([data.poses_gt[k] for k in acc_g])
         ate = ate_rmse(tg, gt)
-        n_b4 = gn_solve.solve_window_sq.width_launches.get(width, 0)
+        n_b4 = counts[f"gn_solve_{width}"]
         emit({"phase": "fine_slam2d", "resolution": res, "dtype": dt_g,
               "scans": FINE_SCANS, "accepted": len(acc_g), "cpu_s": s_c,
               "card_s": s_g, "max_dxy_m": dxy, "max_dtheta_rad": dth,
@@ -2068,25 +2121,27 @@ def fine_phases(torch, dev) -> dict:
     o = dataclasses.replace(opts, resolution=0.04)
     runs = []
     for device in ("cpu", dev):
-        f = PFSlam2D(o, device=device)
-        f.set_prior(Pose2D(*data.poses_gt[0]))
         staged = [tuple(torch.as_tensor(a, device=device) for a in p)
                   for p in padded[:FINE_PF + 1]]
-        if device != "cpu":
-            torch.cuda.synchronize()
-            _cuda.reset_launches(*fns)
+
+        def run():
+            f = fresh(PFSlam2D, o, device, data.poses_gt[0])
+            infos = []
+            for i in range(FINE_PF + 1):
+                if f.update_prepadded(*staged[i], data.odometry[i]) and i:
+                    infos.append((f.pset.pose.cpu().numpy(),
+                                  f.pset.lineage.cpu().numpy(),
+                                  f.best_particle_idx()))
+            return infos, str(f.pset.res_dist.dtype)
+
         t0 = time.perf_counter()
-        infos = []
-        for i in range(FINE_PF + 1):
-            if f.update_prepadded(*staged[i], data.odometry[i]) and i:
-                infos.append((f.pset.pose.cpu().numpy(),
-                              f.pset.lineage.cpu().numpy(),
-                              f.best_particle_idx()))
+        infos, dtype = run()
         if device != "cpu":
             torch.cuda.synchronize()
-        runs.append((infos, str(f.pset.res_dist.dtype),
-                     time.perf_counter() - t0))
-        del f
+        runs.append((infos, dtype, time.perf_counter() - t0))
+        if device != "cpu":
+            # a fresh filter's run again, untimed, under the profiler
+            _, counts = dp.launches_by_name(run, kernels("uint8"))
     (inf_c, dt_c, s_c), (inf_g, dt_g, s_g) = runs
     diffs = []
     for a, g in zip(inf_c, inf_g):
@@ -2097,7 +2152,7 @@ def fine_phases(torch, dev) -> dict:
         diffs.append(pose_diff(pa, pg))
     dxy = max(d[0] for d in diffs)
     dth = max(d[1] for d in diffs)
-    n_b6 = gn_batch.solve_window_sq.width_launches.get("uint8", 0)
+    n_b6 = counts["gn_solve_uint8"]
     emit({"phase": "fine_pf", "resolution": 0.04, "dtype": dt_g,
           "updates": len(inf_g), "cpu_s": s_c, "card_s": s_g,
           "max_dxy_m": dxy, "max_dtheta_rad": dth,
@@ -2105,8 +2160,7 @@ def fine_phases(torch, dev) -> dict:
                                         for a, g in zip(inf_c, inf_g)),
           "best_particle_equal": all(a[2] == g[2]
                                      for a, g in zip(inf_c, inf_g)),
-          "gn_batch_width_launches": dict(
-              gn_batch.solve_window_sq.width_launches)})
+          "launches": counts})
     assert len(inf_c) == len(inf_g) == FINE_PF, "PF 4 cm: accepted"
     assert dt_c == dt_g == "torch.uint8", (dt_c, dt_g)
     assert all(np.array_equal(a[1], g[1]) and a[2] == g[2]
@@ -2162,8 +2216,7 @@ def lo_phases(torch, dev) -> list:
     launches in phase 15."""
     from iris_lama_tpu_torch.algos.lidar_odometry_2d import LidarOdometry2D
     from iris_lama_tpu_torch.core import lie
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, scatter_matmul
-    from iris_lama_tpu_torch.ops import select4
+    from iris_lama_tpu_torch.ops import edt_pallas, scatter_matmul
     from iris_lama_tpu_torch.sdm import mapping
     from iris_lama_tpu_torch.sdm import window as win_mod
     from iris_lama_tpu_torch.sdm.occupancy import probabilistic_saturate
@@ -2332,16 +2385,11 @@ def lo_phases(torch, dev) -> list:
                 "overflow": int(lo.map.table.overflow)}
 
     one_pass(9, LO_WARMUP)            # warm-up: discarded
-    fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "deposit_counts": scatter_matmul.deposit_counts,
-           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    _cuda.reset_launches(*fns.values())
     reads0 = host_reads("refresh", "irls_stop")
     n_reps = bench_reps(LO_REPS)
     reps = [one_pass(rep) for rep in range(n_reps)]
-    launches = {n: fn.launches for n, fn in fns.items()}
     scans = n_reps * (LO_SCANS - 1)
     rates = sorted(p["scans_per_s"] for p in reps)
     drifts = sorted(p["drift_m_per_100m"] for p in reps)
@@ -2355,15 +2403,15 @@ def lo_phases(torch, dev) -> list:
           "drift_m_per_100m": med, "drifts": drifts,
           "diverged_reps": [d for d in drifts if d > 3.0 * max(med, 1e-9)],
           "final_err_m": med_rep["final_err_m"], "path_len_m": path_len,
-          "launches": launches,
-          "launches_per_scan": {k: v / scans for k, v in launches.items()},
           "host_reads_per_scan": (host_reads("refresh", "irls_stop")
                                   - reads0) / scans,
           "refreshes_per_rep": [p["refreshes"] for p in reps],
           "peak_patches": max(p["peak_patches"] for p in reps),
           "overflow": max(p["overflow"] for p in reps),
           "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20})
-    emit({"phase": "lo_profiled", **lo_profile(torch, dev, opts, staged)})
+    profiled = lo_profile(torch, dev, opts, staged)
+    emit({"phase": "lo_profiled", **profiled})
+    launches = profiled["launches"]
     assert med < LO_DRIFT_BOUND, f"LidarOdometry2D drift {med} m/100 m"
     assert all(p["overflow"] == 0 for p in reps), "pool overflow"
     assert launches["deposit_pair"] > 0 and launches["edt2d"] > 0, launches
@@ -2373,10 +2421,11 @@ def lo_phases(torch, dev) -> list:
 
 
 def lo_profile(torch, dev, opts, staged) -> dict:
-    """Device activities and device time a scan over ``LO_PROFILED`` scans
-    of a fresh LidarOdometry2D pass (after its first 100), from
-    torch.profiler; ``busy_share`` is the device time over the profiled
-    wall time (the profiler slows the host, so it reads high)."""
+    """Device activities, the kernels' launches and device time a scan
+    over ``LO_PROFILED`` scans of a fresh LidarOdometry2D pass (after its
+    first 100), from torch.profiler; ``busy_share`` is the device time over
+    the profiled wall time (the profiler slows the host, so it reads
+    high)."""
     from iris_lama_tpu_torch.algos.lidar_odometry_2d import LidarOdometry2D
     dp = devprof()
     lo = LidarOdometry2D(opts, device=dev)
@@ -2396,10 +2445,15 @@ def lo_profile(torch, dev, opts, staged) -> dict:
     events = dp.cuda_rows(dp.profile_calls(profiled))
     dev_us = dp.device_us(events)
     n, wall = len(scans), run["wall"]
+    launches = {n: dp.launch_count(events, k) for n, k in (
+        ("deposit_pair", dp.DEPOSIT), ("select4_sq", dp.SELECT4),
+        ("edt2d", dp.EDT))}
     return {"scans": n, "refreshes": run["refreshes"],
             "ms_per_scan_profiled": wall * 1e3 / n,
             "device_ms_per_scan": dev_us / 1e3 / n,
             "activities_per_scan": dp.launch_count(events) / n,
+            "launches": launches,
+            "launches_per_scan": {k: v / n for k, v in launches.items()},
             "busy_share": dev_us / 1e6 / wall}
 
 
@@ -2408,18 +2462,16 @@ def slam_option_phases(torch, dev) -> None:
     ``resident_window=False`` on the phase 5 workload: the first
     ``PREFIX_SCANS`` scans on the CPU and on the card (accepted scans,
     poses within 1 mm / 1e-3 rad, the map through a dense window around the
-    last pose), then one full pass on the card with every kernel's launch
-    count set to 0 just before and read just after (B4 matches, no B2)."""
+    last pose; the kernels of the card's prefix counted on the profiler's
+    trace: B1, B3 and B4), then one full pass on the card."""
     import dataclasses
     from iris_lama_tpu_torch.algos.slam2d import Slam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
-    from iris_lama_tpu_torch.ops import scatter_matmul
 
     data, opts, padded = slam_workload()
-    fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "gn_solve_batched_slam2d": gn_solve.solve_window_sq,
-           "edt2d": edt_pallas.edt2d}
+    dp = devprof()
+    kernels = {"deposit_pair": dp.DEPOSIT,
+               "gn_solve_batched_slam2d": dp.GN_SOLVE, "edt2d": dp.EDT}
     for name, kw in (("slam2d_transient", dict(transient_map=True)),
                      ("slam2d_pool", dict(resident_window=False))):
         o = dataclasses.replace(opts, **kw)
@@ -2447,9 +2499,11 @@ def slam_option_phases(torch, dev) -> None:
         staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
                   for p in padded]
         torch.cuda.synchronize()
-        _cuda.reset_launches(*fns.values())
         main = slam_pass(torch, dev, data, o, staged, 0)
-        launches = {n: fn.launches for n, fn in fns.items()}
+        # the kernels of one more, untimed pass (counted_pass)
+        counted, launches = counted_pass(
+            lambda: fresh(Slam2D, o, dev, data.poses_gt[0]),
+            one_by_one(staged, data.odometry), len(staged), kernels)
         emit({"phase": name, "prefix_scans": PREFIX_SCANS,
               "accepted": len(acc_g), "cpu_s": s_c, "card_s": s_g,
               "max_dxy_m": dxy, "max_dtheta_rad": dth,
@@ -2457,7 +2511,7 @@ def slam_option_phases(torch, dev) -> None:
               "patches": [int(sc.map.table.num_patches()),
                           int(sg.map.table.num_patches())],
               "main_pass": main, "launches": launches,
-              "launches_per_scan": {k: v / main["updates"]
+              "launches_per_scan": {k: v / len(counted)
                                     for k, v in launches.items()}})
         assert acc_c == acc_g, f"{name}: accepted scans differ"
         assert dxy <= 1e-3 and dth <= 1e-3, f"{name}: trajectories diverge"
@@ -2635,15 +2689,15 @@ def graph_kernel_phase(torch, dev, gs) -> list:
 
 def graph_phases(torch, dev) -> list:
     """Phases 17-19: GraphSlam2D on bench_graph.py's workload. A warm-up
-    pass on the card (its key poses feed phase 17's kernels), the CPU/card
-    prefix (18), then the bench workload (19) with every launch count set
-    to 0 just before and read just after. Returns the kernels-line entries
-    of phase 17 with their launches in phase 19."""
+    pass on the card (its key poses feed phase 17's kernels; B3's launches
+    in its coarse fallback counted on the profiler's trace), the CPU/card
+    prefix (18), then the bench workload (19). Returns the kernels-line
+    entries of phase 17 with their launches: the warm-up pass's coarse
+    fallback, and the last rep's two maps made again under the
+    profiler."""
     import dataclasses
     from iris_lama_tpu_torch.algos import graph_slam2d as gmod
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
-    from iris_lama_tpu_torch.ops import scatter_matmul
     from iris_lama_tpu_torch.utils import state as state_mod
     from iris_lama_tpu_torch.utils.evaluation import ate_rmse
 
@@ -2652,23 +2706,25 @@ def graph_phases(torch, dev) -> list:
               for p in padded]
     times = [float(k) for k in range(GRAPH_STEPS)]
     g0 = data.poses_gt[0]
-    counts = {"rebuild": [0, 0], "r50": 0, "coarse": 0}
+    coarse_launches = [0]
+    dp = devprof()
 
     def counted_coarse(gs):
         """Count B3's launches in the coarse fallback (its batches)."""
         corr, gate, coarse = gs._programs()
 
         def fn(*args):
-            before = edt_pallas.edt2d.launches
-            out = coarse(*args)
-            counts["coarse"] += edt_pallas.edt2d.launches - before
+            out, n = dp.launches_by_name(lambda: coarse(*args),
+                                         {"edt2d": dp.EDT})
+            coarse_launches[0] += n["edt2d"]
             return out
 
         gs._kernels = (corr, gate, fn)
 
-    def one_pass(rep, maps=False):
+    def one_pass(rep, maps=False, count=False):
         gs = gmod.GraphSlam2D(opts, device=dev)
-        counted_coarse(gs)
+        if count:
+            counted_coarse(gs)
         gs.set_prior(Pose2D(g0[0] + rep * 1e-4, g0[1], g0[2]))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2685,28 +2741,22 @@ def graph_phases(torch, dev) -> list:
                "key_pose_ate_m": ate_rmse(est, gt),
                "escaped": gs.slam.escaped_count()}
         if maps:
-            b1, b3 = scatter_matmul.deposit_pair.launches, \
-                edt_pallas.edt2d.launches
             t0 = time.perf_counter()
             state = gs.generate_occupancy_map()
             torch.cuda.synchronize()
             out["occupancy_map_ms"] = (time.perf_counter() - t0) * 1e3
             out["occupancy_map_patches"] = int(state.table.num_patches())
-            counts["rebuild"][0] += scatter_matmul.deposit_pair.launches - b1
-            counts["rebuild"][1] += edt_pallas.edt2d.launches - b3
-            b3 = edt_pallas.edt2d.launches
             t0 = time.perf_counter()
             dstate, _ = gs.generate_coarse_distance_map()
             torch.cuda.synchronize()
             out["coarse_distance_map_ms"] = (time.perf_counter() - t0) * 1e3
             out["coarse_distance_map_patches"] = int(
                 dstate.table.num_patches())
-            counts["r50"] += edt_pallas.edt2d.launches - b3
         out["stats"] = dict(gs.stats)
         return gs, out
 
     # warm-up pass, discarded; its key poses feed phase 17
-    warm, _ = one_pass(9)
+    warm, _ = one_pass(9, count=True)
     entries = graph_kernel_phase(torch, dev, warm)
     del warm
 
@@ -2772,18 +2822,38 @@ def graph_phases(torch, dev) -> list:
     # 19. the bench_graph.py workload on the card (the front end matches
     # through B4; the verification and the coarse fallback on float
     # windows, without B2)
-    fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "gn_solve_batched_slam2d": gn_solve.solve_window_sq,
-           "edt2d": edt_pallas.edt2d}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    _cuda.reset_launches(*fns.values())
-    counts.update(rebuild=[0, 0], r50=0, coarse=0)
     reads0 = host_reads("irls_stop")
-    reps = [one_pass(rep, maps=True)[1]
-            for rep in range(bench_reps(GRAPH_REPS))]
-    launches = {n: fn.launches for n, fn in fns.items()}
+    reps = []
+    for rep in range(bench_reps(GRAPH_REPS)):
+        gs, out = one_pass(rep, maps=True)
+        reps.append(out)
     reads = host_reads("irls_stop") - reads0
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    _, rebuild = dp.launches_by_name(gs.generate_occupancy_map,
+                                     {"deposit_pair": dp.DEPOSIT,
+                                      "edt2d": dp.EDT})
+    _, r50 = dp.launches_by_name(gs.generate_coarse_distance_map,
+                                 {"edt2d": dp.EDT})
+    del gs
+
+    # the kernels of one more pass, rep 0's, untimed (counted_pass; its
+    # windows whole slices of the front end's sync_scans)
+    def feed(g, a, b):
+        acc = [a + k for k in g.update_many_prepadded(
+            staged[a:b], data.odometry[a:b], timestamps=times[a:b])]
+        if b == len(staged):
+            len(g.key_poses)             # drains the verifications in flight
+        return acc
+
+    sync_scans = opts.sync_scans
+    counted, launches = counted_pass(
+        lambda: fresh(gmod.GraphSlam2D, opts, dev, g0), feed, len(staged),
+        {"deposit_pair": dp.DEPOSIT, "gn_solve_batched_slam2d": dp.GN_SOLVE,
+         "edt2d": dp.EDT},
+        window=sync_scans * max(1, COUNT_WINDOW // sync_scans))
+    profiled = graph_profile(torch, dev, opts, staged, data, times)
     syncs = sum(r["stats"].get("sync_n", 0) for r in reps)
     rates = sorted(r["scans_per_s"] for r in reps)
     med = sorted(reps, key=lambda r: r["scans_per_s"])[len(reps) // 2]
@@ -2795,24 +2865,23 @@ def graph_phases(torch, dev) -> list:
           "key_poses": med["key_poses"], "optimizes": med["optimizes"],
           "jax_reference_cpu": GRAPH_JAX_REF,
           "launches": launches,
-          "launches_per_update": {k: v / sum(r["updates"] for r in reps)
+          "launches_per_update": {k: v / len(counted)
                                   for k, v in launches.items()},
-          "kernel_launches": {"deposit_pair_rebuild": counts["rebuild"][0],
-                              "edt2d_rebuild": counts["rebuild"][1],
-                              "edt2d_coarse": counts["coarse"],
-                              "edt2d_r50": counts["r50"]},
+          "kernel_launches": {"deposit_pair_rebuild": rebuild["deposit_pair"],
+                              "edt2d_rebuild": rebuild["edt2d"],
+                              "edt2d_coarse": coarse_launches[0],
+                              "edt2d_r50": r50["edt2d"]},
           "solver_host_reads": reads, "syncs": syncs,
           "solver_host_reads_per_sync": reads / max(syncs, 1),
-          "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20})
-    emit({"phase": "graph_profiled",
-          **graph_profile(torch, dev, opts, staged, data, times)})
+          "peak_mem_mb": peak_mb})
+    emit({"phase": "graph_profiled", **profiled})
     assert med["key_pose_ate_m"] < GRAPH_ATE_BOUND_M, \
         f"GraphSlam2D key-pose ATE {med['key_pose_ate_m']}"
     assert med["loop_closures"] >= GRAPH_MIN_LOOPS, \
         f"GraphSlam2D loop closures {med['loop_closures']}"
     assert all(v > 0 for v in launches.values()), launches
-    for k, n in zip(entries, (counts["rebuild"][0], counts["rebuild"][1],
-                              counts["coarse"], counts["r50"])):
+    for k, n in zip(entries, (rebuild["deposit_pair"], rebuild["edt2d"],
+                              coarse_launches[0], r50["edt2d"])):
         k["launches"] = n
     assert all(k["launches"] > 0 for k in entries), \
         [(k["name"], k["launches"]) for k in entries]
@@ -3056,22 +3125,20 @@ def file_workflow_phase(torch, dev, tmp: str) -> dict:
     bytes); the loaded maps equal the in-memory ones on a dense probe of
     the world; a fresh Loc2D(match="solve") (B4, B2 at phase 9's shapes)
     localises the 199 updates on the loaded maps, mean error < 10 mm.
-    Returns the launches of both drivers."""
+    Returns the launches of both drivers, counted on the profiler's
+    trace."""
     from iris_lama_tpu_torch.algos import loc2d
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
-    from iris_lama_tpu_torch.ops import scatter_matmul, select4
     from iris_lama_tpu_torch.sdm import distance as dist_mod
     from iris_lama_tpu_torch.sdm import export, io as sdm_io
     from iris_lama_tpu_torch.sdm import occupancy as occ
     from iris_lama_tpu_torch.utils import state
 
-    slam_fns = {"deposit_pair": scatter_matmul.deposit_pair,
-                "gn_solve_batched_slam2d": gn_solve.solve_window_sq,
-                "edt2d": edt_pallas.edt2d}
-    _cuda.reset_launches(*slam_fns.values())
-    lw = loc_setup(torch, dev)
-    slam_launches = {n: fn.launches for n, fn in slam_fns.items()}
+    dp = devprof()
+    lw, slam_launches = dp.launches_by_name(
+        lambda: loc_setup(torch, dev),
+        {"deposit_pair": dp.DEPOSIT, "gn_solve_batched_slam2d": dp.GN_SOLVE,
+         "edt2d": dp.EDT})
     m, maps, cfg = lw["slam_map"], lw["maps"], lw["map_cfg"]
     geo, l2 = cfg.geometry, cfg.l2_max
     host = state.map_from_numpy(state.map_to_numpy(m), "cpu")
@@ -3159,18 +3226,15 @@ def file_workflow_phase(torch, dev, tmp: str) -> dict:
 
     # a fresh Loc2D on the maps read from the files
     data, odoms, staged = lw["data"], lw["odoms"], lw["staged"]
-    loc_fns = {"gn_solve_batched": gn_solve.solve_window_sq,
-               "select4_sq_loc2d": select4.select4_sq}
-    _cuda.reset_launches(*loc_fns.values())
     lc = loc2d.Loc2D(lw["opts"], maps=loc2d.LocMaps(simple, dm), device=dev,
                      match="solve")
     lc.set_prior(Pose2D(*data.poses_gt[0]))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    acc = lc.update_many_prepadded(staged, odoms)
-    torch.cuda.synchronize()
+    acc, loc_launches = dp.launches_by_name(
+        lambda: lc.update_many_prepadded(staged, odoms),
+        {"gn_solve_batched": dp.GN_SOLVE, "select4_sq_loc2d": dp.SELECT4})
     dt = time.perf_counter() - t0
-    loc_launches = {n: fn.launches for n, fn in loc_fns.items()}
     est = lc.trajectory()[-len(acc):]
     gt = np.asarray([data.poses_gt[i] for i in acc])
     err = float(np.mean(np.linalg.norm(est[:, :2] - gt[:, :2], axis=1)))
@@ -3183,7 +3247,7 @@ def file_workflow_phase(torch, dev, tmp: str) -> dict:
           "rewrite_same_bytes": rewrite_same, "png_decodes_equal": png_same,
           "probe_cells": int(cells.shape[0]), "probe_differing": probe,
           "dist_max_abs_m": dist_max_abs,
-          "loc_updates": len(acc), "loc_updates_per_s": len(acc) / dt,
+          "loc_updates": len(acc), "loc_updates_per_s_profiled": len(acc) / dt,
           "loc_mean_err_m": err, "slam_launches": slam_launches,
           "loc_launches": loc_launches,
           "loc_launches_per_update": {n: v / len(acc)
@@ -3218,8 +3282,7 @@ def pf_pool_phases(torch, dev) -> list:
     from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
     from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
-    from iris_lama_tpu_torch.ops import scatter_matmul
+    from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, scatter_matmul
     from iris_lama_tpu_torch.sdm import mapping
     from iris_lama_tpu_torch.sdm import window as win_mod
 
@@ -3454,39 +3517,26 @@ def pf_pool_phases(torch, dev) -> list:
     del runs, cpu_pf, gpu_pf, org
 
     # one pass of the bench_pf.py workload on the card
-    fns = {"deposit_pair_pool": scatter_matmul.deposit_pair,
-           "edt2d_pool": edt_pallas.edt2d,
-           "gn_batch_solve_pool": gn_batch.solve_window_sq}
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    _cuda.reset_launches(*fns.values())
     main = pf_pass(torch, dev, data, opts, staged, 0)
-    launches = {n: fn.launches for n, fn in fns.items()}
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     pool_bytes = (3 * opts.particles * (opts.capacity + 1)
                   * geo.patch_length ** 2 * 4)
-    # every device activity (kernels, copies, fills) of the first 5
-    # updates of one more filter, counted by the profiler after the
-    # launch counts were read
-    prof_pf = make(opts, dev)
-    prof_pf.update_prepadded(*staged[0], data.odometry[0])
-    n_prof = []
-
-    def five_updates():
-        i = 1
-        while len(n_prof) < depth(5, 2):
-            if prof_pf.update_prepadded(*staged[i], data.odometry[i]):
-                n_prof.append(i)
-            i += 1
-
-    n_dev = device_launches(torch, five_updates)
-    del prof_pf
+    # the kernels and every device activity (kernels, copies, fills) of one
+    # more pass, untimed (counted_pass)
+    dp = devprof()
+    counted, launches = counted_pass(
+        lambda: make(opts, dev), one_by_one(staged, data.odometry),
+        len(staged), {"deposit_pair_pool": dp.DEPOSIT, "edt2d_pool": dp.EDT,
+                      "gn_batch_solve_pool": dp.GN_SOLVE, "all": ""})
+    n_dev = launches.pop("all")
     emit({"phase": "pf_pool_main_path", "main_pass": main,
           "launches": launches,
-          "launches_per_update": {n: v / main["updates"]
+          "launches_per_update": {n: v / len(counted)
                                   for n, v in launches.items()},
-          "device_launches_per_update": n_dev / len(n_prof),
+          "device_launches_per_update": n_dev / len(counted),
           "pool_mb": pool_bytes / 2 ** 20, "peak_mem_mb": peak_mb,
           "before_mem_mb": base_mem / 2 ** 20})
     assert main["final_err_m"] < PF_ERR_BOUND_M, \
@@ -3596,12 +3646,10 @@ def tier_events(torch, store, spill, refill) -> dict:
 def slam_spill_phase(torch, dev, tmp: str) -> dict:
     """Phase 24: Slam2D with the spill tier over the corridor world at full
     width, against the unbounded pool path on the card. Returns the
-    launches of the spill run."""
+    launches of the spill run, counted on the profiler's trace."""
     import dataclasses
     from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
-    from iris_lama_tpu_torch.ops import scatter_matmul
     from iris_lama_tpu_torch.sdm import io as sdm_io
     from iris_lama_tpu_torch.utils.evaluation import ate_rmse
 
@@ -3618,15 +3666,14 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
     ref_opts = dataclasses.replace(opts, use_compression=False,
                                    resident_window=False,
                                    capacity=SPILL_REF_CAPACITY)
-    fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "gn_solve_batched_slam2d": gn_solve.solve_window_sq,
-           "edt2d": edt_pallas.edt2d}
+    dp = devprof()
+    kernels = {"deposit_pair": dp.DEPOSIT,
+               "gn_solve_batched_slam2d": dp.GN_SOLVE, "edt2d": dp.EDT}
     runs = {}
     for name, o in (("reference", ref_opts), ("spill", opts)):
         slam = Slam2D(o, device=dev)
         slam.set_prior(Pose2D(*data.poses_gt[0]))
         torch.cuda.synchronize()
-        _cuda.reset_launches(*fns.values())
         solver_reads = host_reads("irls_stop")
         tier_reads = host_reads("spill")
         reads_at = []
@@ -3641,9 +3688,12 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         runs[name] = dict(slam=slam, acc=acc, seconds=dt, reads_at=reads_at,
-                          launches={n: fn.launches for n, fn in fns.items()},
                           solver_reads=host_reads("irls_stop") - solver_reads,
                           tier_reads=host_reads("spill") - tier_reads)
+        # the kernels of one more run, untimed (counted_pass)
+        runs[name]["launches"] = counted_pass(
+            lambda: fresh(Slam2D, o, dev, data.poses_gt[0]),
+            one_by_one(staged, odoms), SPILL_SCANS, kernels)[1]
     ref, sp_run = runs["reference"], runs["spill"]
     slam, big = sp_run["slam"], ref["slam"]
     sp = slam._spill
@@ -3721,12 +3771,11 @@ def slam_spill_phase(torch, dev, tmp: str) -> dict:
 def pf_spill_phase(torch, dev) -> dict:
     """Phase 25: PFSlam2D with the per-particle spill tier over
     tests/test_pf_spill.py's corridor route at full width, against the
-    unbounded run on the card. Returns the launches of the spill run."""
+    unbounded run on the card. Returns the launches of the spill run,
+    counted on the profiler's trace."""
     import dataclasses
     from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D
     from iris_lama_tpu_torch.core.pose import Pose2D
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
-    from iris_lama_tpu_torch.ops import scatter_matmul
 
     t0 = time.perf_counter()
     data, padded = corridor_data(PF_SPILL_STEPS, 720, 0.005, 0.001)
@@ -3740,9 +3789,9 @@ def pf_spill_phase(torch, dev) -> dict:
     # reference, so that both move their windows alike
     ref_opts = dataclasses.replace(bench_opts, capacity=PF_SPILL_REF_CAPACITY,
                                    scroll_reorg=False)
-    fns = {"deposit_pair_batched": scatter_matmul.deposit_pair,
-           "edt2d_batched": edt_pallas.edt2d,
-           "gn_batch_solve": gn_batch.solve_window_sq}
+    dp = devprof()
+    kernels = {"deposit_pair_batched": dp.DEPOSIT, "edt2d_batched": dp.EDT,
+               "gn_batch_solve": dp.GN_SOLVE}
     runs = {}
     for name, o in (("reference", ref_opts), ("spill", opts)):
         f = PFSlam2D(o, device=dev)
@@ -3750,7 +3799,6 @@ def pf_spill_phase(torch, dev) -> dict:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        _cuda.reset_launches(*fns.values())
         tier_reads = host_reads("spill")
         t0 = time.perf_counter()
         n_up = sum(bool(f.update_prepadded(*staged[k], data.odometry[k]))
@@ -3762,11 +3810,14 @@ def pf_spill_phase(torch, dev) -> dict:
         m = f.pset.maps
         runs[name] = dict(
             f=f, updates=n_up, seconds=dt, tier_reads=tier_reads,
-            launches={n: fn.launches for n, fn in fns.items()},
             peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
             before_mem_mb=base / 2 ** 20,
             pool_mb=sum(a.numel() * a.element_size() for a in
                         (m.occupied, m.visited, m.dist)) / 2 ** 20)
+        # the kernels of one more run, untimed (counted_pass)
+        runs[name]["launches"] = counted_pass(
+            lambda: fresh(PFSlam2D, o, dev, data.poses_gt[0]),
+            one_by_one(staged, data.odometry), PF_SPILL_SCANS, kernels)[1]
         if name == "reference":
             ref_f = f
         del f
@@ -4371,10 +4422,8 @@ def slam_phases(torch, dev) -> list:
     from iris_lama_tpu_torch.core import lie
     from iris_lama_tpu_torch.core.pose import Pose2D
     from iris_lama_tpu_torch.match import match_surface_2d as match_mod
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_solve
-    from iris_lama_tpu_torch.ops import scatter_matmul, select4
+    from iris_lama_tpu_torch.ops import edt_pallas, scatter_matmul, select4
     from iris_lama_tpu_torch.sdm import mapping
-    from iris_lama_tpu_torch.utils import trace
     from iris_lama_tpu_torch.utils.cloud import beam_bucket
 
     # the main path's data: the bench workload's scans and options
@@ -4639,38 +4688,40 @@ def slam_phases(torch, dev) -> list:
     # 5. the main path on the card ------------------------------------------
     staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
               for p in padded]
-    fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "deposit_counts": scatter_matmul.deposit_counts,
-           "select4_sq": select4.select4_sq, "edt2d": edt_pallas.edt2d,
-           "gn_solve_batched_slam2d": gn_solve.solve_window_sq}
-    _cuda.reset_launches(*fns.values())
-    c0 = trace.counts()
+    reads0 = host_reads("irls_stop")
     passes = []
     for p in range(bench_reps(3)):
         passes.append(slam_pass(torch, dev, data, opts, staged, p))
-    launches = {n: fn.launches for n, fn in fns.items()}
-    matches = {k: trace.counts().get(k, 0) - c0.get(k, 0)
-               for k in ("match.solve", "match.generic", "reads.irls_stop")}
+    stop_reads = host_reads("irls_stop") - reads0
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    # the kernels of one more pass, rep 0's, untimed (counted_pass)
+    dp = devprof()
+    acc, launches = counted_pass(
+        lambda: fresh(Slam2D, opts, dev, data.poses_gt[0]),
+        one_by_one(staged, data.odometry), len(staged),
+        {"deposit_pair": dp.DEPOSIT, "select4_sq": dp.SELECT4,
+         "edt2d": dp.EDT, "gn_solve_batched_slam2d": dp.GN_SOLVE}, tries=2)
+    matched = len(acc) - 1          # the first scan is integrated unmatched
     rates = sorted(p["scans_per_s"] for p in passes)
-    updates = sum(p["updates"] for p in passes)
     emit({"phase": "main_path", "passes": passes,
           "median_scans_per_s": rates[len(rates) // 2],
-          "launches": launches,
-          "launches_per_scan": {k: v / updates for k, v in launches.items()},
-          "matches": matches,
-          "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20})
+          "counted_updates": len(acc), "launches": launches,
+          "launches_per_scan": {k: v / len(acc)
+                                for k, v in launches.items()},
+          "irls_stop_reads": stop_reads, "peak_mem_mb": peak_mb})
     for p in passes:
         assert p["ate_m"] < ATE_BOUND_M, f"ATE {p['ate_m']:.4f} m"
         assert p["escaped"] == 0, "updates escaped the resident safe zone"
-    # the map update deposits through the pair; deposit_counts stays B1's
-    # interface for other callers; every match is one launch of B4's whole
-    # solve (no host read of a stop flag), so no B2
+    # the counted pass did rep 0's work; the map update deposits through
+    # the pair; every match is one launch of B4's whole solve (no host read
+    # of a stop flag), so no B2
+    assert sum(k >= 2 for k in acc) == passes[0]["updates"], \
+        (len(acc), passes[0]["updates"])
     assert all(launches[n] > 0 for n in ("deposit_pair", "edt2d")), \
         f"launches {launches}"
-    assert (launches["gn_solve_batched_slam2d"] == matches["match.solve"]
-            >= updates), f"launches {launches}, matches {matches}"
-    assert matches["match.generic"] == matches["reads.irls_stop"] == 0, \
-        f"matches {matches}"
+    assert launches["gn_solve_batched_slam2d"] == matched, \
+        f"launches {launches}, matched updates {matched}"
+    assert stop_reads == 0, f"{stop_reads} IRLS stop flags read"
     assert launches["select4_sq"] == 0, f"launches {launches}"
 
     for k in kernels:
@@ -4825,10 +4876,6 @@ def par_diff(torch, got: dict, ref: dict, sl) -> dict:
             for k, t in got.items()}
 
 
-def par_counts(fns: dict) -> dict:
-    return {n: fn.launches for n, fn in fns.items()}
-
-
 def par_pgo_problems():
     """bench_pgo.py's 512-node graph and a 16,384-node one built alike
     (1,024 Huber loop closures)."""
@@ -4852,16 +4899,14 @@ def par_align_diff(a, b) -> tuple:
 
 def parallel_rank(r, world, spec):
     """One rank of phase 28: the four parts on this rank's share, each
-    part's launches counted from 0, every result compared on the rank
-    against the unsharded reference the parent wrote (a memory-mapped
-    file). Returns host values."""
+    part's launches counted on the profiler's trace, every result compared
+    on the rank against the unsharded reference the parent wrote (a
+    memory-mapped file). Returns host values."""
     import torch
     import torch.distributed as dist
     from iris_lama_tpu_torch.algos import graph_slam2d as gmod
     from iris_lama_tpu_torch.algos import pf_slam2d as pf_mod
     from iris_lama_tpu_torch.nlls import factor_graph as fg
-    from iris_lama_tpu_torch.ops import _cuda, edt_pallas, gn_batch
-    from iris_lama_tpu_torch.ops import scatter_matmul
     from iris_lama_tpu_torch.parallel import distributed_pgo as dpgo
     from iris_lama_tpu_torch.parallel import group as G
     from iris_lama_tpu_torch.parallel import pf_sharding
@@ -4876,13 +4921,14 @@ def parallel_rank(r, world, spec):
             torch.cuda.synchronize(dev)
     mesh = pf_sharding.particle_mesh()
     ref = torch.load(spec["ref"], mmap=True, weights_only=False)
-    fns = {"deposit_pair": scatter_matmul.deposit_pair,
-           "edt2d": edt_pallas.edt2d,
-           "gn_batch_solve": gn_batch.solve_window_sq}
+    dp = devprof()
+    kernels = {"deposit_pair": dp.DEPOSIT, "edt2d": dp.EDT,
+               "gn_batch_solve": dp.GN_SOLVE}
     out, part_s = {}, {}
     n_up = spec["pool_updates"]
 
     def timed(fn):
+        """``fn()`` and its seconds, between two barriers."""
         sync()
         dist.barrier()
         t0 = time.perf_counter()
@@ -4890,6 +4936,11 @@ def parallel_rank(r, world, spec):
         sync()
         dist.barrier()
         return res, time.perf_counter() - t0
+
+    def counted(fn):
+        """``fn()`` and its kernels' launches, counted on the profiler's
+        trace: a call made again for them, untimed."""
+        return dp.launches_by_name(fn, kernels)
 
     # 1. the PF pool path at bench_pf_scale.py's size
     t_part = time.perf_counter()
@@ -4900,15 +4951,11 @@ def parallel_rank(r, world, spec):
                                  dev)
     pf_mod.first_step(opts, full, *staged[0])
     sl = G.rows(opts.particles, mesh)
-    ps = pf_sharding.shard_particles(full, mesh)
-    del full
     motion = pf_sharding.make_sharded_motion(opts, mesh)
     update = pf_sharding.make_sharded_update(opts, mesh)
-    _cuda.reset_launches(*fns.values())
     infos, poses, weights = [], [], []
 
-    def pool_updates():
-        nonlocal ps
+    def pool_updates(ps, record=True):
         for k in range(n_up):
             eps, u = draws[k]
             ps = ps._replace(pose=motion(ps.pose, eps.to(dev),
@@ -4917,18 +4964,25 @@ def parallel_rank(r, world, spec):
             if k == n_up - 1:
                 ps = par_resident_prepare(torch, opts, ps, "resample", sl)
             ps, info = update(ps, u.to(dev), *staged[k + 1])
-            poses.append(ps.pose.cpu())
-            weights.append(ps.weight.cpu())
-            infos.append({"exchange_bytes": info["exchange_bytes"],
-                          "resampled": bool(info["resampled"]),
-                          "neff": float(info["neff"])})
+            if record:
+                poses.append(ps.pose.cpu())
+                weights.append(ps.weight.cpu())
+                infos.append({"exchange_bytes": info["exchange_bytes"],
+                              "resampled": bool(info["resampled"]),
+                              "neff": float(info["neff"])})
+        return ps
 
+    ps = pf_sharding.shard_particles(full, mesh)
     with IdxRecorder(pf_mod) as rec:
-        _, dt = timed(pool_updates)
+        ps, dt = timed(lambda: pool_updates(ps))
+    # the same updates again from the same start, for their launches
+    _, launches = counted(lambda: pool_updates(
+        pf_sharding.shard_particles(full, mesh), record=False))
+    del full
     rp = ref["pool"]
     out["pool"] = {
         "seconds": dt, "updates": n_up, "infos": infos,
-        "launches": par_counts(fns),
+        "launches": launches,
         "idx_equal": [torch.equal(a, b) for a, b in zip(rec.idx, rp["idx"])],
         "pose_equal": [torch.equal(a, b[sl]) for a, b in
                        zip(poses, rp["pose"])],
@@ -4945,9 +4999,7 @@ def parallel_rank(r, world, spec):
     opts, scan, full, us = par_resident_setup(torch, dev)
     sl = G.rows(opts.particles, mesh)
     ps = pf_sharding.shard_particles(full, mesh)
-    del full
     update = pf_sharding.make_sharded_update(opts, mesh)
-    _cuda.reset_launches(*fns.values())
     rr, steps = ref["resident"], []
     with IdxRecorder(pf_mod) as rec:
         for k, name in enumerate(PAR_STEPS):
@@ -4963,8 +5015,17 @@ def parallel_rank(r, world, spec):
                                           rr["pose"][k][sl]),
                 "weight_equal": torch.equal(ps.weight.cpu(),
                                             rr["weight"][k][sl])})
+    # the same steps again from the same start, each update's launches
+    launches, again = dict.fromkeys(kernels, 0), \
+        pf_sharding.shard_particles(full, mesh)
+    del full
+    for k, name in enumerate(PAR_STEPS):
+        again = par_resident_prepare(torch, opts, again, name, sl)
+        (again, _), n = counted(lambda: update(again, us[k], *scan))
+        launches = {c: launches[c] + n[c] for c in kernels}
+    del again
     out["resident"] = {
-        "steps": steps, "launches": par_counts(fns),
+        "steps": steps, "launches": launches,
         "idx_equal": [torch.equal(a, b) for a, b in zip(rec.idx, rr["idx"])],
         "res_org_equal": torch.equal(ps.res_org.cpu(), rr["res_org"]),
         "differing_cells": par_diff(torch, par_named(ps), rr["final"], sl)}
@@ -4997,11 +5058,11 @@ def parallel_rank(r, world, spec):
                           for a in gspec["first_scan"]),
                         gspec["first_odometry"])
     state_mod.graph_from_numpy(gs, gspec["state"])
-    _cuda.reset_launches(*fns.values())
     m, dt = timed(lambda: gs.generate_occupancy_map(mesh=mesh))
+    _, launches = counted(lambda: gs.generate_occupancy_map(mesh=mesh))
     got = state_mod.map_to_numpy(m)
     out["rebuild"] = {
-        "seconds": dt, "launches": par_counts(fns),
+        "seconds": dt, "launches": launches,
         "differing_cells": {k: int((a != gspec["map"][k]).sum())
                             for k, a in got.items()},
         "same_keys": set(got) == set(gspec["map"])}

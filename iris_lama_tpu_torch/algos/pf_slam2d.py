@@ -65,11 +65,11 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core import lie
 from ..core.pose import Pose2D
 from ..nlls.robust import CAUCHY_SCAN
 from ..nlls.solver import SolverOptions
 from ..ops import gn_batch, motion
+from ..ops.motion import draw_from_motion  # noqa: F401 (re-exported)
 from ..parallel import group as group_mod
 from ..sdm import mapping
 from ..sdm import window as win_mod
@@ -77,7 +77,7 @@ from ..sdm.geometry import MapGeometry, f32
 from ..sdm.pool import PatchTable
 from ..utils.cloud import PointCloudXYZ, beam_bucket, pad_scan
 from ..utils.summary import PhaseClock, Summary, device_sync
-from ..utils.trace import count, host_read, phase, span
+from ..utils.trace import host_read, phase, span
 from .slam2d import resolve_device
 
 @dataclasses.dataclass(frozen=True)
@@ -212,27 +212,6 @@ def particles_init(opts: PFSlam2DOptions, prior_se2,
 # ---------------------------------------------------------------------------
 # Device functions
 # ---------------------------------------------------------------------------
-
-def draw_from_motion(opts: PFSlam2DOptions, eps, odelta, poses):
-    """Per-particle motion noise (pf_slam2d.cpp:365-391): ``eps`` f32
-    [N, 3] standard normal draws, ``odelta`` the odometry increment f32
-    SE(2) [4], ``poses`` [N, 4]."""
-    dx, dy = odelta[0], odelta[1]
-    drot = torch.atan2(odelta[3], odelta[2])
-    stt, str_ = f32(opts.stt), f32(opts.str_)
-    srr, srt = f32(opts.srr), f32(opts.srt)
-    sxy = f32(0.3 * opts.stt)
-    sig_x = stt * torch.abs(dx) + str_ * torch.abs(drot) + sxy * torch.abs(dy)
-    sig_y = stt * torch.abs(dy) + str_ * torch.abs(drot) + sxy * torch.abs(dx)
-    sig_r = srr * torch.abs(drot) + srt * torch.sqrt(dx * dx + dy * dy)
-    x = dx + eps[:, 0] * sig_x
-    y = dy + eps[:, 1] * sig_y
-    yaw = drot + eps[:, 2] * sig_r
-    two_pi = f32(2 * np.pi)
-    yaw = torch.remainder(yaw, two_pi)
-    yaw = torch.where(yaw > f32(np.pi), yaw - two_pi, yaw)
-    return lie.se2_compose(poses, lie.se2(x, y, yaw, device=poses.device))
-
 
 def weights_and_resample(opts: PFSlam2DOptions, weight, weight_sum, states,
                          liks, u):
@@ -724,36 +703,23 @@ class PFSlam2D:
 
     def _flush_motion(self) -> None:
         """Apply the queued motion packets, one normal draw each, in queue
-        order. On a CUDA device the whole queue goes in one copy and one
-        launch (``ops.motion``); elsewhere packet by packet
-        (:func:`draw_from_motion`). Both give the same poses. Counted
-        under ``motion.<route>`` (``kernel`` or ``plain``) and
-        ``motion.packets``."""
+        order: the whole queue staged (:meth:`_stage_motion`) and moved by
+        one call of ``ops.motion.apply_queue``, one launch on the card."""
         queue = self._odelta_queue
         if queue:
-            route = "kernel" if self.device.type == "cuda" else "plain"
             with span("lama.motion"):
-                if route == "kernel":
-                    pose = self._motion_kernel(queue)
-                else:
-                    pose = self.pset.pose
-                    for od in queue:
-                        with span("lama.motion.draw"):
-                            eps = self._draw("normal",
-                                             (self.options.particles, 3))
-                        pose = draw_from_motion(self.options, eps,
-                                                self._tensor(od), pose)
+                packets, eps = self._stage_motion(queue)
+                pose = motion.apply_queue(self.options, eps, packets,
+                                          self.pset.pose)
                 self.pset = self.pset._replace(pose=pose)
-            count("motion." + route)
-            count("motion.packets", len(queue))
             self._odelta_queue = []
         self._odom_motion = self.odom_
 
-    def _motion_kernel(self, queue: list):
-        """The queue's poses on the card: the packets [K, 4] and the draws
-        [K, N, 3], drawn in queue order, staged in one host buffer, pinned
-        for a CUDA device (PyTorch's caching host allocator keeps it until
-        its copy has run), one asynchronous copy, one launch."""
+    def _stage_motion(self, queue: list) -> tuple:
+        """The queue on the driver's device: packets [K, 4] and draws
+        [K, N, 3], drawn in queue order into one host buffer, pinned for a
+        CUDA device (PyTorch's caching host allocator keeps it until its
+        copy has run), and one asynchronous copy."""
         n, k = self.options.particles, len(queue)
         host = torch.empty(k * (4 + 3 * n), dtype=torch.float32,
                            pin_memory=self.device.type == "cuda")
@@ -765,8 +731,7 @@ class PFSlam2D:
             with span("lama.motion.draw"):
                 draws[j] = np.asarray(src("normal", (n, 3)))
         dev = host.to(self.device, non_blocking=True)
-        return motion.apply_queue(self.options, dev[4 * k:].view(k, n, 3),
-                                  dev[:4 * k].view(k, 4), self.pset.pose)
+        return dev[:4 * k].view(k, 4), dev[4 * k:].view(k, n, 3)
 
     def _step(self, points, mask, origin, clock=None) -> None:
         opts = self.options

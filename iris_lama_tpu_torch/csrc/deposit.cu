@@ -65,8 +65,7 @@
 // B7, 4 for B8) and the grid written once (the Slam2D deposit's ~43 k
 // free cells into [448, 512]: ~1.4 MB, ~0.43 us at 3.35 TB/s), below the
 // floor of any launch; what a call costs is launches and barriers. Design
-// (PERF.md, Findings; prof_torch_scatter.py measures it against the
-// designs below):
+// (PERF.md's kernel table, B7 and B8, with the designs below):
 //   - one cooperative launch (every block resident; a launch the card
 //     cannot hold is refused): the blocks zero the grid with 16-byte stores,
 //     issue the loads of their first elements, meet at one grid barrier
@@ -81,16 +80,15 @@
 //     one round of loads holds the input, four beyond.
 // The launch and its barrier alone take ~2 us (an empty cooperative launch
 // ~0.9); a call on the deposit's stream ~2.8. Measured and not kept
-// (prof_torch_scatter.py, PERF.md): the memset + one atomicAdd an element
+// (PERF.md's kernel table, B7): the memset + one atomicAdd an element
 // that these two entry points were (two device activities a call; as fast
 // on the deposit's stream, ten times slower on a stream of one cell, whose
 // atomics serialise in one L2 slice), and the grid held in a thread-block
-// cluster's distributed shared memory (prof_torch_scatter.cu: a band of it
-// a cluster, the adds as shared-memory atomics through map_shared_rank;
-// 1.7 to 10 times slower: two release/acquire cluster barriers, every
-// cluster reading the whole input, a hot band's atomics, and
-// __match_any_sync to combine a warp's equal cells costing more than it
-// saved).
+// cluster's distributed shared memory (a band of it a cluster, the adds
+// as shared-memory atomics through map_shared_rank; 1.7 to 10 times
+// slower: two release/acquire cluster barriers, every cluster reading the
+// whole input, a hot band's atomics, and __match_any_sync to combine a
+// warp's equal cells costing more than it saved).
 // Integer atomics are exact in any order, so both are bit-exact for any
 // input order. An element outside the grid is dropped.
 

@@ -1,6 +1,6 @@
 // The launch floor: an empty kernel, to time what any launch of a given
 // shape costs on the card (prof_torch_kernels.py, prof_torch_deposit.py,
-// prof_torch_scatter.py, chip_smoke.py), the same with the cudaMemsetAsync
+// chip_smoke.py), the same with the cudaMemsetAsync
 // that the deposit kernels put before their launch, and a cooperative
 // launch (B7/B8's), empty or with one grid barrier. It is no port of a TPU
 // kernel and has no caller in the package.

@@ -14,7 +14,7 @@ from ..nlls import solver as nlls_solver
 from ..ops import gn_solve, match_eval
 from ..sdm import distance as dist_mod
 from ..sdm.geometry import MapGeometry
-from ..utils.trace import count, host_read
+from ..utils.trace import host_read
 
 
 def make_window_eval(grid, org_cell, geo: MapGeometry, max_dist,
@@ -90,16 +90,13 @@ def solve_window(grid, org_cell, geo, max_dist, points_xy, mask,
     int32), the GN strategy and a Cauchy or unit robust cost, and raise
     ValueError otherwise (no silent change of solver; :func:`route_serves`
     asks without raising). ``r`` and ``J`` of their result are 0-dim
-    zeros. Each call counts one under ``match.<route>``
-    (``utils.trace.counts``).
+    zeros.
     """
     if route == "generic":
-        count("match.generic")
         eval_fn = make_window_eval(grid, org_cell, geo, max_dist, points_xy,
                                    mask)
         return nlls_solver.solve(eval_fn, update_state, state0, opts)
     check_kernel_route(route, opts, grid.dtype)
-    count("match." + route)
     if route == "fused":
         return _solve_window_fused(grid, org_cell, geo, max_dist, points_xy,
                                    mask, state0, opts)

@@ -190,22 +190,6 @@ def sq_code(t, name: str) -> int:
     return codes[t.dtype]
 
 
-def count_launch(wrapper, dtype) -> None:
-    """Count one launch of a kernel with one instantiation per element
-    type: ``wrapper.launches`` and ``wrapper.width_launches[dtype]``."""
-    wrapper.launches += 1
-    key = str(dtype).removeprefix("torch.")
-    wrapper.width_launches[key] = wrapper.width_launches.get(key, 0) + 1
-
-
-def reset_launches(*wrappers) -> None:
-    """Set the launch counts of ``wrappers`` to 0."""
-    for w in wrappers:
-        w.launches = 0
-        if hasattr(w, "width_launches"):
-            w.width_launches = {}
-
-
 def require_strided(t, name: str, dtype, ndim: int, device) -> tuple:
     """Raise unless ``t`` is a CUDA tensor of ``dtype`` (None: any) and
     ``ndim`` dims on ``device``, in any layout; return its element strides,

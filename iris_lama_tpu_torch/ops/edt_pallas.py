@@ -88,8 +88,4 @@ def edt2d(obstacle, max_sqdist: int, radius: int):
                           None if scratch is None else scratch.data_ptr(),
                           out.data_ptr(), _cuda.stream_handle(dev)),
                 "edt2d")
-    edt2d.launches += 1
     return out if lead else out[0]
-
-
-edt2d.launches = 0

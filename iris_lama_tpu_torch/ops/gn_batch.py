@@ -16,8 +16,8 @@ The TPU kernel (iris_lama_tpu/ops/gn_batch.py:_kernel) ran all particles
 in one Pallas program with every grid VMEM-resident. On the GPU it is B4's
 CUDA kernel (``csrc/gn_solve.cu``, ``gn_solve_batched``) with the scan
 stride 0: one thread block per particle that loops over its own
-iterations. :func:`solve_window_sq` launches it for CUDA tensors and
-counts the launch on its own ``launches``; :func:`solve_window_sq_plain`
+iterations. :func:`solve_window_sq` launches it for CUDA tensors;
+:func:`solve_window_sq_plain`
 is the plain PyTorch version (B4's, a masked loop over all particles),
 used for CPU tensors.
 
@@ -60,9 +60,4 @@ def solve_window_sq(grid, org_cell, state0, points_xy, mask, *,
     if grid.device.type == "cpu":
         return solve_window_sq_plain(grid, org_cell, state0, points_xy, mask,
                                      **kw)
-    return gn_solve._launch(solve_window_sq, grid, org_cell, state0,
-                            points_xy, mask, **kw)
-
-
-solve_window_sq.launches = 0
-solve_window_sq.width_launches = {}
+    return gn_solve._launch(grid, org_cell, state0, points_xy, mask, **kw)

@@ -181,12 +181,7 @@ def solve_window_sq(grid, org_cell, state0, points_xy, mask, *,
     if grid.device.type == "cpu":
         return solve_window_sq_plain(grid, org_cell, state0, points_xy, mask,
                                      **kw)
-    return _launch(solve_window_sq, grid, org_cell, state0, points_xy, mask,
-                   **kw)
-
-
-solve_window_sq.launches = 0
-solve_window_sq.width_launches = {}
+    return _launch(grid, org_cell, state0, points_xy, mask, **kw)
 
 
 def staged(h: int, w: int, b: int, itemsize: int = 1) -> bool:
@@ -202,12 +197,10 @@ def staged(h: int, w: int, b: int, itemsize: int = 1) -> bool:
     return x_bytes + h * w * itemsize + 16 <= DYN_SMEM
 
 
-def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
-            res, scale, cell_offset, cauchy_c, eps1, eps2, max_iter,
-            want_lik):
+def _launch(grid, org_cell, state0, points_xy, mask, *, max_dist, res,
+            scale, cell_offset, cauchy_c, eps1, eps2, max_iter, want_lik):
     """Check the operands and launch the whole-solve kernel (per-particle
-    scans at stride B, a shared scan at stride 0), counting the launch on
-    ``wrapper`` (B4's or B6's)."""
+    scans at stride B, a shared scan at stride 0)."""
     dev = grid.device
     per_particle = points_xy.dim() == 3
     _cuda.require(grid, "grid", None, 3, dev)
@@ -239,5 +232,4 @@ def _launch(wrapper, grid, org_cell, state0, points_xy, mask, *, max_dist,
         int(staged(h, w, b, grid.element_size())), out.data_ptr(),
         _cuda.stream_handle(dev))
     _cuda.check(err, "gn_solve_batched")
-    _cuda.count_launch(wrapper, grid.dtype)
     return _unpack(out)

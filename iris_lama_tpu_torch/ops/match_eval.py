@@ -178,9 +178,4 @@ def gn_eval_sq(grid, ly, lx, mux, muy, hx, hy, fm, *, max_dist, res, scale,
         (ctypes.c_int64 * len(strides))(*strides), b, f32(max_dist),
         f32(res), f32(scale), cinv, int(robust), out.data_ptr(),
         _cuda.stream_handle(dev)), "gn_eval_sq")
-    _cuda.count_launch(gn_eval_sq, grid.dtype)
     return out if batched else out[0]
-
-
-gn_eval_sq.launches = 0
-gn_eval_sq.width_launches = {}

@@ -89,11 +89,7 @@ def deposit_counts(ly, lx, h: int, w: int):
     _cuda.check(lib.deposit_counts(ly.data_ptr(), lx.data_ptr(), n, p, h, w,
                                    out.data_ptr(), _cuda.stream_handle(dev)),
                 "deposit_counts")
-    deposit_counts.launches += 1
     return out if ndim == 2 else out[0]
-
-
-deposit_counts.launches = 0
 
 
 def deposit_pair(hit_ly, hit_lx, free_ly, free_lx, h: int, w: int):
@@ -126,8 +122,4 @@ def deposit_pair(hit_ly, hit_lx, free_ly, free_lx, h: int, w: int):
                                  p, h, w, out.data_ptr(),
                                  _cuda.stream_handle(dev)),
                 "deposit_pair")
-    deposit_pair.launches += 1
     return (out[0], out[1]) if ndim == 2 else (out[0, 0], out[1, 0])
-
-
-deposit_pair.launches = 0

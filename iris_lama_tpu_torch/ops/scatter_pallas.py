@@ -32,7 +32,7 @@ def launch_blocks(n: int) -> int:
     a streaming multiprocessor while one round of ``THREADS * PER``
     elements a block holds the stream (its loads all in flight across the
     barrier; fastest of 66-528 blocks on 38 k elements), four beyond
-    (fastest on 2.4 M; prof_torch_scatter.py, PERF.md). Every block must be
+    (fastest on 2.4 M; PERF.md's kernel table, B7). Every block must be
     resident at once: the card holds 8 a multiprocessor at this size."""
     return SMS if n <= SMS * THREADS * PER else 4 * SMS
 
@@ -68,8 +68,4 @@ def scatter_add_2d(ly, lx, val, shape):
                                    launch_blocks(ly.numel()), out.data_ptr(),
                                    _cuda.stream_handle(dev)),
                 "scatter_add_2d")
-    scatter_add_2d.launches += 1
     return out
-
-
-scatter_add_2d.launches = 0

@@ -77,11 +77,7 @@ def scatter_add_sorted(packed, shape):
                                        out.data_ptr(),
                                        _cuda.stream_handle(dev)),
                 "scatter_add_sorted")
-    scatter_add_sorted.launches += 1
     return out
-
-
-scatter_add_sorted.launches = 0
 
 
 def scatter_add_2d_sorted(ly, lx, val, shape):

@@ -64,9 +64,4 @@ def select4_sq(grid, ly, lx):
                                sly, lx.data_ptr(), slx, b, out.data_ptr(),
                                _cuda.stream_handle(dev)),
                 "select4_sq")
-    _cuda.count_launch(select4_sq, grid.dtype)
     return out
-
-
-select4_sq.launches = 0
-select4_sq.width_launches = {}

@@ -12,12 +12,36 @@ over the calls of the device time one call launched. Needs a CUDA device.
 The pieces are public for scripts that post-process a profile of their
 own: :func:`profile_calls` profiles calls of a function, :func:`cuda_rows`
 keeps a profile's CUDA rows, :func:`event_us`, :func:`device_us` and
-:func:`launch_count` read them.
+:func:`launch_count` read them; :func:`launches_by_name` and
+:func:`launches_by_window` count a call's or a run's launches by kernel
+name. The profiler can drop device activities, never add one (H100, torch
+2.11): the head of a profile, which ``PAD`` empty kernels take, and now
+and then a stretch of a long one, which short windows and repeats spare.
 """
 
 from __future__ import annotations
 
 import torch
+
+PAD = 256                     # empty kernels that open a profile
+PAD_KERNEL = "spin_kernel"    # their name: torch.cuda._sleep's kernel
+# the port's kernels by their names on the device trace (csrc/*.cu): B1
+# (deposit_counts, the pair), B2, B3 (any; up to R = 64; the two beyond),
+# B4 and B6, B5, B7 and B8, the PF's motion step
+DEPOSIT, SELECT4 = "deposit_kernel", "select4_kernel"
+EDT, EDT_TILE, EDT_COLUMNS, EDT_ROWS = ("edt_", "edt_tile", "edt_columns",
+                                        "edt_rows")
+GN_SOLVE, GN_EVAL = "gn_solve_kernel", "gn_eval_kernel"
+SCATTER, MOTION = "scatter_grid_kernel", "motion_kernel"
+_ELEMENT = {"int8": "signed char", "uint8": "unsigned char",
+            "int16": "short", "int32": "int"}
+
+
+def typed(kernel: str, dtype) -> str:
+    """The name of ``kernel``'s instantiation for windows of ``dtype`` (a
+    torch dtype or its name), as it opens on the device trace
+    (``gn_solve_kernel<signed char, 5, false, false>``)."""
+    return f"{kernel}<{_ELEMENT[str(dtype).removeprefix('torch.')]}"
 
 
 def _require_cuda() -> None:
@@ -33,9 +57,10 @@ def event_us(row) -> float:
 
 def cuda_rows(prof) -> list:
     """The CUDA activities of a finished profile (``key_averages()`` rows;
-    CPU rows and annotations left out)."""
+    CPU rows, annotations and the opening pad left out)."""
     return [a for a in prof.key_averages()
-            if str(a.device_type).endswith("CUDA")]
+            if str(a.device_type).endswith("CUDA")
+            and PAD_KERNEL not in a.key]
 
 
 def device_us(rows, match: str = "") -> float:
@@ -43,22 +68,59 @@ def device_us(rows, match: str = "") -> float:
     return sum(event_us(a) for a in rows if match in a.key)
 
 
-def launch_count(rows) -> int:
-    """Activities (kernels, copies, fills) the ``rows`` count."""
-    return sum(a.count for a in rows)
+def launch_count(rows, match: str = "") -> int:
+    """Activities (kernels, copies, fills) the ``rows`` whose name holds
+    ``match`` count: a kernel's launches by its name."""
+    return sum(a.count for a in rows if match in a.key)
+
+
+def pad_profile() -> None:
+    """Open a running profile: ``PAD`` empty kernels, drained, which take
+    a drop of its first device activities."""
+    for _ in range(PAD):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
 
 
 def profile_calls(fn, reps: int = 1, args: tuple = ()):
     """torch.profiler's CUDA profile of ``reps`` calls of ``fn(*args)``,
-    the device drained before and after (no warm-up call)."""
+    opened by :func:`pad_profile`, the device drained before and after (no
+    warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
     _require_cuda()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_profile()
         for _ in range(reps):
             fn(*args)
         torch.cuda.synchronize()
     return prof
+
+
+def launches_by_window(windows, kernels: dict, tries: int = 1) -> tuple:
+    """The device activities a run launched, by name: ``kernels`` maps a
+    label to a part of an activity's name (``GN_SOLVE``, ``typed(GN_SOLVE,
+    dtype)``; "" for all), ``windows()`` starts a fresh run and returns its
+    windows, callables each profiled on its own. With ``tries`` > 1 the
+    run, the same work each time, is made that many times and each
+    window's count is the largest seen. Returns the last run's window
+    results and {label: launches}."""
+    best = None
+    for _ in range(tries):
+        outs, per = [], []
+        for window in windows():
+            rows = cuda_rows(profile_calls(lambda: outs.append(window())))
+            per.append([launch_count(rows, k) for k in kernels.values()])
+        best = per if best is None else [list(map(max, a, b))
+                                         for a, b in zip(best, per)]
+    return outs, {label: sum(c) for label, c in zip(kernels, zip(*best))}
+
+
+def launches_by_name(fn, kernels: dict, tries: int = 1) -> tuple:
+    """``fn()``'s result and the device activities the call launched, by
+    name (as :func:`launches_by_window`, the call one window)."""
+    outs, counts = launches_by_window(lambda: [fn], kernels, tries)
+    return outs[0], counts
 
 
 def device_time_ms(fn, args_fn, n: int = 4) -> float:

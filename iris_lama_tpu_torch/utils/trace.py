@@ -56,16 +56,11 @@ safe-zone check once no re-org trigger is safe), ``reorg_origin`` (a band
 scroll's window origins), ``pose`` (the published pose), ``spill`` (the
 spill tier's reads), and ``lineage``, ``memory``, ``info``,
 ``trajectory``, ``loc_cell`` and ``refresh`` off the update path.
-:func:`count` adds to any other counter: ``match.<route>`` counts the
-calls of ``match_surface_2d.solve_window`` by route (``generic``,
-``solve``: kernel B4's whole solve in one launch, ``fused``), so on
-Slam2D's path ``match.solve`` equals the matched updates where the card
-and the options take B4; ``motion.<route>`` counts PFSlam2D's flushes of
-a non-empty motion queue by route (``kernel``: the whole queue in one
-launch on the card, ``plain``: packet by packet) and ``motion.packets``
-the packets they applied; ``graph.*`` counts GraphSlam2D's key poses,
-searches, verified rows, coarse jobs, accepted loops, optimisations and
-map rebuilds (``algos/graph_slam2d.py``).
+:func:`count` adds to any other counter: ``graph.*`` counts GraphSlam2D's
+key poses, searches, verified rows, coarse jobs, accepted loops,
+optimisations and map rebuilds (``algos/graph_slam2d.py``).
+Device work is counted on the profiler's device trace, by kernel name
+(``utils/devprof.py``), not here.
 """
 
 from __future__ import annotations
@@ -128,6 +123,5 @@ def count(key: str, n: int = 1) -> None:
 
 def counts() -> dict:
     """A copy of the process's counters (``reads.<site>``: host reads;
-    ``match.<route>``: scan matches by route; ``motion.*``: PF motion
-    flushes and packets)."""
+    ``graph.*``: GraphSlam2D's loop-closure and map work)."""
     return dict(_COUNTS)

@@ -12,19 +12,26 @@ import pytest
 import torch
 
 from iris_lama_tpu_torch.algos import loc2d
-from iris_lama_tpu_torch.algos.pf_slam2d import (PFSlam2D, PFSlam2DOptions,
-                                                 draw_from_motion)
+from iris_lama_tpu_torch.algos.pf_slam2d import PFSlam2D, PFSlam2DOptions
 from iris_lama_tpu_torch.algos.slam2d import Slam2D, Slam2DOptions
 from iris_lama_tpu_torch.core.pose import Pose2D
 from iris_lama_tpu_torch.ops import edt_pallas, gn_batch, gn_solve
 from iris_lama_tpu_torch.ops import match_eval, motion, scatter_matmul
 from iris_lama_tpu_torch.ops import scatter_pallas, scatter_sorted, select4
-from iris_lama_tpu_torch.utils import simulator, state
+from iris_lama_tpu_torch.utils import devprof, simulator, state
 from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
+from iris_lama_tpu_torch.utils.devprof import (
+    DEPOSIT, EDT_COLUMNS, EDT_ROWS, EDT_TILE, GN_EVAL, GN_SOLVE, MOTION,
+    SCATTER, SELECT4, typed)
 
 import test_torch_pf_motion as motion_cases
 
 pytestmark = pytest.mark.gpu
+
+# a call that does the same work each time is profiled TRIES times and
+# each count is the largest seen: the profiler can drop an activity, never
+# add one; a run that changes state is profiled once
+TRIES = 5
 
 
 @pytest.fixture
@@ -100,31 +107,31 @@ def test_slam2d_on_card_matches_cpu(cuda):
     padded = [pad_scan(c, beam_bucket(120)) for c in data.clouds]
     runs = []
     for dev in ("cpu", cuda):
-        slam = Slam2D(opts, device=dev)
-        slam.set_prior(Pose2D(*data.poses_gt[0]))
         staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
                   for p in padded]
-        before = _slam_launches()
-        acc = slam.update_many_prepadded(staged, data.odometry)
-        launched = [a - b for a, b in zip(_slam_launches(), before)]
+
+        def run():
+            slam = Slam2D(opts, device=dev)
+            slam.set_prior(Pose2D(*data.poses_gt[0]))
+            return slam, slam.update_many_prepadded(staged, data.odometry)
+
+        (slam, acc), n = (run(), None) if dev == "cpu" else \
+            devprof.launches_by_name(run, SLAM_KERNELS, TRIES)
         runs.append((acc, slam.trajectory(), slam.escaped_count(),
-                     slam.match_route, launched))
+                     slam.match_route, n))
     (acc_c, tc, esc_c, route_c, _), (acc_g, tg, esc_g, route_g, n) = runs
     assert acc_c == acc_g and esc_c == esc_g == 0
     assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
     # the card matches each update after the first scan in one B4 launch
     assert (route_c, route_g) == ("generic", "solve")
-    assert n[0] > 0 and n[2] > 0, n
-    assert (n[1], n[3]) == (0, len(acc_g) - 1), n
+    assert n["b1"] > 0 and n["b3"] > 0, n
+    assert (n["b2"], n["b4"]) == (0, len(acc_g) - 1), n
     lm = Slam2D(Slam2DOptions(strategy="lm"), device=cuda)
     assert lm.match_route == "generic"
 
 
-def _slam_launches():
-    """Launches so far of B1's pair, B2, B3 and B4."""
-    return (scatter_matmul.deposit_pair.launches,
-            select4.select4_sq.launches, edt_pallas.edt2d.launches,
-            gn_solve.solve_window_sq.launches)
+# B1's pair, B2, B3 and B4: Slam2D's kernels
+SLAM_KERNELS = {"b1": DEPOSIT, "b2": SELECT4, "b3": EDT_TILE, "b4": GN_SOLVE}
 
 
 # ---------------------------------------------------------------------------
@@ -168,12 +175,10 @@ def test_gn_batch_kernel_matches_plain(cuda):
     contraction, so every particle's state, iteration count, chi2 and SSE
     are bit-equal."""
     args, kw = _pf_solve_case(cuda)
-    before = (gn_batch.solve_window_sq.launches,
-              gn_solve.solve_window_sq.launches)
-    got = gn_batch.solve_window_sq(*args, **kw)
-    # B6 runs B4's kernel with the scan shared, counted as B6 only
-    assert (gn_batch.solve_window_sq.launches,
-            gn_solve.solve_window_sq.launches) == (before[0] + 1, before[1])
+    # B6 runs B4's kernel with the scan shared: one launch
+    got, n = devprof.launches_by_name(
+        lambda: gn_batch.solve_window_sq(*args, **kw), {"b6": GN_SOLVE}, TRIES)
+    assert n == {"b6": 1}
     want = gn_batch.solve_window_sq_plain(*args, **kw)
     assert int(got[1].sum()) > 30           # the starts drive the loop
     for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got,
@@ -218,9 +223,9 @@ def test_edt_kernel_at_tile_edges(cuda, shape, r):
                                     device=cuda) < 0.3
         for m in (rand, border):
             m = m[0] if p == 1 else m
-            before = edt_pallas.edt2d.launches
-            got = edt_pallas.edt2d(m, cap, r)
-            assert edt_pallas.edt2d.launches == before + 1
+            got, n = devprof.launches_by_name(
+                lambda: edt_pallas.edt2d(m, cap, r), {"b3": EDT_TILE}, TRIES)
+            assert n == {"b3": 1}
             assert torch.equal(got, edt_pallas.edt2d_plain(m, cap, r)), \
                 (shape, r, p)
 
@@ -243,7 +248,7 @@ def test_edt_kernel_refuses_radius(cuda):
 def test_edt_kernel_large_radius(cuda, shape, r):
     """Radii beyond the tile's 64 (up to R + 1 = 255 and past the grid's
     size) on random, border-only and empty masks, P = 1 and 3: bit-equal
-    to the plain version, one launch counted."""
+    to the plain version, from one column sweep and one row min."""
     g = torch.Generator(device=cuda).manual_seed(r)
     cap = min((r + 1) ** 2 - 1, 32767)
     border = torch.zeros(shape, dtype=torch.bool, device=cuda)
@@ -251,9 +256,11 @@ def test_edt_kernel_large_radius(cuda, shape, r):
     border[..., :, -1] = torch.rand(shape[-2], generator=g, device=cuda) < 0.3
     for m in (torch.rand(shape, generator=g, device=cuda) < 0.002, border,
               torch.zeros(shape, dtype=torch.bool, device=cuda)):
-        before = edt_pallas.edt2d.launches
-        got = edt_pallas.edt2d(m, cap, r)
-        assert edt_pallas.edt2d.launches == before + 1
+        got, n = devprof.launches_by_name(
+            lambda: edt_pallas.edt2d(m, cap, r),
+            {"tile": EDT_TILE, "columns": EDT_COLUMNS, "rows": EDT_ROWS},
+            TRIES)
+        assert n == {"tile": 0, "columns": 1, "rows": 1}, n
         assert torch.equal(got, edt_pallas.edt2d_plain(m, cap, r)), shape
 
 
@@ -278,9 +285,9 @@ def test_gn_solve_kernel_matches_plain(cuda, p, per_particle):
         pts = torch.stack([torch.roll(pts, q * 37, 0) for q in range(p)])
         mask = torch.rand((p, pts.shape[1]), generator=g) < 0.9
     args = [t.to(cuda).contiguous() for t in (grids, org, st0, pts, mask)]
-    before = gn_solve.solve_window_sq.launches
-    got = gn_solve.solve_window_sq(*args, **kw)
-    assert gn_solve.solve_window_sq.launches == before + 1
+    got, n = devprof.launches_by_name(
+        lambda: gn_solve.solve_window_sq(*args, **kw), {"b4": GN_SOLVE}, TRIES)
+    assert n == {"b4": 1}
     want = gn_solve.solve_window_sq_plain(*args, **kw)
     assert int(got[1].sum()) >= p
     for name, a, w in zip(("state", "iterations", "chi2", "sum_d2"), got,
@@ -319,9 +326,10 @@ def test_gn_solve_kernel_at_edges(cuda, b, hw, per_particle, p, staged):
     for max_iter in (0, 1, 50):
         for want_lik in (False, True):
             kw.update(max_iter=max_iter, want_lik=want_lik)
-            before = fn.solve_window_sq.launches
-            got = fn.solve_window_sq(*args, **kw)
-            assert fn.solve_window_sq.launches == before + 1
+            got, n = devprof.launches_by_name(
+                lambda: fn.solve_window_sq(*args, **kw), {"b4": GN_SOLVE},
+                TRIES)
+            assert n == {"b4": 1}
             want = fn.solve_window_sq_plain(*args, **kw)
             if max_iter == 50 and b > 1:
                 assert int(got[1].sum()) >= p   # the starts drive the loop
@@ -357,7 +365,7 @@ def test_gn_solve_kernel_widths(cuda, dtype, per_particle, hw):
     where they fit beside the exchange buffer, else read from global
     memory), max_iter 0, 1 and 50, with and without the likelihood:
     bit-equal to the plain version, and, on an exact widening of an int8
-    window, to the int8 kernel; the launch counted under its width."""
+    window, to the int8 kernel; one launch of the width's instantiation."""
     (grids, org, st0, pts, mask), kw = _pf_solve_case("cpu", p=3, hw=hw,
                                                       seed=21)
     if per_particle:
@@ -367,13 +375,13 @@ def test_gn_solve_kernel_widths(cuda, dtype, per_particle, hw):
     args8 = [t.to(cuda).contiguous() for t in (grids, org, st0, pts, mask)]
     args = [_widened(args8[0], dtype), *args8[1:]]
     fn = gn_solve if per_particle else gn_batch
-    key = str(dtype).removeprefix("torch.")
     for max_iter in (0, 1, 50):
         for want_lik in (False, True):
             kw.update(max_iter=max_iter, want_lik=want_lik)
-            before = fn.solve_window_sq.width_launches.get(key, 0)
-            got = fn.solve_window_sq(*args, **kw)
-            assert fn.solve_window_sq.width_launches[key] == before + 1
+            got, n = devprof.launches_by_name(
+                lambda: fn.solve_window_sq(*args, **kw),
+                {"b4": GN_SOLVE, "width": typed(GN_SOLVE, dtype)}, TRIES)
+            assert n == {"b4": 1, "width": 1}, n
             want = fn.solve_window_sq_plain(*args, **kw)
             ref8 = fn.solve_window_sq(*args8, **kw)
             for a, w, r in zip(got, want, ref8):
@@ -421,9 +429,10 @@ def test_gn_eval_kernel_matches_plain(cuda, p):
     args = [t.to(cuda) for t in (grid, ly, lx, *fl, fm)]
     for cauchy_c in (0.15, 0.0):
         kw = dict(max_dist=0.5, res=0.05, scale=20.0, cauchy_c=cauchy_c)
-        before = match_eval.gn_eval_sq.launches
-        got = match_eval.gn_eval_sq(*args, **kw)
-        assert match_eval.gn_eval_sq.launches == before + 1
+        got, n = devprof.launches_by_name(
+            lambda: match_eval.gn_eval_sq(*args, **kw), {"b5": GN_EVAL},
+            TRIES)
+        assert n == {"b5": 1}
         assert torch.equal(got, match_eval.gn_eval_sq_plain(*args, **kw))
 
 
@@ -474,9 +483,10 @@ def test_gn_eval_kernel_at_edges(cuda, b, p, masked):
                           cauchy_c=cauchy_c)
                 args = (grid, *ops) if p > 1 else \
                     (grid[0], *(t[0] for t in ops))
-                before = match_eval.gn_eval_sq.launches
-                got = match_eval.gn_eval_sq(*args, **kw)
-                assert match_eval.gn_eval_sq.launches == before + 1
+                got, n = devprof.launches_by_name(
+                    lambda: match_eval.gn_eval_sq(*args, **kw),
+                    {"b5": GN_EVAL}, TRIES)
+                assert n == {"b5": 1}
                 want = match_eval.gn_eval_sq_plain(*args, **kw)
                 assert torch.equal(got, want), (cauchy_c, got, want)
                 if masked:
@@ -517,23 +527,23 @@ def test_gn_eval_kernel_widths(cuda, dtype, p):
     """B5 on uint8, int16 and int32 windows (an exact widening of an
     int8 one, and the type's full range), strided views, unit and Cauchy
     weights: bit-equal to the plain version and, on the widening, to the
-    int8 kernel; the launch counted under its width."""
+    int8 kernel; one launch of the width's instantiation."""
     grids, (loc, mu, hits, fm) = _eval_case(cuda, p, 768, 40 + p)
     views = (loc[..., 1], loc[..., 0], mu[..., 0], mu[..., 1], hits[..., 0],
              hits[..., 1], fm)
     hi = torch.iinfo(dtype).max
     g = torch.Generator().manual_seed(41)
     full = torch.randint(0, hi, grids[0].shape, generator=g).to(dtype)
-    key = str(dtype).removeprefix("torch.")
     for grid8, grid in ((grids[0], _widened(grids[0], dtype)),
                         (None, full.to(cuda))):
         for cauchy_c in (0.15, 0.0):
             kw = dict(max_dist=0.5, res=0.05, scale=20.0, cauchy_c=cauchy_c)
             args = (grid, *views) if p > 1 else \
                 (grid[0], *(t[0] for t in views))
-            before = match_eval.gn_eval_sq.width_launches.get(key, 0)
-            got = match_eval.gn_eval_sq(*args, **kw)
-            assert match_eval.gn_eval_sq.width_launches[key] == before + 1
+            got, n = devprof.launches_by_name(
+                lambda: match_eval.gn_eval_sq(*args, **kw),
+                {"b5": GN_EVAL, "width": typed(GN_EVAL, dtype)}, TRIES)
+            assert n == {"b5": 1, "width": 1}, n
             assert torch.equal(got, match_eval.gn_eval_sq_plain(*args, **kw))
             if grid8 is not None:
                 a8 = (grid8, *args[1:]) if p > 1 else (grid8[0], *args[1:])
@@ -579,9 +589,10 @@ def test_select4_kernel_at_edges(cuda, w):
     for off in range(4):
         grid = buf[off:off + h * w].view(h, w)
         for iy, ix in layouts:
-            before = select4.select4_sq.launches
-            got = select4.select4_sq(grid, iy, ix)
-            assert select4.select4_sq.launches == before + 1
+            got, n = devprof.launches_by_name(
+                lambda: select4.select4_sq(grid, iy, ix), {"b2": SELECT4},
+                TRIES)
+            assert n == {"b2": 1}
             want = select4.select4_sq_plain(grid, iy, ix)
             assert torch.equal(got, want), (off, iy.stride())
 
@@ -590,7 +601,8 @@ def test_select4_kernel_at_edges(cuda, w):
 def test_select4_kernel_widths(cuda, dtype):
     """B2 on uint8, int16 and int32 grids over the type's whole range
     (uint8 read unsigned, the others signed), cells around every edge,
-    contiguous and strided indices: bit-equal to the plain version."""
+    contiguous and strided indices: bit-equal to the plain version, from
+    one launch of the width's instantiation."""
     g = torch.Generator().manual_seed(30)
     info = torch.iinfo(dtype)
     h, w, b = 489, 491, 777
@@ -599,12 +611,12 @@ def test_select4_kernel_widths(cuda, dtype):
     cells = torch.stack([torch.randint(-3, w + 3, (b,), generator=g),
                          torch.randint(-3, h + 3, (b,), generator=g)],
                         -1).to(torch.int32).to(cuda)
-    key = str(dtype).removeprefix("torch.")
     for ly, lx in ((cells[:, 1], cells[:, 0]),
                    (cells[:, 1].contiguous(), cells[:, 0].contiguous())):
-        before = select4.select4_sq.width_launches.get(key, 0)
-        got = select4.select4_sq(grid, ly, lx)
-        assert select4.select4_sq.width_launches[key] == before + 1
+        got, n = devprof.launches_by_name(
+            lambda: select4.select4_sq(grid, ly, lx),
+            {"b2": SELECT4, "width": typed(SELECT4, dtype)}, TRIES)
+        assert n == {"b2": 1, "width": 1}, n
         assert torch.equal(got, select4.select4_sq_plain(grid, ly, lx))
 
 
@@ -615,7 +627,7 @@ def test_deposit_kernel_ragged_streams(cuda, rays, steps, p):
     sensor) of a whole number of the kernel's 512-element blocks (Slam2D's
     768 x 202) and of ragged lengths, beam-major, shuffled and with
     sentinels, one particle and three: bit-equal to the plain version, one
-    launch counted."""
+    launch on the device trace."""
     g = torch.Generator(device=cuda).manual_seed(rays + steps + p)
     h = w = 448
     t = torch.arange(steps, device=cuda)
@@ -630,9 +642,10 @@ def test_deposit_kernel_ragged_streams(cuda, rays, steps, p):
                      (ly[:, perm].contiguous(), lx[:, perm].contiguous()),
                      (torch.where(sent, h, ly).contiguous(), lx)):
         a, b = (cly[0], clx[0]) if p == 1 else (cly, clx)
-        before = scatter_matmul.deposit_counts.launches
-        got = scatter_matmul.deposit_counts(a, b, h, w)
-        assert scatter_matmul.deposit_counts.launches == before + 1
+        got, n = devprof.launches_by_name(
+            lambda: scatter_matmul.deposit_counts(a, b, h, w),
+            {"b1": DEPOSIT}, TRIES)
+        assert n == {"b1": 1}
         assert torch.equal(got, scatter_matmul.deposit_counts_plain(a, b, h,
                                                                     w))
 
@@ -655,9 +668,10 @@ def test_deposit_pair_kernel(cuda, rays, steps, p):
         return (ly[0], lx[0]) if p == 1 else (ly, lx)
 
     hit, free = stream(rays), stream(rays * steps)
-    before = scatter_matmul.deposit_pair.launches
-    got = scatter_matmul.deposit_pair(*hit, *free, h, w)
-    assert scatter_matmul.deposit_pair.launches == before + 1
+    got, n = devprof.launches_by_name(
+        lambda: scatter_matmul.deposit_pair(*hit, *free, h, w),
+        {"b1": DEPOSIT, "memset": "Memset"}, TRIES)
+    assert n == {"b1": 1, "memset": 1}, n
     want = scatter_matmul.deposit_pair_plain(*hit, *free, h, w)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if p > 1:
@@ -733,10 +747,10 @@ def test_value_scatters_match_plain(cuda, case, kernel):
         assert torch.equal(want, scatter_pallas.scatter_add_2d_plain(
             ly, lx, val & 1, shape))
     for _ in range(20 if case == "hot_cell" else 1):
-        before = fn.launches
-        got = fn(*args)
-        assert fn.launches == before + 1
-        torch.cuda.synchronize()
+        got, n = devprof.launches_by_name(
+            lambda: fn(*args), {"scatter": SCATTER, "memset": "Memset"},
+            TRIES)
+        assert n == {"scatter": 1, "memset": 0}, n
         assert torch.equal(got, want)
     if case == "hot_cell":
         assert int(got[200, 300]) == (ly.numel() if kernel == "B7" else
@@ -779,9 +793,7 @@ def test_loc2d_on_card_matches_cpu(cuda, mode):
     for k in range(40):
         slam.update(data.clouds[k], data.odometry[k])
     maps_np = state.locmaps_to_numpy(loc2d.maps_from_slam(slam.map, None))
-    fn = (gn_solve.solve_window_sq if mode == "solve"
-          else match_eval.gn_eval_sq)
-    before = (fn.launches, select4.select4_sq.launches)
+    kernel = GN_SOLVE if mode == "solve" else GN_EVAL
     runs = []
     for dev in ("cpu", cuda):
         loc = loc2d.Loc2D(loc2d.Loc2DOptions(resolution=0.1, l2_max=0.5,
@@ -790,14 +802,19 @@ def test_loc2d_on_card_matches_cpu(cuda, mode):
                           maps=state.locmaps_from_numpy(maps_np, dev),
                           device=dev, match=mode)
         loc.set_prior(Pose2D(*data.poses_gt[0]))
-        acc = [k for k in range(40)
-               if loc.update(data.clouds[k], data.odometry[k])]
-        runs.append((acc, loc.trajectory()))
-    (acc_c, tc), (acc_g, tg) = runs
+
+        def run():
+            return [k for k in range(40)
+                    if loc.update(data.clouds[k], data.odometry[k])]
+
+        acc, n = (run(), None) if dev == "cpu" else \
+            devprof.launches_by_name(run, {"mode": kernel, "b2": SELECT4})
+        runs.append((acc, loc.trajectory(), n))
+    (acc_c, tc, _), (acc_g, tg, n) = runs
     assert acc_c == acc_g and len(acc_c) > 10
     assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
     assert np.abs(np.angle(np.exp(1j * (tc[:, 2] - tg[:, 2])))).max() <= 1e-3
-    assert fn.launches > before[0] and select4.select4_sq.launches > before[1]
+    assert n["mode"] > 0 and n["b2"] > 0, n
 
 
 def test_pf_on_card_matches_cpu(cuda):
@@ -814,16 +831,18 @@ def test_pf_on_card_matches_cpu(cuda):
                            meas_sigma_gain=1.0, resident_extra_patches=2,
                            host_reorg_slack=0.5)
     padded = [pad_scan(c, beam_bucket(120)) for c in data.clouds[:11]]
-    fns = (scatter_matmul.deposit_pair, edt_pallas.edt2d,
-           gn_batch.solve_window_sq)
-    before = [f.launches for f in fns]
     runs = []
     for dev in ("cpu", cuda):
         pf = PFSlam2D(opts, device=dev)
         pf.set_prior(Pose2D(*data.poses_gt[0]))
         staged = [tuple(torch.as_tensor(a, device=dev) for a in p)
                   for p in padded]
-        acc = pf.update_many_prepadded(staged, data.odometry[:11])
+        if dev == "cpu":
+            acc = pf.update_many_prepadded(staged, data.odometry[:11])
+        else:
+            acc, n = devprof.launches_by_name(
+                lambda: pf.update_many_prepadded(staged, data.odometry[:11]),
+                {"b1": DEPOSIT, "b3": EDT_TILE, "b6": GN_SOLVE})
         runs.append((acc, pf.pset.pose.cpu().numpy(),
                      pf.pset.lineage.cpu().numpy(), pf.n_reorgs,
                      pf.escaped_count()))
@@ -834,14 +853,7 @@ def test_pf_on_card_matches_cpu(cuda):
                                 - np.arctan2(pg[:, 3], pg[:, 2]))))
     assert np.abs(dth).max() <= 1e-3
     assert np.array_equal(lc, lg)
-    assert all(f.launches > b for f, b in zip(fns, before))
-
-
-def _eager_motion(opts, eps, queue, poses):
-    """K eager ``draw_from_motion`` calls on the operands' device."""
-    for j in range(queue.shape[0]):
-        poses = draw_from_motion(opts, eps[j], queue[j], poses)
-    return poses
+    assert all(c > 0 for c in n.values()), n
 
 
 @pytest.mark.parametrize("n", [30, 512])
@@ -856,15 +868,19 @@ def test_motion_kernel_bit_exact(cuda, k, n):
     queue = torch.as_tensor(motion_cases.packets(k, seed=n), device=cuda)
     eps = torch.randn((k, n, 3), generator=gen).to(cuda)
     poses = motion_cases.start_poses(n).to(cuda)
-    before = motion.apply_queue.launches
-    got = motion.apply_queue(opts, eps, queue, poses)
-    assert motion.apply_queue.launches == before + 1
-    want = _eager_motion(opts, eps, queue, poses)
+    got, n = devprof.launches_by_name(
+        lambda: motion.apply_queue(opts, eps, queue, poses),
+        {"motion": MOTION}, TRIES)
+    assert n == {"motion": 1}
+    want = motion.apply_queue_plain(opts, eps, queue, poses)
     assert got.is_contiguous() and got.data_ptr() != poses.data_ptr()
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
 def test_motion_kernel_refuses_what_it_does_not_take(cuda):
+    """Draws of another shape, operands split between the card and the
+    CPU, and packets of another dtype are refused on the card; operands
+    all on the CPU take the plain version."""
     opts = PFSlam2DOptions(particles=4)
     poses = torch.zeros((4, 4), device=cuda)
     queue = torch.zeros((2, 4), device=cuda)
@@ -872,8 +888,11 @@ def test_motion_kernel_refuses_what_it_does_not_take(cuda):
         motion.apply_queue(opts, torch.zeros((2, 5, 3), device=cuda), queue,
                            poses)
     with pytest.raises(ValueError):
-        motion.apply_queue(opts, torch.zeros((2, 4, 3)), queue.cpu(),
-                           poses.cpu())
+        motion.apply_queue(opts, torch.zeros((2, 4, 3)), queue, poses)
+    eps = torch.ones((2, 4, 3))
+    assert torch.equal(
+        motion.apply_queue(opts, eps, queue.cpu(), poses.cpu()),
+        motion.apply_queue_plain(opts, eps, queue.cpu(), poses.cpu()))
     with pytest.raises(TypeError):
         motion.apply_queue(opts, torch.zeros((2, 4, 3), device=cuda),
                            queue.double(), poses)
@@ -883,10 +902,8 @@ def test_pf_motion_flush_is_one_copy_and_one_launch(cuda):
     """A flush of 21 queued packets on the card (30 particles): the poses
     of 21 eager ``draw_from_motion`` calls on the same generator draws, bit
     for bit, from one host-to-device copy and one launch of the motion
-    kernel, with no wait on the card; ``motion.kernel`` advances by one a
-    flush and ``motion.packets`` by 21."""
+    kernel, with no wait on the card."""
     from torch.profiler import ProfilerActivity, profile
-    from iris_lama_tpu_torch.utils import devprof, trace
     n, k, flushes = 30, 21, 3
     opts = PFSlam2DOptions(particles=n, seed=motion_cases.SEED)
     pf = PFSlam2D(opts, device=cuda)
@@ -898,14 +915,13 @@ def test_pf_motion_flush_is_one_copy_and_one_launch(cuda):
     gen = torch.Generator().manual_seed(motion_cases.SEED)
     eps = torch.stack([torch.randn((n, 3), generator=gen)
                        for _ in range(k)]).to(cuda)
-    want = _eager_motion(opts, eps, torch.as_tensor(np.stack(queue),
-                                                    device=cuda), start)
+    packets = torch.as_tensor(np.stack(queue), device=cuda)
+    want = motion.apply_queue_plain(opts, eps, packets, start)
     assert torch.equal(pf.pset.pose, want)
-    counts = trace.counts()
-    launches = motion.apply_queue.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        devprof.pad_profile()
         for _ in range(flushes):
             pf._odelta_queue = list(queue)
             pf._flush_motion()
@@ -917,17 +933,11 @@ def test_pf_motion_flush_is_one_copy_and_one_launch(cuda):
     # stream waits on a copy
     waits = {key for key in runtime if "Synchronize" in key}
     assert waits == {"cudaDeviceSynchronize"}, runtime
-    assert motion.apply_queue.launches == launches + flushes
     device = {r.key: r.count for r in devprof.cuda_rows(prof)}
-    kernels = sum(c for key, c in device.items() if "motion_kernel" in key)
+    kernels = sum(c for key, c in device.items() if MOTION in key)
     copies = sum(c for key, c in device.items() if "Memcpy HtoD" in key)
-    assert 1 <= kernels <= flushes and 1 <= copies <= flushes, device
+    assert kernels == copies == flushes, device
     assert kernels + copies == sum(device.values()), device
-    after = trace.counts()
-    assert after.get("motion.kernel", 0) - counts.get("motion.kernel", 0) \
-        == flushes
-    assert after["motion.packets"] - counts["motion.packets"] == k * flushes
-    assert after.get("motion.plain", 0) == counts.get("motion.plain", 0)
 
 
 # ---------------------------------------------------------------------------
@@ -988,23 +998,26 @@ def test_lidar_odometry_on_card_matches_cpu(cuda):
     opts = LidarOdometry2DOptions(resolution=0.1, patch_size=16,
                                   max_range=6.0, capacity=2048)
     padded = [pad_scan(c, beam_bucket(120)) for c in data.clouds[:20]]
-    before = (scatter_matmul.deposit_pair.launches,
-              edt_pallas.edt2d.launches)
     runs = []
     for dev in ("cpu", cuda):
         lo = LidarOdometry2D(opts, device=dev)
         flags, patches = [], []
-        for p in padded:
-            lo.update_prepadded(*(torch.as_tensor(a, device=dev) for a in p))
-            flags.append(lo.last_refresh)
-            patches.append(int(lo.map.table.num_patches()))
+
+        def run():
+            for p in padded:
+                lo.update_prepadded(*(torch.as_tensor(a, device=dev)
+                                      for a in p))
+                flags.append(lo.last_refresh)
+                patches.append(int(lo.map.table.num_patches()))
+
+        n = run() if dev == "cpu" else devprof.launches_by_name(
+            run, {"b1": DEPOSIT, "b3": EDT_TILE})[1]
         runs.append((lo.trajectory(), flags, patches))
     (tc, fc, pc), (tg, fg, pg) = runs
     assert fc == fg and pc == pg
     assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
     assert np.abs(np.angle(np.exp(1j * (tc[:, 2] - tg[:, 2])))).max() <= 1e-3
-    after = (scatter_matmul.deposit_pair.launches, edt_pallas.edt2d.launches)
-    assert all(a > b for a, b in zip(after, before))
+    assert n["b1"] > 0 and n["b3"] > 0, n
 
 
 @pytest.mark.parametrize("kw", [dict(transient_map=True),
@@ -1039,15 +1052,14 @@ def test_slam2d_options_on_card_match_cpu(cuda, kw, monkeypatch):
         return acc, slam
 
     acc_c, cpu = run("cpu")
-    before = _slam_launches()
-    acc_g, gpu = run(cuda)
-    n = [a - b for a, b in zip(_slam_launches(), before)]
+    (acc_g, gpu), n = devprof.launches_by_name(lambda: run(cuda),
+                                               SLAM_KERNELS, TRIES)
     tc, tg = cpu.trajectory(), gpu.trajectory()
     assert acc_c == acc_g and len(acc_c) > 10
     assert np.abs(tc[:, :2] - tg[:, :2]).max() <= 1e-3
     assert gpu.match_route == "solve"
-    assert n[0] > 0 and n[2] > 0, n
-    assert (n[1], n[3]) == (0, len(acc_g) - 1), n
+    assert n["b1"] > 0 and n["b3"] > 0, n
+    assert (n["b2"], n["b4"]) == (0, len(acc_g) - 1), n
 
     poses = iter(cpu._traj[1:len(acc_c)].to(cuda))
 
@@ -1192,18 +1204,21 @@ def test_graph_slam_on_card_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         gs = GraphSlam2D(_graph_opts(), device=dev)
         gs.set_prior(Pose2D(*data.poses_gt[0]))
-        before = _slam_launches()
-        for k, p in enumerate(padded):
-            gs.update_prepadded(*p, data.odometry[k], float(k))
+
+        def run():
+            for k, p in enumerate(padded):
+                gs.update_prepadded(*p, data.odometry[k], float(k))
+
+        n = run() if dev == "cpu" else devprof.launches_by_name(
+            run, SLAM_KERNELS)[1]
         runs.append(gs.key_poses)
-    n = [a - b for a, b in zip(_slam_launches(), before)]
     kc, kg = runs
     assert [k.timestamp for k in kc] == [k.timestamp for k in kg]
     pc = np.asarray([k.pose.xyr() for k in kc])
     pg = np.asarray([k.pose.xyr() for k in kg])
     assert np.abs(pc[:, :2] - pg[:, :2]).max() <= 1e-3
     assert np.abs(np.angle(np.exp(1j * (pc[:, 2] - pg[:, 2])))).max() <= 1e-3
-    assert n[0] > 0 and n[2] > 0 and n[3] > 0 and n[1] == 0, n
+    assert n["b1"] > 0 and n["b3"] > 0 and n["b4"] > 0 and n["b2"] == 0, n
 
 
 def test_graph_verification_batch_on_both_devices(cuda):
@@ -1338,19 +1353,25 @@ def test_pf_pool_path_on_card_matches_cpu(cuda):
                            rot_thresh=0.3, max_iter=30, seed=3,
                            meas_sigma_gain=1.0, resident_extra_patches=2,
                            host_reorg_slack=0.5)
-    fns = (scatter_matmul.deposit_pair, edt_pallas.edt2d,
-           gn_batch.solve_window_sq)
-    before = [f.launches for f in fns]
-    runs = []
+    kernels = {"b1": DEPOSIT, "b3": EDT_TILE, "b6": GN_SOLVE}
+    runs, n = [], dict.fromkeys(kernels, 0)
     for dev, resident in (("cpu", False), (cuda, False), (cuda, True)):
         pf = PFSlam2D(dataclasses.replace(opts, resident_window=resident),
                       device=dev)
         pf.set_prior(Pose2D(*data.poses_gt[0]))
         flags, poses = [], []
-        for k in range(11):
-            if pf.update(data.clouds[k], data.odometry[k]) and k:
-                flags.append(pf._last_info["resampled"])
-                poses.append(pf.pset.pose.cpu().clone())
+
+        def run():
+            for k in range(11):
+                if pf.update(data.clouds[k], data.odometry[k]) and k:
+                    flags.append(pf._last_info["resampled"])
+                    poses.append(pf.pset.pose.cpu().clone())
+
+        if dev == "cpu":
+            run()
+        else:
+            got = devprof.launches_by_name(run, kernels)[1]
+            n = {k: n[k] + got[k] for k in kernels}
         runs.append((flags, torch.stack(poses), pf.pset.weight.cpu()))
     (fc, pc, _), (fg, pg, wg), (fr, pr, wr) = runs
     assert fc == fg == fr and len(fc) >= 8 and any(fc)
@@ -1360,7 +1381,7 @@ def test_pf_pool_path_on_card_matches_cpu(cuda):
     dth = np.angle(np.exp(1j * (np.arctan2(pc[:, 3], pc[:, 2])
                                 - np.arctan2(pg[:, 3], pg[:, 2]))))
     assert np.abs(dth).max() <= 1e-3
-    assert all(f.launches > b for f, b in zip(fns, before))
+    assert all(c > 0 for c in n.values()), n
 
 
 SPILL_OPTS = dict(resolution=0.1, patch_size=8, max_range=3.0, l2_max=0.3,

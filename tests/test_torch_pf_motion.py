@@ -1,13 +1,14 @@
 """PFSlam2D's motion step on the CPU: the queued odometry packets, their
-draws and the counters of ``PFSlam2D._flush_motion``.
+draws and ``PFSlam2D._flush_motion``.
 
-The CPU takes the plain route (``draw_from_motion`` packet by packet); the
-card's route stages the whole queue in one host buffer and hands it to
-``ops.motion.apply_queue`` (one launch), which ``tests/test_torch_cuda.py``
-holds to the eager chain on the card. Here the staging is held to the
-plain route with the launch replaced by the plain chain. The draw stream
-is the one the benchmark's check replays: one ``("normal", (N, 3))`` a
-packet in queue order, then one ``("uniform", ())`` an accepted update.
+A flush stages the whole queue in one host buffer and hands it to
+``ops.motion.apply_queue``: on CPU tensors its plain version
+(``draw_from_motion`` packet by packet), on the card one launch, which
+``tests/test_torch_cuda.py`` holds to the eager chain there. Here the
+flush and the op on the staged queue are held to sequential draws. The
+draw stream is the one the benchmark's check replays: one ``("normal",
+(N, 3))`` a packet in queue order, then one ``("uniform", ())`` an
+accepted update.
 """
 
 from typing import NamedTuple
@@ -18,7 +19,8 @@ import torch
 
 from iris_lama_tpu_torch.algos import pf_slam2d as tpf
 from iris_lama_tpu_torch.core.pose import Pose2D
-from iris_lama_tpu_torch.utils import simulator, trace
+from iris_lama_tpu_torch.ops import motion
+from iris_lama_tpu_torch.utils import simulator
 from iris_lama_tpu_torch.utils.cloud import beam_bucket, pad_scan
 
 SEED = 5
@@ -79,33 +81,27 @@ def sequential(opts, queue, poses, gen):
     return poses
 
 
-def staged_plain(opts, eps, queue, poses):
-    """``ops.motion.apply_queue``'s contract, by the plain chain."""
-    for j in range(queue.shape[0]):
-        poses = tpf.draw_from_motion(opts, eps[j], queue[j], poses)
-    return poses
-
-
-@pytest.mark.parametrize("route", ["plain", "staged"])
+@pytest.mark.parametrize("route", ["flush", "op"])
 @pytest.mark.parametrize("n", [1, 30, 512])
 @pytest.mark.parametrize("k", [1, 21, 64])
-def test_flush_equals_sequential_draws(monkeypatch, k, n, route):
+def test_flush_equals_sequential_draws(k, n, route):
     """A flush of K packets equals K sequential ``draw_from_motion`` calls
-    on the same generator draws, bit for bit: the plain route, and the
-    card route's staging (the packets and the draws in one buffer, in
-    queue order) with its launch replaced by the plain chain."""
+    on the same generator draws, bit for bit: the driver's flush, and
+    ``ops.motion.apply_queue`` on CPU tensors with the staged queue (the
+    packets and the draws in one buffer, in queue order)."""
     opts = tpf.PFSlam2DOptions(particles=n, seed=SEED)
     pf = tpf.PFSlam2D(opts, device="cpu")
     pf.pset = _Poses(start_poses(n))
     queue = list(packets(k))
     pf._odelta_queue = list(queue)
-    if route == "plain":
+    if route == "flush":
         pf._flush_motion()
         got = pf.pset.pose
         assert pf._odelta_queue == []
     else:
-        monkeypatch.setattr(tpf.motion, "apply_queue", staged_plain)
-        got = pf._motion_kernel(queue)
+        staged, eps = pf._stage_motion(queue)
+        assert staged.shape == (k, 4) and eps.shape == (k, n, 3)
+        got = motion.apply_queue(opts, eps, staged, start_poses(n))
     want = sequential(opts, queue, start_poses(n),
                       torch.Generator().manual_seed(SEED))
     assert got.dtype == torch.float32 and got.shape == (n, 4)
@@ -114,36 +110,51 @@ def test_flush_equals_sequential_draws(monkeypatch, k, n, route):
 
 class Recorder:
     """A draw source from a generator of the filter's seed that logs each
-    call's kind and shape."""
+    call's kind and shape, and the draws."""
 
     def __init__(self, seed: int):
         self.gen = torch.Generator().manual_seed(seed)
-        self.calls = []
+        self.calls, self.draws = [], []
 
     def __call__(self, kind, shape):
         self.calls.append((kind, tuple(shape)))
         if kind == "normal":
-            return torch.randn(shape, generator=self.gen)
-        return torch.rand(shape, generator=self.gen)
+            out = torch.randn(shape, generator=self.gen)
+        else:
+            out = torch.rand(shape, generator=self.gen)
+        self.draws.append(out)
+        return out
 
 
-def _motion_counts() -> dict:
-    return {k: v for k, v in trace.counts().items()
-            if k.startswith("motion.")}
+class Flushes:
+    """Wraps a filter's ``_flush_motion`` to log each flush: the queue and
+    the poses before it, the normal draws it made, the poses and the queue
+    after it."""
 
+    def __init__(self, pf, rec: Recorder):
+        self.log, self._pf, self._rec = [], pf, rec
+        self._flush = pf._flush_motion
+        pf._flush_motion = self
 
-def _delta(before: dict, after: dict) -> dict:
-    return {k: after.get(k, 0) - before.get(k, 0)
-            for k in set(before) | set(after)
-            if after.get(k, 0) != before.get(k, 0)}
+    def __call__(self):
+        pf, n_draws = self._pf, len(self._rec.draws)
+        queue, pose = list(pf._odelta_queue), pf.pset.pose.clone()
+        self._flush()
+        self.log.append({"queue": queue, "before": pose,
+                         "draws": self._rec.draws[n_draws:],
+                         "after": pf.pset.pose.clone(),
+                         "left": list(pf._odelta_queue)})
+
+    def since(self, k: int) -> list:
+        return self.log[k:]
 
 
 @pytest.fixture(scope="module")
 def run():
     """A short PF run on the CPU (the card test's config) with a recording
     draw source: per scan, whether it was integrated, the packets it
-    flushed, the draws it made, and the motion counters' change over the
-    update and over the ``pose()`` read after it."""
+    flushed, the draws it made, the queue and poses around the update, and
+    the flushes of the update and of the ``pose()`` read after it."""
     data = simulator.simulate(simulator.SimConfig(
         n_steps=RUN_STEPS, seed=2,
         laser=simulator.LaserSpec(n_beams=120, max_range=8.0),
@@ -153,19 +164,23 @@ def run():
     rec = Recorder(opts.seed)
     pf = tpf.PFSlam2D(opts, device="cpu", draws=rec)
     pf.set_prior(Pose2D(*data.poses_gt[0]))
+    flushes = Flushes(pf, rec)
     scans = []
     for i, scan in enumerate(padded):
         queued = len(pf._odelta_queue) + (i > 0)
-        before, n_calls = _motion_counts(), len(rec.calls)
+        n_calls, n_flushes = len(rec.calls), len(flushes.log)
+        pose = None if pf.pset is None else pf.pset.pose.clone()
         ok = pf.update_prepadded(*(torch.as_tensor(a) for a in scan),
                                  data.odometry[i])
-        mid = _motion_counts()
+        s = {"ok": ok, "queued": queued, "draws": rec.calls[n_calls:],
+             "update": flushes.since(n_flushes), "pose_before": pose,
+             "queue_after": len(pf._odelta_queue),
+             "pose_after": pf.pset.pose.clone()}
+        n_flushes = len(flushes.log)
         if ok:
             pf.pose()
-        scans.append({"ok": ok, "queued": queued,
-                      "draws": rec.calls[n_calls:],
-                      "update": _delta(before, mid),
-                      "pose": _delta(mid, _motion_counts())})
+        s["pose"] = flushes.since(n_flushes)
+        scans.append(s)
     plain = tpf.PFSlam2D(opts, device="cpu")
     plain.set_prior(Pose2D(*data.poses_gt[0]))
     for i, scan in enumerate(padded):
@@ -173,7 +188,7 @@ def run():
                                data.odometry[i])
     return {"scans": scans, "pose": pf.pset.pose, "lineage": pf.pset.lineage,
             "default_pose": plain.pset.pose,
-            "default_lineage": plain.pset.lineage}
+            "default_lineage": plain.pset.lineage, "opts": opts}
 
 
 def test_draws_follow_the_queue(run):
@@ -196,12 +211,28 @@ def test_draws_follow_the_queue(run):
 
 
 def test_motion_counters(run):
-    """``motion.plain`` and ``motion.packets`` advance by 1 and K a flush
-    of K packets; a gated scan and the empty flush of ``pose()`` after an
-    update advance nothing, and the CPU never counts ``motion.kernel``."""
-    for s in run["scans"][1:]:
-        want = ({"motion.plain": 1, "motion.packets": s["queued"]}
-                if s["ok"] else {})
-        assert s["update"] == want
-        assert s["pose"] == {}
-    assert run["scans"][0]["update"] == {}
+    """An integrated update flushes once: its K queued packets leave the
+    queue and move the poses as K sequential ``draw_from_motion`` calls on
+    its K draws. A gated scan flushes nothing: the queue grows by its
+    packet and the poses stay. The empty flush of ``pose()`` after an
+    update leaves the poses bit-equal."""
+    opts, scans = run["opts"], run["scans"]
+    assert scans[0]["update"] == [] and scans[0]["queue_after"] == 0
+    for s in scans[1:]:
+        if s["ok"]:
+            (f,) = s["update"]
+            assert len(f["queue"]) == len(f["draws"]) == s["queued"]
+            assert f["left"] == [] and s["queue_after"] == 0
+            assert torch.equal(f["before"], s["pose_before"])
+            want = f["before"]
+            for eps, od in zip(f["draws"], f["queue"]):
+                want = tpf.draw_from_motion(opts, eps, torch.as_tensor(od),
+                                            want)
+            assert torch.equal(f["after"], want)
+            (p,) = s["pose"]
+            assert p["queue"] == [] and p["draws"] == []
+            assert torch.equal(p["after"], p["before"])
+        else:
+            assert s["update"] == [] and s["pose"] == []
+            assert s["queue_after"] == s["queued"]
+            assert torch.equal(s["pose_after"], s["pose_before"])
